@@ -1,20 +1,42 @@
-"""Smoke run of the PyTorch port's training step on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one line each (any failure raises and exits non-zero):
   1. device: torch's device name and nvidia-smi's name and power limit;
-  2. build: compiles csrc/packed_ndft.cu with nvcc (sm_90a) if needed;
-  3. kernels: the CUDA adjoint and forward against their plain torch versions
-     on the card at the training shapes (n = 2e5, d = 10, five 2-D windows,
-     N = 32, bf16 table), plus a case with a 1-D window; relative Frobenius
-     error <= 1e-4 (two f32 sums over 2e5 terms in different orders, about
-     sqrt(n) eps); median times from CUDA events;
-  4. main path: GPProblem(fastsum + Nystrom).fit for 3 Adam steps at
-     n = 2e5; every loss finite and both kernels launched during the fit;
-  5. engine agreement at n = 2e4: the streamed kernels against the torch
-     table engine (loss rtol 4e-2, gradient rtol 2e-1 / atol 2e-2: the
-     engines differ by the trimmed Nyquist mode and bf16 table rounding).
+  2. build: compiles the two kernel libraries of csrc/ with nvcc (sm_90a),
+     one nvcc per source, both at once, if needed;
+  3. kernels: the table kernels (CUDA adjoint and forward) against their
+     plain torch versions on the card at the training shapes (n = 2e5,
+     d = 10, five 2-D windows, N = 32, bf16 table), plus a case with a 1-D
+     window, plus the fused layout's windows trimmed to 2P = 32;
+  4. kernels-regen: the phase-regenerating kernels against their plain
+     versions at the fused layout WINDOWS_FUSED (its 2-D and 1-D windows;
+     N = 32, untrimmed 2P = 34), both phase sources ("doubling", "direct"),
+     nv = 1, 10 and nsets = 1, 2, 20;
+     in 3 and 4 the limit is a relative Frobenius error <= 1e-4 (two f32
+     sums over 2e5 terms in different orders, about sqrt(n) eps); median
+     times from CUDA events;
+  5. main: GPProblem(fastsum + Nystrom, gaussian, stream engine).fit for 3
+     Adam steps at n = 2e5; every loss finite and both table kernels
+     launched during the fit;
+  6. agree: at n = 2e4, the streamed kernels against the torch table engine
+     (loss rtol 4e-2, gradient rtol 2e-1 / atol 2e-2: the engines differ by
+     the trimmed Nyquist mode and bf16 table rounding);
+  7. fused: GPProblem(matern12, WINDOWS_FUSED, fastsum_fused=True).fit for 3
+     Adam steps at n = 2e5: the KNN near-field built once (its form and row
+     widths printed), the 3-feature window on the table path; every loss
+     finite and both regenerating kernels launched during the fit;
+  8. agree-fused: at n = 2e4, the fused engine against the table engine with
+     float32 tables, the same probes, landmarks and near-field patterns, at
+     (f, l, mu) = (1, 0.5, 1) (loss rtol 1e-3, gradient rtol 1e-2 / atol
+     1e-3: the two apply the same untrimmed operator -- in float64 their
+     losses agree to 1e-15 -- and in float32 differ only in summation order
+     and phase evaluation, about 1e-7 on a matvec).  Not at mu = 0.1: there
+     FGMRES stops unconverged after its 2 maxits = 20 steps (relres 7e-2 to
+     9e-2 on the card), so yKy/n is set by float32 rounding (table engine
+     float32 vs float64 on the card: 28% apart) and cannot tell the engines
+     apart; the SLQ logdet term agrees to 5e-6 there.
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits non-zero.
@@ -33,13 +55,12 @@ N_AGREE = 20_000
 DIM = 10
 WINDOWS = [[0, 1], [2, 3], [4, 5], [6, 7], [8, 9]]
 WINDOWS_1D = [[0, 1], [2, 3], [4]]
+WINDOWS_FUSED = [[0, 1, 2], [3, 4], [5, 6], [7, 8], [9]]
 FASTSUM_N = 32
 KERNEL_RTOL = 1e-4
-SOURCE = "preconditioned_additive_gaussian_processes_with_fourier_acceleration_tpu_torch/csrc/packed_ndft.cu"
-TPU_KERNELS = {
-    "packed_adjoint": "preconditioned_additive_gaussian_processes_with_fourier_acceleration_tpu/ops/pallas_ndft.py:189",
-    "packed_forward": "preconditioned_additive_gaussian_processes_with_fourier_acceleration_tpu/ops/pallas_ndft.py:361",
-}
+PKG = "preconditioned_additive_gaussian_processes_with_fourier_acceleration_tpu"
+SOURCES = {"table": f"{PKG}_torch/csrc/packed_ndft.cu", "regen": f"{PKG}_torch/csrc/packed_ndft_regen.cu"}
+TPU_KERNELS = {"adjoint": f"{PKG}/ops/pallas_ndft.py:189", "forward": f"{PKG}/ops/pallas_ndft.py:361"}
 
 
 def nvidia_smi() -> str:
@@ -79,66 +100,107 @@ def _rel_err(got, want):
     return float(torch.linalg.norm(diff) / torch.linalg.norm(want.double())), float(diff.abs().max())
 
 
-def check_kernels(X, windows, nvs, nsets_list, timed=True):
-    """Kernel vs plain version on the card for one window layout.
+def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets_list, timed):
+    """One adjoint kernel and one forward kernel against their plain versions.
 
-    Returns a list of per-case dicts (kernel, shape, rel, max_abs, ms, plain_ms)."""
-    from nfft4gp_torch.ops import fastsum as fs
-    from nfft4gp_torch.ops import packed_ndft as pk
-    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
-
-    params = KernelParams.make(1.0, 0.5, 0.1, dtype=torch.float32, device=X.device)
-    plan = fs.additive_fastsum_build("gaussian", params, X, make_windows(windows), N=FASTSUM_N,
-                                     table_dtype=torch.bfloat16)
-    pn = fs.packed_ndft_plan(plan, table_dtype=torch.bfloat16)
-    Tp, pairs, singles = pn.Tp, pn.pairs, pn.singles
-    gen = torch.Generator(device=X.device).manual_seed(1)
+    adj(alpha) / fwd(G2, G1) are the wrappers on one layout; adj_plain /
+    fwd_plain the plain versions.  Returns per-case dicts (kernel, mode,
+    shape, rel, max_abs, ms, plain_ms)."""
+    n, dev = X.shape[0], X.device
+    gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
-
     for nv in nvs:
-        alpha = torch.randn((nv, X.shape[0]), generator=gen, device=X.device)
-        got = pk.packed_adjoint(Tp, alpha, pairs=pairs, singles=singles)
+        alpha = torch.randn((nv, n), generator=gen, device=dev)
+        got = adj(alpha)
         torch.cuda.synchronize()
-        want = pk.packed_adjoint_plain(Tp, alpha, pairs, singles)
-        got = [torch.stack(g, dim=1) for g in got if g]
-        rel, mx = _rel_err(got, [w for w in want if w.numel()])
-        ms = cuda_ms(lambda: pk.packed_adjoint(Tp, alpha, pairs=pairs, singles=singles)) if timed else None
-        pms = cuda_ms(lambda: pk.packed_adjoint_plain(Tp, alpha, pairs, singles)) if timed else None
-        cases.append(dict(kernel="packed_adjoint", shape=f"nv={nv}", rel=rel, max_abs=mx, ms=ms, plain_ms=pms))
+        want = adj_plain(alpha)
+        rel, mx = _rel_err([torch.stack(g, dim=1) for g in got if g], [w for w in want if w.numel()])
+        ms = cuda_ms(lambda: adj(alpha)) if timed else None
+        pms = cuda_ms(lambda: adj_plain(alpha)) if timed else None
+        cases.append(dict(kernel=names[0], shape=f"nv={nv}", rel=rel, max_abs=mx, ms=ms, plain_ms=pms))
 
     # realistic combined weights: K and dK/dl sets of real adjoint outputs
-    nmax = max(nsets_list)
-    alpha = torch.randn((-(-nmax // 2), X.shape[0]), generator=gen, device=X.device)
-    A2, A1 = pk.packed_adjoint_plain(Tp, alpha, pairs, singles)
-    G2all = [torch.stack([fs._folded_combine(W[i], A2[:, i], 2) for W in (pn.w2, pn.dw2)], 1)
-             .reshape(-1, 2 * pn.P, 2 * pn.P) for i in range(len(pairs))]
-    G1all = [torch.stack([fs._folded_combine(W[i], A1[:, i], 1) for W in (pn.w1, pn.dw1)], 1)
-             .reshape(-1, 2 * pn.P) for i in range(len(singles))]
+    from nfft4gp_torch.ops import fastsum as fs
+
+    alpha = torch.randn((-(-max(nsets_list) // 2), n), generator=gen, device=dev)
+    A2, A1 = adj_plain(alpha)
+    G2all = [torch.stack([fs._folded_combine(W[i], A2[:, i], 2) for W in (lay.w2, lay.dw2)], 1)
+             .reshape(-1, 2 * P, 2 * P) for i in range(len(lay.pairs))]
+    G1all = [torch.stack([fs._folded_combine(W[i], A1[:, i], 1) for W in (lay.w1, lay.dw1)], 1)
+             .reshape(-1, 2 * P) for i in range(len(lay.singles))]
     for nsets in nsets_list:
         G2 = [g[:nsets].contiguous() for g in G2all]
         G1 = [g[:nsets].contiguous() for g in G1all]
-        got = pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles)
+        got = fwd(G2, G1)
         torch.cuda.synchronize()
-        G2s = torch.stack(G2, 1) if pairs else None
-        G1s = torch.stack(G1, 1) if singles else None
-        want = pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles)
-        rel, mx = _rel_err(got, [want])
-        ms = cuda_ms(lambda: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles)) if timed else None
-        pms = cuda_ms(lambda: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles)) if timed else None
-        cases.append(dict(kernel="packed_forward", shape=f"nsets={nsets}", rel=rel, max_abs=mx, ms=ms, plain_ms=pms))
+        G2s = torch.stack(G2, 1) if G2 else None
+        G1s = torch.stack(G1, 1) if G1 else None
+        rel, mx = _rel_err(got, [fwd_plain(G2s, G1s)])
+        ms = cuda_ms(lambda: fwd(G2, G1)) if timed else None
+        pms = cuda_ms(lambda: fwd_plain(G2s, G1s)) if timed else None
+        cases.append(dict(kernel=names[1], shape=f"nsets={nsets}", rel=rel, max_abs=mx, ms=ms, plain_ms=pms))
 
     for c in cases:
-        print(f"[kernels] windows={windows} {c['kernel']} {c['shape']}: rel_err={c['rel']:.3e} "
-              f"max_abs_err={c['max_abs']:.3e} ms={c['ms']} plain_ms={c['plain_ms']}", flush=True)
+        c["mode"] = tag.split(" ")[0]
+        print(f"[{'kernels-regen' if names[0].endswith('regen') else 'kernels'}] {tag} {c['kernel']} "
+              f"{c['shape']}: rel_err={c['rel']:.3e} max_abs_err={c['max_abs']:.3e} ms={c['ms']} "
+              f"plain_ms={c['plain_ms']}", flush=True)
         if not c["rel"] <= KERNEL_RTOL:
-            raise AssertionError(f"{c['kernel']} {c['shape']} disagrees with its plain version: {c['rel']}")
+            raise AssertionError(f"{c['kernel']} {tag} {c['shape']} disagrees with its plain version: {c['rel']}")
     return cases
 
 
-def run_main_path(X, y):
-    """3 Adam steps of the five-window fastsum + Nystrom fit; returns
-    (losses, seconds per step, launch counts during the fit)."""
-    from nfft4gp_torch.models.problem import GPProblem
+def _plan(X, windows):
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
+
+    params = KernelParams.make(1.0, 0.5, 0.1, dtype=torch.float32, device=X.device)
+    return fs.additive_fastsum_build("gaussian", params, X, make_windows(windows), N=FASTSUM_N)
+
+
+def check_kernels(X, windows, nvs, nsets_list, timed=True):
+    """The table kernels against their plain versions (bf16 table, 2P = 32)."""
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    pn = fs.packed_ndft_plan(_plan(X, windows), table_dtype=torch.bfloat16)
+    Tp, pairs, singles = pn.Tp, pn.pairs, pn.singles
+    return check_pair(
+        f"table-bf16 windows={windows}", ("packed_adjoint", "packed_forward"),
+        lambda a: pk.packed_adjoint(Tp, a, pairs=pairs, singles=singles),
+        lambda a: pk.packed_adjoint_plain(Tp, a, pairs, singles),
+        lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles),
+        lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles),
+        pn, pn.P, X, nvs, nsets_list, timed)
+
+
+def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 20)):
+    """The regenerating kernels against their plain versions on the d <= 2
+    windows of WINDOWS_FUSED, untrimmed (2P = 34), both phase sources."""
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    plan = _plan(X, WINDOWS_FUSED)
+    lay = fs._packed_layout(plan)
+    P = fs._nmodes(FASTSUM_N)
+    xT, pairs, singles = lay.xT, lay.pairs, lay.singles
+    cases = []
+    for gen in pk.PHASE_GENS:
+        kw = dict(P=P, pairs=pairs, singles=singles, phase_gen=gen)
+        cases += check_pair(
+            f"{gen} windows={WINDOWS_FUSED}", ("packed_adjoint_regen", "packed_forward_regen"),
+            lambda a: pk.packed_adjoint_regen(xT, a, **kw),
+            lambda a: pk.packed_adjoint_regen_plain(xT, a, P, pairs, singles, gen),
+            lambda G2, G1: pk.packed_forward_regen(xT, G2, G1, **kw),
+            lambda G2s, G1s: pk.packed_forward_regen_plain(xT, G2s, G1s, P, pairs, singles, gen),
+            lay, P, X, nvs, nsets_list, True)
+    return cases
+
+
+def timed_fit(prob, X, y, counted):
+    """3 Adam steps of prob.fit with the given kernels' launch counts set to 0
+    just before and read just after.  Returns (losses, seconds to the end of
+    each step from the call of fit, launch counts)."""
     from nfft4gp_torch.ops import packed_ndft as pk
 
     stamps = []
@@ -147,16 +209,17 @@ def run_main_path(X, y):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
 
-    prob = GPProblem(kernel="gaussian", windows=WINDOWS, operator="fastsum", precond="nystrom",
-                     rank=50, maxits=10, nvecs=10, fastsum_N=FASTSUM_N)
     pk.reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    stamps.append(t0)
+    stamps.append(time.perf_counter())
     prob.fit(X, y, adam_maxits=3, callback=tick)
-    counts = {"packed_adjoint": pk.packed_adjoint.launches, "packed_forward": pk.packed_forward.launches}
-    steps = np.diff(stamps)
-    return prob.loss_history_, steps, counts
+    counts = {fn.__name__: fn.launches for fn in pk.KERNEL_WRAPPERS}
+    losses = prob.loss_history_
+    if len(losses) != 3 or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses not finite: {losses}")
+    if min(counts[k] for k in counted) <= 0:
+        raise AssertionError(f"a kernel of the path was not launched: {counts}")
+    return losses, np.diff(stamps), counts
 
 
 def check_engines(X, y):
@@ -174,10 +237,39 @@ def check_engines(X, y):
     np.testing.assert_allclose(grad_s.cpu().numpy(), grad_t.cpu().numpy(), rtol=2e-1, atol=2e-2)
 
 
+FUSED = dict(kernel="matern12", windows=WINDOWS_FUSED, operator="fastsum", precond="nystrom",
+             rank=50, maxits=10, nvecs=10, fastsum_N=FASTSUM_N)
+
+
+def check_fused_engines(X, y):
+    from nfft4gp_torch.models.problem import GPProblem
+    from nfft4gp_torch.models.transforms import transform_inverse
+
+    raw = transform_inverse("softplus", torch.tensor([1.0, 0.5, 1.0], device=X.device))
+    fused = GPProblem(fastsum_fused=True, **FUSED)
+    loss_f, grad_f = fused.make_loss(X, y)(raw)
+    loss_t, grad_t = GPProblem(fastsum_engine="table", fastsum_table_dtype="float32", **FUSED).make_loss(
+        X, y, nf_patterns=fused.nf_patterns_)(raw)
+    print(f"[agree-fused] n={X.shape[0]} (f, l, mu) = (1, 0.5, 1) fused loss={float(loss_f):.8e} grad={grad_f.tolist()} | "
+          f"table(f32) loss={float(loss_t):.8e} grad={grad_t.tolist()}", flush=True)
+    np.testing.assert_allclose(float(loss_f), float(loss_t), rtol=1e-3)
+    np.testing.assert_allclose(grad_f.cpu().numpy(), grad_t.cpu().numpy(), rtol=1e-2, atol=1e-3)
+
+
+def _summary(name, route, mode, cases, shape, launches):
+    c = next(c for c in cases if c["kernel"] == name and c["shape"] == shape and c["mode"] == mode)
+    base = "adjoint" if "adjoint" in name else "forward"
+    return {"name": name, "route": "cuda", "source": SOURCES[route], "replaces": TPU_KERNELS[base],
+            "mode": mode, "launches": launches[name],
+            "max_abs_err": max(d["max_abs"] for d in cases if d["kernel"] == name),
+            "ms": c["ms"], "plain_ms": c["plain_ms"]}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
     import nfft4gp_torch  # noqa: F401  (switches TF32 off)
+    from nfft4gp_torch.models.problem import GPProblem
     from nfft4gp_torch.ops import _cuda_build
 
     name = torch.cuda.get_device_name(0)
@@ -185,32 +277,42 @@ def main():
     print(f"[device] torch: {name}, count {torch.cuda.device_count()}; nvidia-smi name, power.limit:", flush=True)
     print(smi, flush=True)
 
-    path, secs = _cuda_build.build()
-    _cuda_build.library()
-    print(f"[build] {path.parent.name}/{path.name} compiled in {secs:.1f} s", flush=True)
+    paths, secs = _cuda_build.build()
+    for lib in paths:
+        _cuda_build.library(lib)
+    print(f"[build] {', '.join(p.parent.name for p in paths.values())} compiled in {secs:.1f} s "
+          "(one nvcc per source, in parallel)", flush=True)
 
     X, y = make_data(N_POINTS)
     cases = check_kernels(X, WINDOWS, nvs=(1, 10), nsets_list=(1, 2, 20))
     cases += check_kernels(X, WINDOWS_1D, nvs=(1, 10), nsets_list=(1, 20), timed=False)
+    check_kernels(X, WINDOWS_FUSED, nvs=(1, 10), nsets_list=(1, 2, 20))
+    regen = check_regen_kernels(X)
 
-    losses, steps, counts = run_main_path(X, y)
+    prob = GPProblem(kernel="gaussian", windows=WINDOWS, operator="fastsum", precond="nystrom",
+                     rank=50, maxits=10, nvecs=10, fastsum_N=FASTSUM_N)
+    losses, steps, counts = timed_fit(prob, X, y, ("packed_adjoint", "packed_forward"))
     print(f"[main] n={N_POINTS} losses={losses} s_per_step={steps.tolist()} "
           f"median_s_per_step={float(np.median(steps)):.4f} launches={counts}", flush=True)
-    if not all(np.isfinite(losses)) or len(losses) != 3:
-        raise AssertionError(f"main path losses not finite: {losses}")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched on the main path: {counts}")
 
     check_engines(X[:N_AGREE], y[:N_AGREE])
 
-    summary = []
-    for kname, shape in (("packed_adjoint", "nv=10"), ("packed_forward", "nsets=20")):
-        c = next(c for c in cases if c["kernel"] == kname and c["shape"] == shape)
-        summary.append({
-            "name": kname, "route": "cuda", "source": SOURCE, "replaces": TPU_KERNELS[kname],
-            "launches": counts[kname], "max_abs_err": max(d["max_abs"] for d in cases if d["kernel"] == kname),
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
-        })
+    fprob = GPProblem(fastsum_fused=True, **FUSED)
+    flosses, fsteps, fcounts = timed_fit(fprob, X, y, ("packed_adjoint_regen", "packed_forward_regen"))
+    nf = [None if p is None else (p[2], tuple(p[0].shape)) for p in fprob.nf_patterns_]
+    print(f"[fused] n={N_POINTS} windows={WINDOWS_FUSED} nf (nf_sym, (windows, n, row width)) per group={nf} "
+          f"losses={flosses} s_per_step={fsteps.tolist()} (the first includes the set-up: geometry, KNN, "
+          f"symmetrization) median_steady_s_per_step={float(np.median(fsteps[1:])):.4f} launches={fcounts}",
+          flush=True)
+    if not any(p is not None for p in fprob.nf_patterns_):
+        raise AssertionError("the matern12 fused path built no near-field")
+
+    check_fused_engines(X[:N_AGREE], y[:N_AGREE])
+
+    summary = [_summary("packed_adjoint", "table", "table-bf16", cases, "nv=10", counts),
+               _summary("packed_forward", "table", "table-bf16", cases, "nsets=20", counts),
+               _summary("packed_adjoint_regen", "regen", "doubling", regen, "nv=10", fcounts),
+               _summary("packed_forward_regen", "regen", "doubling", regen, "nsets=20", fcounts)]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

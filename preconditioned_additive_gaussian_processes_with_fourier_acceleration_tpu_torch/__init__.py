@@ -8,10 +8,11 @@ numpy only, never jax.
 
 What is here: the kernel families with (f, l, mu) gradients and additive
 windows, the dense operator, the folded-NDFT fastsum operator for windows
-of one or two features (table engine in torch, streamed engine on the two
-hand-written CUDA kernels of `ops/packed_ndft.py`), FGMRES, batched
-Lanczos/SLQ, the Nystrom preconditioner, the marginal-likelihood loss with
-the reference's estimator, Adam and `GPProblem.fit`.
+of one to three features with the matern12 KNN near-field (table engine in
+torch; streamed-table and phase-regenerating engines on the hand-written
+CUDA kernels of `ops/packed_ndft.py`), FGMRES, batched Lanczos/SLQ, the
+Nystrom preconditioner, the marginal-likelihood loss with the reference's
+estimator, Adam and `GPProblem.fit`.
 
 Float32 products run in full float32: TF32 is switched off here.  This is
 the counterpart of the JAX package's `precision="highest"` products; the

@@ -34,48 +34,40 @@ class InjectedState(NamedTuple):
     raw_params: Optional[torch.Tensor]
     landmarks: Optional[torch.Tensor]
     probes: Optional[torch.Tensor]
+    nf_patterns: Optional[tuple]
 
 
-def state_from_numpy(device, *, raw_params=None, landmarks=None, probes=None, dtype=None):
+def state_from_numpy(device, *, raw_params=None, landmarks=None, probes=None, nf_patterns=None,
+                     dtype=None):
     """Turn numpy arrays drawn on the JAX side (raw hyperparameters, Nystrom
-    landmark indices, the Rademacher probe matrix) into tensors on `device`,
-    so both packages compute the same loss.  dtype applies to the float arrays
-    (default: their own)."""
-    def conv(a, is_index=False):
+    landmark indices, the Rademacher probe matrix, the near-field patterns)
+    into tensors on `device`, so both packages compute the same loss.
+
+    nf_patterns: per window group None or (idx, mask, sym), the output of the
+    JAX symmetrize_nearfield_patterns (idx and mask (Wg, n, lfil) arrays).
+    dtype applies to the float arrays (default: their own)."""
+    def conv(a, kind=None):
         if a is None:
             return None
         t = torch.from_numpy(np.array(a, copy=True))
-        t = t.to(torch.int64) if is_index else (t.to(dtype) if dtype is not None else t)
+        t = t.to(kind) if kind is not None else (t.to(dtype) if dtype is not None else t)
         return t.to(device)
 
-    return InjectedState(raw_params=conv(raw_params), landmarks=conv(landmarks, True),
-                         probes=conv(probes))
+    pats = None if nf_patterns is None else tuple(
+        None if p is None else (conv(p[0], torch.int64), conv(p[1], torch.bool), bool(p[2]))
+        for p in nf_patterns)
+    return InjectedState(raw_params=conv(raw_params), landmarks=conv(landmarks, torch.int64),
+                         probes=conv(probes), nf_patterns=pats)
 
 
-def _stream_ops(pn):
-    """(matvec, dmatvec) on the packed CUDA kernels; batches of rows go
-    straight to the multi-RHS functions, which share one table stream."""
+def _ops(matvec_batch, grad_matvec_batch):
+    """(matvec, dmatvec) on one vector (n,) or a batch of rows (nv, n): the
+    batch functions share one kernel pass across the rows."""
     def mv(v):
-        return fs.packed_ndft_matvec(pn, v) if v.ndim == 1 else fs.packed_ndft_matvec_batch(pn, v)
+        return matvec_batch(v[None])[0] if v.ndim == 1 else matvec_batch(v)
 
     def dmv(v):
-        return (fs.packed_ndft_grad_matvec(pn, v) if v.ndim == 1
-                else fs.packed_ndft_grad_matvec_batch(pn, v))
-
-    return mv, dmv
-
-
-def _table_ops(plan):
-    """(matvec, dmatvec) on the torch table engine; row batches loop."""
-    def mv(v):
-        if v.ndim == 1:
-            return fs.additive_fastsum_matvec(plan, v)
-        return torch.stack([fs.additive_fastsum_matvec(plan, r) for r in v])
-
-    def dmv(v):
-        if v.ndim == 1:
-            return fs.additive_fastsum_grad_matvec(plan, v)
-        return torch.stack([fs.additive_fastsum_grad_matvec(plan, r) for r in v])
+        return grad_matvec_batch(v[None])[0] if v.ndim == 1 else grad_matvec_batch(v)
 
     return mv, dmv
 
@@ -86,17 +78,26 @@ class GPProblem:
 
     kernel:   'gaussian' | 'matern32' | 'matern12'
     windows:  None (full kernel) or list of feature-index lists (additive)
-    operator: 'dense' | 'fastsum' (fastsum: additive windows of 1-2 features)
+    operator: 'dense' | 'fastsum' (fastsum: additive windows of 1-3 features)
     precond:  'none' | 'nystrom'
 
-    fastsum_engine: 'stream' (the packed CUDA kernels; their plain torch
+    fastsum_engine: 'stream' (the packed table kernels; their plain torch
     versions on CPU tensors) | 'table' (torch products on per-window
     tables) | 'auto' (stream when X is a CUDA tensor, table on the CPU).
+    fastsum_fused: the phase-regenerating kernels instead (the plain
+    versions on CPU tensors), with 'auto' or 'table' as the engine; 'stream'
+    conflicts with it.  3-feature windows run on the table path in the
+    kernel engines.
     fastsum_table_dtype: 'auto' = bfloat16 tables for float32 data, the data
     dtype otherwise; None / 'float32' / a torch dtype name force one.
+    fastsum_nearfield_lfil: the near-field correction's KNN width; None =
+    16 for matern12, else 0.  The table and fused engines build the KNN
+    pattern once per dataset (symmetrized unless the skewed in-degree guard
+    trips) and keep it in `nf_patterns_`.  The stream engine's near-field
+    (cell stencils in the JAX package) is not ported.
 
-    lfil, fastsum_fused and predict_operator are kept so that a problem
-    saved by the JAX package loads; they select paths not ported yet.
+    lfil and predict_operator are kept so that a problem saved by the JAX
+    package loads; they select paths not ported yet.
     """
 
     kernel: str = "gaussian"
@@ -121,9 +122,15 @@ class GPProblem:
 
     raw_params_: Optional[torch.Tensor] = None
     loss_history_: list = field(default_factory=list)
+    nf_patterns_: Optional[tuple] = None
 
     def _windows_arr(self):
         return make_windows(self.windows) if self.windows is not None else None
+
+    def _nf_lfil(self):
+        if self.fastsum_nearfield_lfil is None:
+            return 16 if self.kernel == "matern12" else 0
+        return self.fastsum_nearfield_lfil
 
     def _cfg(self):
         return GPConfig(kind=self.kernel, transform=self.transform, maxits=self.maxits,
@@ -136,7 +143,7 @@ class GPProblem:
             return None
         return getattr(torch, str(self.fastsum_table_dtype))
 
-    def _build_ops_factory(self, X):
+    def _build_ops_factory(self, X, nf_patterns=None):
         warr = self._windows_arr()
         if self.operator == "dense":
             return make_dense_ops(self.kernel, X, windows=warr)
@@ -144,24 +151,40 @@ class GPProblem:
             raise ValueError(f"unknown operator {self.operator}")
         if warr is None:
             raise NotImplementedError("the torch fastsum operator needs additive windows")
-        if self.fastsum_fused:
-            raise NotImplementedError("fastsum_fused (phase-regenerating kernels) is not ported yet")
-        nf = self.fastsum_nearfield_lfil
-        if (16 if self.kernel == "matern12" else 0) if nf is None else nf:
-            raise NotImplementedError("the fastsum near-field correction is not ported yet")
         if self.fastsum_engine not in ("auto", "stream", "table"):
             raise ValueError(f"unknown fastsum_engine {self.fastsum_engine}")
+        if self.fastsum_fused and self.fastsum_engine == "stream":
+            raise ValueError("fastsum_fused=True conflicts with fastsum_engine='stream' -- pick one "
+                             "(fused regenerates the phases, stream reads packed tables)")
         use_stream = self.fastsum_engine == "stream" or (
-            self.fastsum_engine == "auto" and X.is_cuda)
+            self.fastsum_engine == "auto" and not self.fastsum_fused and X.is_cuda)
+        nf_lfil = self._nf_lfil()
+        if nf_lfil > 0 and use_stream:
+            raise NotImplementedError(
+                "the stream engine's near-field (cell stencils) is not ported yet; "
+                "use fastsum_fused=True or fastsum_engine='table'")
         tdt = self._table_dtype(X)
         geom = fs.additive_fastsum_geometry(X, warr, N=self.fastsum_N, table_dtype=tdt)
+        # the KNN patterns do not depend on the hyperparameters: once per
+        # dataset (the correction values refresh with params inside build)
+        if nf_lfil > 0 and nf_patterns is None:
+            nf_patterns = fs.symmetrize_nearfield_patterns(
+                fs.additive_nearfield_patterns(self.kernel, geom, nf_lfil))
+        self.nf_patterns_ = nf_patterns if nf_lfil > 0 else None
 
         def build(params):
             plan = fs.additive_fastsum_coeffs(self.kernel, params, geom,
-                                              oversample=self.fastsum_oversample)
+                                              oversample=self.fastsum_oversample,
+                                              nearfield_lfil=nf_lfil, nf_patterns=self.nf_patterns_)
             if use_stream:
-                return _stream_ops(fs.packed_ndft_plan(plan, table_dtype=tdt))
-            return _table_ops(plan)
+                pn = fs.packed_ndft_plan(plan, table_dtype=tdt)
+                return _ops(lambda V: fs.packed_ndft_matvec_batch(pn, V),
+                            lambda V: fs.packed_ndft_grad_matvec_batch(pn, V))
+            if self.fastsum_fused:
+                return _ops(lambda V: fs.additive_fastsum_matvec_fused_batch(plan, V),
+                            lambda V: fs.additive_fastsum_grad_matvec_fused_batch(plan, V))
+            return _ops(lambda V: fs.additive_fastsum_matvec(plan, V),
+                        lambda V: fs.additive_fastsum_grad_matvec(plan, V))
 
         return build
 
@@ -179,14 +202,17 @@ class GPProblem:
         return lambda params: nystrom_setup(self.kernel, params, X, landmarks, k,
                                             require_grad=True, windows=warr)
 
-    def make_loss(self, X, y, *, probes=None, landmarks=None):
+    def make_loss(self, X, y, *, probes=None, landmarks=None, nf_patterns=None):
         """raw_params -> (loss, grad) closure.
 
-        probes (nvecs, n) and landmarks (>= rank indices) may be injected, the
-        reference's hook for reproducible runs; by default they come from
-        torch generators seeded with seed + 1 and seed.
+        probes (nvecs, n), landmarks (>= rank indices) and the near-field
+        patterns (per window group None or (idx, mask, sym), see
+        state_from_numpy) may be injected, the reference's hook for
+        reproducible runs; by default the probes and landmarks come from
+        torch generators seeded with seed + 1 and seed, the patterns from
+        the KNN of each window.
         """
-        build = self._build_ops_factory(X)
+        build = self._build_ops_factory(X, nf_patterns)
         psetup = self._precond_factory(X, landmarks)
         if probes is None:
             gen = torch.Generator().manual_seed(self.seed + 1)
@@ -201,7 +227,8 @@ class GPProblem:
         return loss_fn
 
     def fit(self, X, y, *, init=(1.0, 1.0, 0.1), adam_maxits=100, adam_alpha=0.01,
-            adam_tol=1e-6, verbose=False, probes=None, landmarks=None, callback=None):
+            adam_tol=1e-6, verbose=False, probes=None, landmarks=None, nf_patterns=None,
+            callback=None):
         """Train the hyperparameters with Adam (ref TEST4/foo.cpp:318-347).
 
         callback(it, state, loss, grad), if given, runs after every step."""
@@ -216,7 +243,7 @@ class GPProblem:
                 print(f"{it + 1:6d} | {float(loss):15.8e} | {float(torch.linalg.norm(grad)):15.8e}"
                       f" | params: {float(tv[0]):.6g} {float(tv[1]):.6g} {float(tv[2]):.6g}")
 
-        loss_fn = self.make_loss(X, y, probes=probes, landmarks=landmarks)
+        loss_fn = self.make_loss(X, y, probes=probes, landmarks=landmarks, nf_patterns=nf_patterns)
         state, losses, _, _ = adam_run(loss_fn, x0, maxits=adam_maxits, tol=adam_tol,
                                        alpha=adam_alpha, callback=cb)
         self.raw_params_ = state.x

@@ -1,44 +1,54 @@
 """Fourier-accelerated kernel matvecs, "fastsum" (port of ops/fastsum.py).
 
-K x ~= f^2 (Re[NDFT2(b * NDFT1(x))] + mu x) with exact separable
-nonequispaced DFTs over a folded mode space (ref SRC/external/nfft_interface.c
-and the NFFT3 fastsum engine):
+K x ~= f^2 (Re[NDFT2(b * NDFT1(x))] + nearfield(x) + mu x) with exact
+separable nonequispaced DFTs over a folded mode space (ref
+SRC/external/nfft_interface.c and the NFFT3 fastsum engine):
 
 1. Geometry, once per dataset (nfft_interface.c:150-213): center by the mean,
    scale so the radius lies in [1/8, 1/4], and tabulate cos/sin(2 pi p x)
    for the folded modes p = 0..N/2.
 2. Coefficients, per hyperparameters: the kernel sampled on an oversampled
-   torus grid, FFT, central N modes, folded over the sign patterns.
+   torus grid, FFT, central N modes, folded over the sign patterns.  For
+   matern12 a sparse near-field correction phi_exact - phi_fourier on a KNN
+   pattern (the role of fastsum's eps_I near-field sum), on by default.
 3. Apply: adjoint NDFT (points -> mode tensor), combine with the folded
-   weights, forward NDFT (mode tensor -> points).
+   weights, forward NDFT (mode tensor -> points), plus the near-field.
 
-This port covers windows of one or two features, without the near-field
-correction.  Two engines apply the additive operator:
+Windows of one to three features.  Three engines apply the additive
+operator; each takes one vector (n,) or a batch of rows (nv, n):
 
 - the TABLE engine (`additive_fastsum_matvec`): torch products on the
-  per-window tables;
-- the STREAM engine (`packed_ndft_*`): one phase table for all windows,
-  streamed through the two CUDA kernels of ops/packed_ndft.py (their plain
-  torch versions on CPU tensors).
+  per-window tables, every window dimension;
+- the STREAM engine (`packed_ndft_*`): one trimmed phase table for all
+  windows of one or two features, streamed through the table kernels of
+  ops/packed_ndft.py;
+- the FUSED engine (`additive_fastsum_*_fused`): the windows of one or two
+  features through the phase-regenerating kernels of ops/packed_ndft.py
+  (no table; the Nyquist mode kept).
+
+In the last two, 3-feature windows run on the table path, and the
+near-field corrections are added as ELL products.  The kernels take their
+plain torch versions on CPU tensors.
 """
 
 import itertools
 import math
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .kernels import BASE_KERNELS, KernelParams
-from .packed_ndft import pack_phase_table, packed_adjoint, packed_forward
-
-
-def _unsupported_d(d):
-    raise NotImplementedError(
-        f"the torch fastsum supports windows of 1 or 2 features (got {d}); "
-        "3-feature windows are not ported yet"
-    )
+from .knn import knn_pattern
+from .matops import ell_matvec, ell_matvec_batch, ell_rmatvec, ell_rmatvec_batch
+from .packed_ndft import (
+    pack_phase_table,
+    packed_adjoint,
+    packed_adjoint_regen,
+    packed_forward,
+    packed_forward_regen,
+)
 
 
 @dataclass
@@ -65,8 +75,12 @@ def fastsum_geometry(X, N: int = 32, *, table_dtype=None) -> FastsumGeometry:
     accumulate in the data dtype.
     """
     n, d = X.shape
-    if d > 2:
-        _unsupported_d(d)
+    if d > 3:
+        raise ValueError(
+            f"fastsum supports point dims 1..3 (got d={d}); for higher-"
+            "dimensional data use additive windows of <=3 features "
+            "(ref nfft_interface.c:622-674) or the dense operator"
+        )
     xc = X - torch.mean(X, dim=0)[None, :]
     radius = torch.max(torch.sqrt(torch.sum(xc * xc, dim=1)))
     need = (radius > 0.25) | (radius < 0.125)
@@ -82,7 +96,15 @@ def fastsum_geometry(X, N: int = 32, *, table_dtype=None) -> FastsumGeometry:
 @dataclass
 class FastsumPlan:
     """Geometry + real Fourier coefficients (shifted mode order) and their
-    parity-folded weights w / dw_l, (nS,) + (P,)*d."""
+    parity-folded weights w / dw_l, (nS,) + (P,)*d.
+
+    nf_idx / nf_val / nf_dval: the optional near-field correction, a padded
+    ELL matrix (n, lfil) of phi_exact - phi_fourier (and of its d/dl) at the
+    pattern's pair offsets.  nf_sym: the pattern is symmetrized (each edge
+    and self once per row) and applies as one ELL product; otherwise it is
+    lower-triangular with self in the last slot and applies as
+    S + S' - diag(S).
+    """
 
     N: int
     d: int
@@ -93,11 +115,15 @@ class FastsumPlan:
     w: torch.Tensor
     dw_l: torch.Tensor
     params: KernelParams
+    nf_idx: Optional[torch.Tensor] = None
+    nf_val: Optional[torch.Tensor] = None
+    nf_dval: Optional[torch.Tensor] = None
+    nf_sym: bool = False
 
 
 # Parity folding: K_ij = sum_k b_k cos(2 pi k.D) folds k -> |k| onto one
 # weight tensor per even-parity set S of dims (see the JAX module).
-_EVEN_SETS = {1: [()], 2: [(), (0, 1)]}
+_EVEN_SETS = {1: [()], 2: [(), (0, 1)], 3: [(), (0, 1), (0, 2), (1, 2)]}
 
 
 def fold_coeffs(b, N: int, d: int):
@@ -132,11 +158,250 @@ def _central_modes(bs, N: int, d: int):
     return bs[(slice(lo, lo + N),) * d]
 
 
+# --- trigonometric polynomial at arbitrary offsets ------------------------------
+
+def _trigpoly_eval_multi(bs, D):
+    """Re sum_k b_k e^{2 pi i k.D} for several coefficient sets at once.
+
+    bs: list of (N,)*d real coefficient tensors (shifted mode order); D:
+    (m, d) offsets.  The phase tables are built once and shared by the sets
+    (the near-field evaluates the kernel and its dk/dl at the same offsets).
+    """
+    m, d = D.shape
+    N = bs[0].shape[0]
+    k = torch.arange(-(N // 2), N - N // 2, dtype=D.dtype, device=D.device)
+    ph = 2.0 * math.pi * D[:, :, None] * k[None, None, :]   # (m, d, N)
+    C = torch.cos(ph)
+    S = torch.sin(ph)
+
+    def pair(A1, b, A2):                                     # sum_kl A1_mk b_kl A2_ml
+        return torch.sum((A1 @ b) * A2, dim=1)
+
+    def tri(A1, b, A2, A3):                                  # sum_klr A1_mk b_klr A2_ml A3_mr
+        T = (A1 @ b.reshape(N, N * N)).reshape(m, N, N)
+        return torch.sum(torch.sum(T * A2[:, :, None], dim=1) * A3, dim=1)
+
+    outs = []
+    for b in bs:
+        if d == 1:
+            outs.append(C[:, 0, :] @ b)
+        elif d == 2:
+            outs.append(pair(C[:, 0], b, C[:, 1]) - pair(S[:, 0], b, S[:, 1]))
+        elif d == 3:
+            outs.append(tri(C[:, 0], b, C[:, 1], C[:, 2]) - tri(C[:, 0], b, S[:, 1], S[:, 2])
+                        - tri(S[:, 0], b, C[:, 1], S[:, 2]) - tri(S[:, 0], b, S[:, 1], C[:, 2]))
+        else:
+            raise NotImplementedError(f"trigpoly_eval supports d=1..3, got {d}")
+    return outs
+
+
+def trigpoly_eval(b, D):
+    """Re sum_k b_k e^{2 pi i k.D} at arbitrary offsets D (m, d)."""
+    return _trigpoly_eval_multi([b], D)[0]
+
+
+def trigpoly_eval_multi_chunked(bs, D, *, chunk: int = 131072):
+    """_trigpoly_eval_multi over chunks of offsets: a flat evaluation would
+    hold (m, d, N) phases, gigabytes at near-field scale (m = n * lfil).
+    For d = 3 the chunk also bounds the (chunk, N, N) partial contraction
+    to 2^25 elements."""
+    m, d = D.shape
+    N = bs[0].shape[0]
+    if d == 3:
+        chunk = min(chunk, max(1, (1 << 25) // (N * N)))
+    if m <= chunk:
+        return _trigpoly_eval_multi(bs, D)
+    parts = [_trigpoly_eval_multi(bs, D[s: s + chunk]) for s in range(0, m, chunk)]
+    return [torch.cat([p[j] for p in parts]) for j in range(len(bs))]
+
+
+# --- near-field correction -----------------------------------------------------
+
+def nearfield_correction(kind: str, params: KernelParams, geom: FastsumGeometry,
+                         b, db_l, lfil: int, pattern=None, taper: bool = True):
+    """Sparse correction phi_exact - phi_fourier on a KNN pattern.
+
+    Returns (idx, val, dval), (n, lfil) each: idx int64, row i holding the
+    pattern's neighbours (padded slots masked to 0).  taper (the JAX
+    default): weight by (1 - r/r_max)^2 with r_max the largest valid pair
+    distance, one global scalar so the matrix stays symmetric; it keeps the
+    corrected operator positive definite.  pattern: a precomputed
+    (idx, mask) (the pattern does not depend on the hyperparameters), else
+    `knn_pattern(x, lfil)`.
+    """
+    x = geom.x
+    idx, mask = pattern if pattern is not None else knn_pattern(x, lfil)
+    idx = torch.as_tensor(idx, device=x.device).to(torch.int64)
+    mask = torch.as_tensor(mask, device=x.device).to(torch.bool)
+    D = x[:, None, :] - x[idx]                               # (n, lfil, d)
+    r2s = torch.sum(D * D, dim=2)
+    r2_true = r2s / (geom.scale * geom.scale)
+    phi, dphi_l = BASE_KERNELS[kind](r2_true, params.l)
+    tp_f, dtp_f = trigpoly_eval_multi_chunked([b, db_l], D.reshape(-1, D.shape[2]))
+    val = torch.where(mask, phi - tp_f.reshape(r2s.shape), 0.0)
+    dval = torch.where(mask, dphi_l - dtp_f.reshape(r2s.shape), 0.0)
+    if taper:
+        r = torch.sqrt(r2s)
+        r_max = torch.max(torch.where(mask, r, 0.0))
+        w = torch.square(torch.clamp(1.0 - r / torch.clamp(r_max, min=1e-30), min=0.0))
+        val = val * w
+        dval = dval * w
+    return idx, val, dval
+
+
+def nearfield_matvec(idx, val, x):
+    """y = (S + S' - diag(S)) x for lower-tri padded-ELL S (self at slot -1)."""
+    return ell_matvec(idx, val, x) + ell_rmatvec(idx, val, x) - val[:, -1] * x
+
+
+def nearfield_apply(sym: bool, idx, val, x):
+    """Near-field product: one ELL product for a symmetrized pattern, the
+    S + S' - diag(S) form for a lower-triangular one."""
+    if sym:
+        return ell_matvec(idx, val, x)
+    return nearfield_matvec(idx, val, x)
+
+
+def nearfield_apply_batch(sym: bool, idx, val, Xb):
+    """(nv, n) batched near-field products: one row gather serves every
+    right-hand side."""
+    if sym:
+        return ell_matvec_batch(idx, val, Xb)
+    return ell_matvec_batch(idx, val, Xb) + ell_rmatvec_batch(idx, val, Xb) - val[:, -1] * Xb
+
+
+def _nearfield_any(sym: bool, idx, val, X):
+    """nearfield_apply for (n,), nearfield_apply_batch for (nv, n)."""
+    return nearfield_apply(sym, idx, val, X) if X.ndim == 1 else nearfield_apply_batch(sym, idx, val, X)
+
+
+def symmetrize_pattern(idx, mask):
+    """Host symmetrization of a lower-tri KNN pattern (self at slot -1).
+
+    Returns numpy (sym_idx, sym_mask) of shape (n, lfil_s): row i lists each
+    undirected neighbour edge once plus self once.  A symmetric pair
+    function evaluated on it gives a symmetric ELL matrix, applied as one
+    gather product.
+    """
+    idx = np.asarray(idx.cpu() if isinstance(idx, torch.Tensor) else idx)
+    mask = np.asarray(mask.cpu() if isinstance(mask, torch.Tensor) else mask)
+    n, _lfil = idx.shape
+    rows, slots = np.nonzero(mask)
+    cols = idx[rows, slots]
+    keep = rows != cols                      # drop self edges; re-add once
+    e_r = np.concatenate([rows[keep], cols[keep], np.arange(n)])
+    e_c = np.concatenate([cols[keep], rows[keep], np.arange(n)])
+    order = np.argsort(e_r, kind="stable")
+    e_r, e_c = e_r[order], e_c[order]
+    starts = np.searchsorted(e_r, np.arange(n))
+    counts = np.searchsorted(e_r, np.arange(n) + 1) - starts
+    lfil_s = int(counts.max()) if counts.size else 1
+    sym_idx = np.zeros((n, lfil_s), np.int32)
+    sym_mask = np.zeros((n, lfil_s), bool)
+    rank = np.arange(e_r.size) - starts[e_r]
+    sym_idx[e_r, rank] = e_c
+    sym_mask[e_r, rank] = True
+    return sym_idx, sym_mask
+
+
+def _resolve_nf_lfil(kind: str, nearfield_lfil, n: int, d: int) -> int:
+    """None = auto: the near-field size for matern12 (64 in 1-D, where the
+    kink radius holds ~4x more neighbours, 16 otherwise), 0 for the smooth
+    kernels."""
+    if nearfield_lfil is None:
+        nearfield_lfil = (64 if d == 1 else 16) if kind == "matern12" else 0
+    return min(int(nearfield_lfil), n)
+
+
+def _skewed(lfil_s: int, lfil: int) -> bool:
+    """The skewed in-degree guard: a point that is the nearest preceding
+    neighbour of many later points blows the padded symmetric width; beyond
+    ~4x lfil the lower-triangular form is kept."""
+    return lfil_s > max(4 * lfil, 64)
+
+
+def nearfield_patterns(kind: str, geom: FastsumGeometry, nearfield_lfil=None, *, sym: bool = False):
+    """The hyperparameter-independent KNN pattern of one plan, or None.
+
+    sym=True: symmetrized (idx, mask, True), unless the skewed in-degree
+    guard keeps the lower-triangular (idx, mask, False)."""
+    lfil = _resolve_nf_lfil(kind, nearfield_lfil, geom.x.shape[0], geom.d)
+    if lfil == 0:
+        return None
+    pat = knn_pattern(geom.x, lfil)
+    if not sym:
+        return pat
+    sidx, smask = symmetrize_pattern(pat[0], pat[1])
+    if _skewed(sidx.shape[1], lfil):
+        return (pat[0], pat[1], False)
+    dev = geom.x.device
+    return (torch.from_numpy(sidx).to(dev), torch.from_numpy(smask).to(dev), True)
+
+
+def additive_nearfield_patterns(kind: str, geom, nearfield_lfil=None):
+    """Per-group KNN patterns of an AdditiveFastsumGeometry: None or
+    (idx, mask) stacked over the group's windows, (Wg, n, lfil) each.  Pass
+    to additive_fastsum_coeffs(nf_patterns=...) so the KNN runs once per
+    dataset, not per loss evaluation."""
+    pats = []
+    for _dw, _order, geos in geom.groups:
+        n, d = geos[0].x.shape
+        lfil = _resolve_nf_lfil(kind, nearfield_lfil, n, d)
+        if lfil == 0:
+            pats.append(None)
+            continue
+        per = [knn_pattern(g.x, lfil) for g in geos]
+        pats.append((torch.stack([p[0] for p in per]), torch.stack([p[1] for p in per])))
+    return tuple(pats)
+
+
+def symmetrize_nearfield_patterns(pats):
+    """Host post-pass over additive_nearfield_patterns: per window,
+    symmetrize_pattern, padded to a common width per group.  Returns
+    per-group (idx, mask, True) triples -- or, when any window trips the
+    skewed in-degree guard, every group's lower-triangular
+    (idx, mask, False): the decision is global, the packed apply carries
+    one nf_sym flag."""
+    infos = []
+    for pat in pats:
+        if pat is None:
+            infos.append(None)
+            continue
+        syms = [symmetrize_pattern(pat[0][w], pat[1][w]) for w in range(pat[0].shape[0])]
+        lf = max(si.shape[1] for si, _ in syms)
+        if _skewed(lf, pat[0].shape[2]):
+            return tuple(None if p is None else (p[0], p[1], False) for p in pats)
+        infos.append((lf, syms))
+
+    out = []
+    for pat, info in zip(pats, infos):
+        if pat is None:
+            out.append(None)
+            continue
+        lf, syms = info
+        Wg, n = pat[0].shape[:2]
+        sidx = np.zeros((Wg, n, lf), np.int32)
+        smask = np.zeros((Wg, n, lf), bool)
+        for w, (si, sm) in enumerate(syms):
+            sidx[w, :, : si.shape[1]] = si
+            smask[w, :, : si.shape[1]] = sm
+        dev = pat[0].device
+        out.append((torch.from_numpy(sidx).to(dev), torch.from_numpy(smask).to(dev), True))
+    return tuple(out)
+
+
+# --- coefficients ----------------------------------------------------------------
+
 def fastsum_coeffs(kind: str, params: KernelParams, geom: FastsumGeometry, *,
-                   oversample: int = 2) -> FastsumPlan:
+                   oversample: int = 2, nearfield_lfil: Optional[int] = None,
+                   nf_pattern=None) -> FastsumPlan:
     """Sample the scaled kernel on the (oversample*N)^d torus grid, FFT, and
     keep the central N modes per dim (fastsum's anti-aliasing grid,
-    nfft_interface.c:18-27)."""
+    nfft_interface.c:18-27).
+
+    nearfield_lfil: None = auto (_resolve_nf_lfil); nf_pattern: a
+    precomputed (idx, mask) or (idx, mask, sym) pattern for the near-field.
+    """
     N, d = geom.N, geom.d
     Nos = int(oversample) * N
     dtype = geom.x.dtype
@@ -149,12 +414,21 @@ def fastsum_coeffs(kind: str, params: KernelParams, geom: FastsumGeometry, *,
 
     b = coeffs(k_samp)
     db_l = coeffs(dk_dl_samp)
+    nf_idx = nf_val = nf_dval = None
+    nf_sym = False
+    nearfield_lfil = _resolve_nf_lfil(kind, nearfield_lfil, geom.x.shape[0], d)
+    if nf_pattern is not None and len(nf_pattern) == 3:
+        nf_pattern, nf_sym = nf_pattern[:2], bool(nf_pattern[2])
+    if nearfield_lfil > 0 or nf_pattern is not None:
+        nf_idx, nf_val, nf_dval = nearfield_correction(kind, params, geom, b, db_l,
+                                                       nearfield_lfil, pattern=nf_pattern)
     return FastsumPlan(N=N, d=d, kind=kind, geom=geom, b=b, db_l=db_l,
-                       w=fold_coeffs(b, N, d), dw_l=fold_coeffs(db_l, N, d),
-                       params=params)
+                       w=fold_coeffs(b, N, d), dw_l=fold_coeffs(db_l, N, d), params=params,
+                       nf_idx=nf_idx, nf_val=nf_val, nf_dval=nf_dval, nf_sym=nf_sym)
 
 
 # --- folded apply ------------------------------------------------------------
+# alpha and B may carry leading batch axes (one per right-hand side).
 
 def _tmat(A, B, out_dtype):
     """Phase-table product: exact in out_dtype, or with narrow (bf16) tables
@@ -165,14 +439,31 @@ def _tmat(A, B, out_dtype):
 
 
 def _folded_adjoint(Tcs, alpha):
-    """Block tensor A_t[p] = sum_i alpha_i prod_d t_d(2 pi p_d x_id), (2P,)*d."""
+    """Block tensor A_t[p] = sum_i alpha_i prod_d t_d(2 pi p_d x_id), (..., 2P, ...)."""
     d = Tcs.shape[0]
+    P = Tcs.shape[2] // 2
     a = alpha.to(Tcs.dtype)
     if d == 1:
-        return _tmat(Tcs[0].T, a, alpha.dtype)
+        return _tmat(a[..., None, :], Tcs[0], alpha.dtype)[..., 0, :]
     if d == 2:
-        return _tmat((Tcs[0] * a[:, None]).T, Tcs[1], alpha.dtype)
-    _unsupported_d(d)
+        return _tmat((Tcs[0] * a[..., None]).transpose(-1, -2), Tcs[1], alpha.dtype)
+    if d == 3:
+        # one (R * 4P, 2P) product per mode p3 of the third dim, all R rows of
+        # alpha stacked into the GEMM's M: as R skinny (4P, n) x (n, 2P)
+        # products batched, it took 6.1 ms per mode against 0.44 ms stacked
+        # (n = 2e5, R = 10, P = 17, float32, NVIDIA H100); rows t3 = cos, sin
+        n = a.shape[-1]
+        ar = a.reshape(-1, n).T                              # (n, R)
+        R = ar.shape[1]
+        mats = []
+        for p3 in range(P):
+            Acat = torch.cat([Tcs[0][:, None, :] * (ar * Tcs[2][:, p3, None])[:, :, None],
+                              Tcs[0][:, None, :] * (ar * Tcs[2][:, P + p3, None])[:, :, None]],
+                             dim=-1)                         # (n, R, 4P)
+            mats.append(_tmat(Acat.reshape(n, R * 4 * P).T, Tcs[1], alpha.dtype).reshape(R, 4 * P, 2 * P))
+        M3 = torch.stack(mats, dim=-1).reshape(*a.shape[:-1], 4 * P, 2 * P, P)
+        return torch.cat([M3[..., : 2 * P, :, :], M3[..., 2 * P:, :, :]], dim=-1)
+    raise NotImplementedError(f"fastsum supports window dims 1..3, got {d}")
 
 
 def _folded_combine(W, A, d: int):
@@ -210,11 +501,21 @@ def _folded_combine(W, A, d: int):
 def _folded_forward(Tcs, B):
     """y_i = sum_t prod_d t_d(2 pi p_d x_id) B_t[p]."""
     d = Tcs.shape[0]
+    P = Tcs.shape[2] // 2
     if d == 1:
-        return _tmat(Tcs[0], B, B.dtype)
+        return _tmat(Tcs[0], B[..., None], B.dtype)[..., 0]
     if d == 2:
-        return torch.sum(_tmat(Tcs[0], B, B.dtype) * Tcs[1].to(B.dtype), dim=1)
-    _unsupported_d(d)
+        return torch.sum(_tmat(Tcs[0], B, B.dtype) * Tcs[1].to(B.dtype), dim=-1)
+    if d == 3:
+        T1 = Tcs[1].to(B.dtype)
+        y = 0.0
+        for p3 in range(P):
+            Tt = _tmat(Tcs[0], torch.cat([B[..., p3], B[..., P + p3]], dim=-1), B.dtype)
+            yc = torch.sum(Tt[..., : 2 * P] * T1, dim=-1)
+            ys = torch.sum(Tt[..., 2 * P:] * T1, dim=-1)
+            y = y + (yc * Tcs[2][:, p3].to(B.dtype) + ys * Tcs[2][:, P + p3].to(B.dtype))
+        return y
+    raise NotImplementedError(f"fastsum supports window dims 1..3, got {d}")
 
 
 def _folded_apply_multi(Tcs, W_list, x, *, compensated: bool = False):
@@ -245,8 +546,6 @@ def additive_fastsum_geometry(X, windows, N: int = 32, *, table_dtype=None):
         by_dim.setdefault(len(feats), []).append((w, feats))
     groups = []
     for dw, members in sorted(by_dim.items()):
-        if dw > 2:
-            _unsupported_d(dw)
         geos = [fastsum_geometry(X[:, feats], N, table_dtype=table_dtype)
                 for _, feats in members]
         groups.append((dw, tuple(w for w, _ in members), geos))
@@ -261,87 +560,172 @@ class AdditiveFastsumPlan(NamedTuple):
 
 def additive_fastsum_coeffs(kind: str, params: KernelParams,
                             geom: AdditiveFastsumGeometry, *, oversample: int = 2,
-                            nearfield_lfil: int = 0) -> AdditiveFastsumPlan:
-    if nearfield_lfil:
-        raise NotImplementedError("the fastsum near-field correction is not ported yet")
-    groups = tuple(
-        (dw, order, [fastsum_coeffs(kind, params, g, oversample=oversample) for g in geos])
-        for dw, order, geos in geom.groups
-    )
-    return AdditiveFastsumPlan(n_windows=geom.n_windows, groups=groups, params=params)
+                            nearfield_lfil: Optional[int] = None,
+                            nf_patterns=None) -> AdditiveFastsumPlan:
+    """nf_patterns: optional per-group patterns (additive_nearfield_patterns,
+    optionally symmetrized), reused across loss evaluations."""
+    groups = []
+    for gi, (dw, order, geos) in enumerate(geom.groups):
+        pat = nf_patterns[gi] if nf_patterns is not None else None
+        if pat is None:
+            plans = [fastsum_coeffs(kind, params, g, oversample=oversample,
+                                    nearfield_lfil=nearfield_lfil) for g in geos]
+        else:
+            sym = bool(pat[2]) if len(pat) == 3 else False
+            plans = [fastsum_coeffs(kind, params, g, oversample=oversample,
+                                    nearfield_lfil=nearfield_lfil,
+                                    nf_pattern=(pat[0][k], pat[1][k], sym))
+                     for k, g in enumerate(geos)]
+        groups.append((dw, order, plans))
+    return AdditiveFastsumPlan(n_windows=geom.n_windows, groups=tuple(groups), params=params)
 
 
-def additive_fastsum_build(kind, params, X, windows, N: int = 32, *,
-                           table_dtype=None, oversample: int = 2, nearfield_lfil: int = 0):
+def additive_fastsum_build(kind, params, X, windows, N: int = 32, *, table_dtype=None,
+                           oversample: int = 2, nearfield_lfil: Optional[int] = None):
     return additive_fastsum_coeffs(
         kind, params, additive_fastsum_geometry(X, windows, N, table_dtype=table_dtype),
         oversample=oversample, nearfield_lfil=nearfield_lfil,
     )
 
 
-def _window_sums(plan: AdditiveFastsumPlan, x, weights, compensated):
-    """Per weight family, the window-summed ksum(x) (no f^2/mu)."""
-    accs = [torch.zeros_like(x) for _ in weights]
-    for _dw, _order, plans in plan.groups:
-        parts = [
-            _folded_apply_multi(pl.geom.Tcs, [getattr(pl, w) for w in weights], x,
-                                compensated=compensated)
-            for pl in plans
-        ]
-        for s in range(len(weights)):
+_NF_VALUES = {"w": "nf_val", "dw_l": "nf_dval"}
+
+
+def _window_sums(groups, X, families, compensated=False):
+    """Per weight family ('w' for K, 'dw_l' for dK/dl), the window-summed
+    ksum(X) of the groups on the table path, near-field included (no
+    f^2/mu).  X: (n,) or (nv, n)."""
+    accs = [torch.zeros_like(X) for _ in families]
+    for _dw, _order, plans in groups:
+        parts = []
+        for pl in plans:
+            ys = _folded_apply_multi(pl.geom.Tcs, [getattr(pl, f) for f in families], X,
+                                     compensated=compensated)
+            if pl.nf_val is not None:
+                ys = [y + _nearfield_any(pl.nf_sym, pl.nf_idx, getattr(pl, _NF_VALUES[f]), X)
+                      for y, f in zip(ys, families)]
+            parts.append(ys)
+        for s in range(len(families)):
             accs[s] = accs[s] + torch.sum(torch.stack([p[s] for p in parts]), dim=0)
     return accs
 
 
 def additive_fastsum_matvec(plan: AdditiveFastsumPlan, x, *, compensated: bool = False):
-    """y = f^2 (mean_w ksum_w(x) + mu x) -- ref nfft_interface.c:796-817."""
+    """y = f^2 (mean_w ksum_w(x) + mu x) -- ref nfft_interface.c:796-817.
+    x: (n,) or a batch of rows (nv, n)."""
     p = plan.params
-    (acc,) = _window_sums(plan, x, ["w"], compensated)
+    (acc,) = _window_sums(plan.groups, x, ["w"], compensated)
     return p.f * p.f * (acc / plan.n_windows + p.mu * x)
 
 
-def _grad_rows(params, k_acc, l_acc, x, n_windows, dim):
+def _grad_rows(params, k_acc, l_acc, x, n_windows):
+    """(3, n) -- or (nv, 3, n) for a batch x -- rows dK_f x, dK_l x, dK_mu x."""
     f2 = params.f * params.f
     y_f = 2.0 * params.f * (k_acc / n_windows + params.mu * x)
-    return torch.stack([y_f, f2 * (l_acc / n_windows), f2 * x], dim=dim)
+    return torch.stack([y_f, f2 * (l_acc / n_windows), f2 * x], dim=x.ndim - 1)
 
 
 def additive_fastsum_grad_matvec(plan: AdditiveFastsumPlan, x, *, compensated: bool = False):
-    """(3, n) stacked dK_j x -- ref nfft_interface.c:819-840."""
-    k_acc, l_acc = _window_sums(plan, x, ["w", "dw_l"], compensated)
-    return _grad_rows(plan.params, k_acc, l_acc, x, plan.n_windows, 0)
+    """(3, n) stacked dK_j x -- ref nfft_interface.c:819-840; (nv, 3, n)
+    for a batch of rows."""
+    k_acc, l_acc = _window_sums(plan.groups, x, ["w", "dw_l"], compensated)
+    return _grad_rows(plan.params, k_acc, l_acc, x, plan.n_windows)
 
 
-# --- streamed packed-NDFT plan -------------------------------------------------
+# --- packed layout: the kernels' engines -----------------------------------------
 
-def _packed_layout(plan: AdditiveFastsumPlan):
-    """Flatten the windows into the packed layout: xT (Dtot, n) coordinate
-    rows, pairs / singles row indices, and the per-window folded weights in
-    pairs / singles order."""
+class PackedLayout(NamedTuple):
+    """The windows of a plan in the packed kernels' layout."""
+
+    xT: Optional[torch.Tensor]   # (Dtot, n) coordinate rows of the d <= 2 windows
+    pairs: tuple                 # per 2-D window (ja, jb) rows of xT
+    singles: tuple               # per 1-D window its row of xT
+    w2: tuple                    # folded weights per 2-D window, pairs order
+    dw2: tuple
+    w1: tuple                    # per 1-D window, singles order
+    dw1: tuple
+    nf: tuple                    # (idx, val, dval) per d <= 2 window with a near-field
+    nf_sym: bool
+    rest: tuple                  # d = 3 groups, applied on the table path
+
+
+def _packed_layout(plan: AdditiveFastsumPlan) -> PackedLayout:
+    """Flatten the d <= 2 windows into the packed layout (ref fastsum.py
+    _packed_layout); the near-field triples list the 2-D windows, then the
+    1-D ones."""
+    syms = {pl.nf_sym for _, _, plans in plan.groups for pl in plans if pl.nf_val is not None}
+    if len(syms) > 1:
+        raise ValueError("mixed near-field pattern forms across window groups "
+                         "(nf_sym must be global -- rebuild the plan with one policy)")
     rows, pairs, singles = [], [], []
-    w2, dw2, w1, dw1 = [], [], [], []
-    for dw, _order, plans in plan.groups:
+    w2, dw2, w1, dw1, nf2, nf1, rest = [], [], [], [], [], [], []
+    for dw, order, plans in plan.groups:
+        if dw == 3:
+            rest.append((dw, order, plans))
+            continue
         for pl in plans:
+            trip = None if pl.nf_val is None else (pl.nf_idx, pl.nf_val, pl.nf_dval)
             if dw == 2:
                 pairs.append((len(rows), len(rows) + 1))
                 rows += [pl.geom.x[:, 0], pl.geom.x[:, 1]]
                 w2.append(pl.w)
                 dw2.append(pl.dw_l)
+                nf2.append(trip)
             else:
                 singles.append(len(rows))
                 rows.append(pl.geom.x[:, 0])
                 w1.append(pl.w)
                 dw1.append(pl.dw_l)
-    return torch.stack(rows), tuple(pairs), tuple(singles), w2, dw2, w1, dw1
+                nf1.append(trip)
+    return PackedLayout(
+        xT=torch.stack(rows) if rows else None, pairs=tuple(pairs), singles=tuple(singles),
+        w2=tuple(w2), dw2=tuple(dw2), w1=tuple(w1), dw1=tuple(dw1),
+        nf=tuple(t for t in nf2 + nf1 if t is not None), nf_sym=bool(syms and syms.pop()),
+        rest=tuple(rest))
+
+
+def _two_pass(lay, P, Xb, families, adjoint, forward):
+    """One adjoint pass for the rows of Xb (nv, n), then ONE forward pass over
+    nv * len(families) weight sets in (row, family) order.  Returns
+    (nv, len(families), n) sums over the layout's d <= 2 windows."""
+    nv, nf = Xb.shape[0], len(families)
+    A2, A1 = adjoint(Xb.contiguous())
+    fam2 = [lay.w2 if f == "w" else lay.dw2 for f in families]
+    fam1 = [lay.w1 if f == "w" else lay.dw1 for f in families]
+    G2 = [torch.stack([_folded_combine(W[i], A2[i], 2) for W in fam2], dim=1)
+          .reshape(nv * nf, 2 * P, 2 * P) for i in range(len(lay.pairs))]
+    G1 = [torch.stack([_folded_combine(W[i], A1[i], 1) for W in fam1], dim=1)
+          .reshape(nv * nf, 2 * P) for i in range(len(lay.singles))]
+    ys = forward(G2, G1)
+    return torch.stack(ys).reshape(nv, nf, Xb.shape[1])
+
+
+def _layout_sums(lay, Xb, families, kernel_sums):
+    """Per family, the (nv, n) window sums of a packed layout: the kernels'
+    sums over the d <= 2 windows, their near-field corrections, then the
+    d = 3 windows on the table path (ref fastsum.py _packed_apply)."""
+    if lay.pairs or lay.singles:
+        accs = list(torch.unbind(kernel_sums(Xb), dim=1))
+    else:
+        accs = [torch.zeros_like(Xb) for _ in families]
+    for s, fam in enumerate(families):
+        for idx, val, dval in lay.nf:
+            accs[s] = accs[s] + nearfield_apply_batch(lay.nf_sym, idx, val if fam == "w" else dval, Xb)
+    if lay.rest:
+        accs = [a + r for a, r in zip(accs, _window_sums(lay.rest, Xb, families))]
+    return accs
 
 
 @dataclass
 class PackedNDFT:
-    """Streamed-table plan for the packed kernels, built per (dataset, params).
+    """Streamed-table plan for the packed table kernels, built per
+    (dataset, params).
 
-    Tp is ONE phase table (Dtot, 2P, n) for all windows' coordinate rows
-    (ops/packed_ndft.pack_phase_table).  The unpaired Nyquist mode is trimmed
-    (P = N/2 instead of N/2 + 1, the JAX default edge_trim=True), so 2P = N.
+    Tp is ONE phase table (Dtot, 2P, n) for all coordinate rows of the d <= 2
+    windows (ops/packed_ndft.pack_phase_table).  The unpaired Nyquist mode is
+    trimmed (P = N/2 instead of N/2 + 1, the JAX default edge_trim=True), so
+    2P = N.  nf / rest: the near-field triples and the d = 3 groups, as in
+    PackedLayout.
     """
 
     P: int
@@ -349,47 +733,44 @@ class PackedNDFT:
     n_windows: int
     pairs: tuple
     singles: tuple
-    Tp: torch.Tensor
+    Tp: Optional[torch.Tensor]
     w2: tuple
     dw2: tuple
     w1: tuple
     dw1: tuple
+    nf: tuple
+    nf_sym: bool
+    rest: tuple
     params: KernelParams
 
 
 def packed_ndft_plan(plan: AdditiveFastsumPlan, *, table_dtype=None) -> PackedNDFT:
-    xT, pairs, singles, w2, dw2, w1, dw1 = _packed_layout(plan)
-    P = plan.groups[0][2][0].N // 2
+    lay = _packed_layout(plan)
+    first = plan.groups[0][2][0]
+    P = first.N // 2
     return PackedNDFT(
-        P=P, n=xT.shape[1], n_windows=plan.n_windows, pairs=pairs, singles=singles,
-        Tp=pack_phase_table(xT, P, table_dtype=table_dtype),
-        w2=tuple(W[:, :P, :P] for W in w2), dw2=tuple(W[:, :P, :P] for W in dw2),
-        w1=tuple(W[:, :P] for W in w1), dw1=tuple(W[:, :P] for W in dw1),
-        params=plan.params,
+        P=P, n=first.geom.x.shape[0], n_windows=plan.n_windows, pairs=lay.pairs,
+        singles=lay.singles,
+        Tp=pack_phase_table(lay.xT, P, table_dtype=table_dtype) if lay.xT is not None else None,
+        w2=tuple(W[:, :P, :P] for W in lay.w2), dw2=tuple(W[:, :P, :P] for W in lay.dw2),
+        w1=tuple(W[:, :P] for W in lay.w1), dw1=tuple(W[:, :P] for W in lay.dw1),
+        nf=lay.nf, nf_sym=lay.nf_sym, rest=lay.rest, params=plan.params,
     )
 
 
 def _packed_sets(pn: PackedNDFT, Xb, families):
-    """One adjoint pass for the rows of Xb (nv, n), then ONE forward pass over
-    nv * len(families) weight sets in (row, family) order.  Returns
-    (nv, len(families), n) window sums."""
-    nv = Xb.shape[0]
-    A2, A1 = packed_adjoint(pn.Tp, Xb.contiguous(), pairs=pn.pairs, singles=pn.singles)
-    fam2 = [pn.w2 if f == "w" else pn.dw2 for f in families]
-    fam1 = [pn.w1 if f == "w" else pn.dw1 for f in families]
-    G2 = [torch.stack([_folded_combine(W[i], A2[i], 2) for W in fam2], dim=1)
-          .reshape(nv * len(families), 2 * pn.P, 2 * pn.P) for i in range(len(pn.pairs))]
-    G1 = [torch.stack([_folded_combine(W[i], A1[i], 1) for W in fam1], dim=1)
-          .reshape(nv * len(families), 2 * pn.P) for i in range(len(pn.singles))]
-    ys = packed_forward(pn.Tp, G2, G1, pairs=pn.pairs, singles=pn.singles)
-    return torch.stack(ys).reshape(nv, len(families), pn.n)
+    """Per family the (nv, n) window sums on the table kernels."""
+    return _layout_sums(pn, Xb, families, lambda V: _two_pass(
+        pn, pn.P, V, families,
+        lambda A: packed_adjoint(pn.Tp, A, pairs=pn.pairs, singles=pn.singles),
+        lambda G2, G1: packed_forward(pn.Tp, G2, G1, pairs=pn.pairs, singles=pn.singles)))
 
 
 def packed_ndft_matvec_batch(pn: PackedNDFT, Xb):
     """Batched y_r = K x_r for the rows of Xb (nv, n): all rows share ONE
     table stream per kernel pass (the SLQ probe batches)."""
     p = pn.params
-    acc = _packed_sets(pn, Xb, ["w"])[:, 0]
+    (acc,) = _packed_sets(pn, Xb, ["w"])
     return p.f * p.f * (acc / pn.n_windows + p.mu * Xb)
 
 
@@ -400,10 +781,56 @@ def packed_ndft_matvec(pn: PackedNDFT, x):
 
 def packed_ndft_grad_matvec_batch(pn: PackedNDFT, Xb):
     """Batched (nv, 3, n) gradient matvecs; K and dK/dl share one pass."""
-    sums = _packed_sets(pn, Xb, ["w", "dw_l"])
-    return _grad_rows(pn.params, sums[:, 0], sums[:, 1], Xb, pn.n_windows, 1)
+    k_acc, l_acc = _packed_sets(pn, Xb, ["w", "dw_l"])
+    return _grad_rows(pn.params, k_acc, l_acc, Xb, pn.n_windows)
 
 
 def packed_ndft_grad_matvec(pn: PackedNDFT, x):
     """(3, n) gradient matvec; K and dK/dl share one table stream."""
     return packed_ndft_grad_matvec_batch(pn, x[None])[0]
+
+
+# --- fused (phase-regenerating) engine ---------------------------------------------
+
+def _fused_sums(plan: AdditiveFastsumPlan, Xb, families, phase_gen):
+    """Per family the (nv, n) window sums on the regenerating kernels: one
+    adjoint and one forward launch for all rows and families."""
+    lay = _packed_layout(plan)
+    P = _nmodes(plan.groups[0][2][0].N)
+    kw = dict(P=P, pairs=lay.pairs, singles=lay.singles, phase_gen=phase_gen)
+    return _layout_sums(lay, Xb, families, lambda V: _two_pass(
+        lay, P, V, families,
+        lambda A: packed_adjoint_regen(lay.xT, A, **kw),
+        lambda G2, G1: packed_forward_regen(lay.xT, G2, G1, **kw)))
+
+
+def additive_fastsum_matvec_fused_batch(plan: AdditiveFastsumPlan, Xb, *,
+                                        phase_gen: str = "doubling"):
+    """Batched y_r = K x_r for the rows of Xb (nv, n) on the fused path:
+    the phases are regenerated in the kernels from the coordinates (no
+    table), and all rows share one kernel pass."""
+    p = plan.params
+    (acc,) = _fused_sums(plan, Xb, ["w"], phase_gen)
+    return p.f * p.f * (acc / plan.n_windows + p.mu * Xb)
+
+
+def additive_fastsum_matvec_fused(plan: AdditiveFastsumPlan, x, *, phase_gen: str = "doubling"):
+    """Additive matvec on the phase-regenerating kernels (ref
+    additive_fastsum_matvec_fused); 3-D windows on the table path.  Matches
+    additive_fastsum_matvec to float32 roundoff."""
+    return additive_fastsum_matvec_fused_batch(plan, x[None], phase_gen=phase_gen)[0]
+
+
+def additive_fastsum_grad_matvec_fused_batch(plan: AdditiveFastsumPlan, Xb, *,
+                                             phase_gen: str = "doubling"):
+    """Batched (nv, 3, n) gradient matvecs on the fused path; K and dK/dl
+    of all rows share one kernel pass."""
+    k_acc, l_acc = _fused_sums(plan, Xb, ["w", "dw_l"], phase_gen)
+    return _grad_rows(plan.params, k_acc, l_acc, Xb, plan.n_windows)
+
+
+def additive_fastsum_grad_matvec_fused(plan: AdditiveFastsumPlan, x, *,
+                                       phase_gen: str = "doubling"):
+    """(3, n) gradient matvec on the fused path (ref
+    additive_fastsum_grad_matvec_fused)."""
+    return additive_fastsum_grad_matvec_fused_batch(plan, x[None], phase_gen=phase_gen)[0]

@@ -1,4 +1,5 @@
-"""Dense matrix helpers (port of the dense part of ops/matops.py)."""
+"""Dense and padded-ELL matrix helpers (port of ops/matops.py: the dense
+solves and the ELL products of the near-field)."""
 
 import torch
 
@@ -45,3 +46,38 @@ def triu_solve(L, b):
 def chol_solve(L, b):
     """Solve (L L^T) x = b by two triangular solves (ref chol.c:111-137)."""
     return triu_solve(L, tril_solve(L, b))
+
+
+# --- padded-ELL sparse matrices ------------------------------------------------
+# Row i of G is stored as idx[i] (n, lfil) column indices and val[i] values;
+# padded slots carry value 0.  Plain torch gathers and index_add: the JAX
+# package computes these outside any Pallas kernel too (its TPU-tuned row
+# gather, _gather_vec, is a plain x[idx] here).
+
+def ell_matvec(idx, val, x):
+    """y = G x: gather + row-wise dot."""
+    return torch.sum(val * x[idx], dim=1)
+
+
+def ell_matvec_batch(idx, val, Xb):
+    """y[r] = G x_r for a batch Xb (nv, n): one row gather of the (n, nv)
+    transposed batch serves every right-hand side."""
+    G = Xb.T[idx.reshape(-1)].reshape(*idx.shape, Xb.shape[0])
+    return torch.einsum("is,isv->vi", val, G)
+
+
+def ell_rmatvec(idx, val, x, n=None):
+    """y = G' x: scatter-add."""
+    n = n if n is not None else x.shape[0]
+    out = torch.zeros(n, dtype=x.dtype, device=x.device)
+    return out.index_add_(0, idx.reshape(-1), (val * x[:, None]).reshape(-1))
+
+
+def ell_rmatvec_batch(idx, val, Xb, n=None):
+    """y[r] = G' x_r for a batch Xb (nv, n): one row-wise scatter-add of the
+    (n * lfil, nv) contributions."""
+    nv = Xb.shape[0]
+    n = n if n is not None else Xb.shape[1]
+    contrib = val[:, :, None] * Xb.T[:, None, :]              # (rows, lfil, nv)
+    out = torch.zeros((n, nv), dtype=Xb.dtype, device=Xb.device)
+    return out.index_add_(0, idx.reshape(-1), contrib.reshape(-1, nv)).T

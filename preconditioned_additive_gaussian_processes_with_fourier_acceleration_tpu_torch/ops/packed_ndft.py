@@ -1,29 +1,36 @@
-"""Packed streamed-table NDFT: the two kernels of the fastsum training step.
+"""Packed NDFT: the two kernels of the fastsum training step.
 
-Port of ops/pallas_ndft.py in its table modes.  One phase table
-Tp (Dtot, 2P, n) holds, per coordinate row j, cos(2 pi p x_j) in rows
-[0, P) and sin in rows [P, 2P).  A 2-D window (ja, jb) uses L0 = Tp[ja] and
-L1 = Tp[jb]; a 1-D window j uses Ls = Tp[j].
+Port of ops/pallas_ndft.py.  Per coordinate row j the phases are
+cos(2 pi p x_j) in rows [0, P) and sin in rows [P, 2P).  A 2-D window
+(ja, jb) uses L0 = phases of row ja and L1 = phases of row jb; a 1-D window
+j uses Ls = phases of row j.
 
   adjoint  A_w,r = sum_i alpha_r[i] L0[:, i] L1[:, i]^T     (2P, 2P)
            v_s,r = sum_i alpha_r[i] Ls[:, i]                 (2P,)
   forward  y_s[i] = sum_w L0[:, i]^T G_s,w L1[:, i] + sum_singles Ls[:, i]^T g_s
 
-Each of `packed_adjoint` and `packed_forward` has a plain torch version
-beside it.  The wrapper follows one rule: a CPU tensor goes to the plain
-version; a CUDA tensor launches the hand-written kernel of
-csrc/packed_ndft.cu (built at first use by ops/_cuda_build.py) and raises
-if the launch fails.  Each wrapper counts its kernel launches in its
+Two phase sources, as in the JAX package:
+- a TABLE Tp (Dtot, 2P, n) built once per dataset (`pack_phase_table`,
+  the "table" modes): `packed_adjoint` / `packed_forward`;
+- the raw coordinates xT (Dtot, n), the phases REGENERATED inside the
+  kernels ("doubling", the default, and "direct"; `phase_slab`):
+  `packed_adjoint_regen` / `packed_forward_regen`.
+
+Each of the four has a plain torch version beside it.  The wrapper follows
+one rule: a CPU tensor goes to the plain version; a CUDA tensor launches the
+hand-written kernel (csrc/, built at first use by ops/_cuda_build.py) and
+raises if the launch fails.  Each wrapper counts its kernel launches in its
 `launches` attribute.
 
-Both kernels read the table in its stored dtype (bf16 on the training path)
-and accumulate in float32; alpha and the combined weights stay float32.
+The table kernels read the table in its stored dtype (bf16 on the training
+path) and accumulate in float32; alpha and the combined weights stay
+float32.  The regenerating kernels take float32 coordinates.
 
 What bounds them on an H100: at n = 2e5, five 2-D windows and 2P = 32 a
-pass reads 128 MB of bf16 table, but the contraction is 2 nv npairs (2P)^2 n
-flops (2e10 at nv = 10), run as float32 FMAs on the CUDA cores.  Beyond a
-single right-hand side that FMA issue, not the table bytes, bounds these
-first versions; PERF.md has the times.
+table pass reads 128 MB of bf16 table, but the contraction is
+2 nv npairs (2P)^2 n flops (2e10 at nv = 10), run as float32 FMAs on the
+CUDA cores.  Beyond a single right-hand side the FMA rate, not the table
+bytes, bounds these first versions; PERF.md has the times.
 """
 
 import math
@@ -32,9 +39,13 @@ import torch
 
 from . import _cuda_build
 
-# 2P values the CUDA kernels are compiled for (2P = N with the trimmed
-# Nyquist mode; templates in csrc/packed_ndft.cu)
+TWO_PI = 6.283185307179586
+# 2P values the CUDA kernels are compiled for: the table kernels take the
+# trimmed width 2P = N, the regenerating kernels the untrimmed 2P = N + 2
+# (templates in csrc/)
 KERNEL_WIDTHS = (16, 32)
+REGEN_KERNEL_WIDTHS = (18, 34)
+PHASE_GENS = ("doubling", "direct")
 _MAX_PAIRS = 32
 _MAX_SINGLES = 64
 
@@ -45,6 +56,35 @@ def pack_phase_table(xT, P: int, table_dtype=None):
     ph = 2.0 * math.pi * xT[:, None, :] * pr[None, :, None]       # (Dtot, P, n)
     T = torch.cat([torch.cos(ph), torch.sin(ph)], dim=1)
     return T.contiguous() if table_dtype is None else T.to(table_dtype).contiguous()
+
+
+def phase_slab(xT, P: int, phase_gen: str = "doubling"):
+    """(Dtot, 2P, n) phases of the coordinate rows xT, regenerated.
+
+    'direct': one cos and one sin per mode (JAX `_build_T6`).  'doubling':
+    cos/sin of 2 pi x once, then rows [have, 2 have) = rows [0, have)
+    rotated by e^{i have theta}, the rotator taken from row have/2 by the
+    double-angle identity (JAX `_build_T6_doubling`, its same recurrence
+    stopped at P instead of the TPU's 8-row padding).
+    """
+    th = TWO_PI * xT
+    if phase_gen == "direct":
+        ph = th[:, None, :] * torch.arange(P, dtype=xT.dtype, device=xT.device)[None, :, None]
+        return torch.cat([torch.cos(ph), torch.sin(ph)], dim=1)
+    if phase_gen != "doubling":
+        raise ValueError(f"unknown phase_gen {phase_gen!r}, expected one of {PHASE_GENS}")
+    C = [torch.ones_like(th), torch.cos(th)]
+    S = [torch.zeros_like(th), torch.sin(th)]
+    have = 2
+    while have < P:
+        ch, sh = C[have // 2], S[have // 2]
+        ck = ch * ch - sh * sh                                     # cos(have * th)
+        sk = 2.0 * ch * sh                                         # sin(have * th)
+        take = min(have, P - have)
+        C, S = (C + [C[k] * ck - S[k] * sk for k in range(take)],
+                S + [S[k] * ck + C[k] * sk for k in range(take)])
+        have += take
+    return torch.cat([torch.stack(C[:P], dim=1), torch.stack(S[:P], dim=1)], dim=1)
 
 
 # --- plain versions ------------------------------------------------------------
@@ -73,31 +113,90 @@ def packed_forward_plain(Tp, G2, G1, pairs, singles):
     return y
 
 
+def packed_adjoint_regen_plain(xT, alpha, P, pairs, singles, phase_gen="doubling"):
+    """Plain regenerating adjoint: phases from `phase_slab`, then the plain
+    contraction."""
+    return packed_adjoint_plain(phase_slab(xT, P, phase_gen), alpha, pairs, singles)
+
+
+def packed_forward_regen_plain(xT, G2, G1, P, pairs, singles, phase_gen="doubling"):
+    """Plain regenerating forward: phases from `phase_slab`, then the plain
+    contraction."""
+    return packed_forward_plain(phase_slab(xT, P, phase_gen), G2, G1, pairs, singles)
+
+
 # --- wrappers ------------------------------------------------------------------
+
+def _check_rows(nrows, pairs, singles):
+    rows = [j for pr in pairs for j in pr] + list(singles)
+    if not rows or min(rows) < 0 or max(rows) >= nrows:
+        raise ValueError(f"window rows {rows} out of range for {nrows} coordinate rows")
+
 
 def _check_table(Tp, pairs, singles):
     if Tp.ndim != 3 or Tp.shape[1] % 2:
         raise ValueError(f"phase table must be (Dtot, 2P, n), got {tuple(Tp.shape)}")
     if not Tp.is_contiguous():
         raise ValueError("phase table must be contiguous")
-    rows = [j for pr in pairs for j in pr] + list(singles)
-    if not rows or min(rows) < 0 or max(rows) >= Tp.shape[0]:
-        raise ValueError(f"window rows {rows} out of range for {Tp.shape[0]} table rows")
+    _check_rows(Tp.shape[0], pairs, singles)
 
 
-def _check_cuda(Tp, others, pairs, singles):
+def _check_coords(xT, pairs, singles):
+    if xT.ndim != 2:
+        raise ValueError(f"coordinates must be (Dtot, n), got {tuple(xT.shape)}")
+    _check_rows(xT.shape[0], pairs, singles)
+
+
+def _check_cuda(src, others, pairs, singles, src_dtypes, width, widths):
     """Shape/dtype rules of the CUDA kernels beyond those of the plain path."""
     for t in others:
-        if t.device != Tp.device:
-            raise ValueError(f"tensors on {t.device} and {Tp.device}")
+        if t.device != src.device:
+            raise ValueError(f"tensors on {t.device} and {src.device}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous float32 operands")
-    if Tp.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the CUDA kernels take bf16 or f32 tables, got {Tp.dtype}")
-    if Tp.shape[1] not in KERNEL_WIDTHS:
-        raise ValueError(f"the CUDA kernels are built for 2P in {KERNEL_WIDTHS}, got {Tp.shape[1]}")
+    if src.dtype not in src_dtypes or not src.is_contiguous():
+        raise ValueError(f"the CUDA kernels take contiguous {src_dtypes} phases or coordinates, "
+                         f"got {src.dtype}")
+    if width not in widths:
+        raise ValueError(f"the CUDA kernels are built for 2P in {widths}, got {width}")
     if len(pairs) > _MAX_PAIRS or len(singles) > _MAX_SINGLES:
         raise ValueError(f"at most {_MAX_PAIRS} 2-D and {_MAX_SINGLES} 1-D windows per call")
+
+
+def _alpha_rows(alpha, n):
+    a2d = alpha if alpha.ndim == 2 else alpha[None]
+    if a2d.shape[1] != n:
+        raise ValueError(f"alpha has {a2d.shape[1]} points, the phases {n}")
+    return a2d
+
+
+def _adjoint_outputs(A2, A1, batched, npairs, nsingles):
+    pick = (lambda t: t) if batched else (lambda t: t[0])  # noqa: E731
+    return ([pick(A2[:, w]) for w in range(npairs)],
+            [pick(A1[:, k]) for k in range(nsingles)])
+
+
+def _weight_stacks(G2_sets, G1_sets, W2, pairs, singles):
+    """Per-window (nsets, ...) stacks -> G2 (nsets, npairs, W2, W2) and
+    G1 (nsets, nsingles, W2), either None when it has no windows."""
+    G2 = torch.stack(list(G2_sets), dim=1) if pairs else None
+    G1 = torch.stack(list(G1_sets), dim=1) if singles else None
+    nsets = (G2 if G2 is not None else G1).shape[0]
+    if G2 is not None and tuple(G2.shape) != (nsets, len(pairs), W2, W2):
+        raise ValueError(f"G2 stack {tuple(G2.shape)} does not match 2P = {W2}")
+    if G1 is not None and tuple(G1.shape) != (nsets, len(singles), W2):
+        raise ValueError(f"G1 stack {tuple(G1.shape)} does not match 2P = {W2}")
+    return G2, G1
+
+
+def _dense_stacks(G2, G1, W2, device):
+    """Contiguous stacks for the kernels; an empty stack for no windows."""
+    nsets = (G2 if G2 is not None else G1).shape[0]
+    G2c = G2.contiguous() if G2 is not None else torch.zeros(
+        (nsets, 0, W2, W2), dtype=torch.float32, device=device)
+    G1c = G1.contiguous() if G1 is not None else torch.zeros(
+        (nsets, 0, W2), dtype=torch.float32, device=device)
+    return G2c, G1c
 
 
 def packed_adjoint(Tp, alpha, *, pairs: tuple, singles: tuple = ()):
@@ -110,21 +209,17 @@ def packed_adjoint(Tp, alpha, *, pairs: tuple, singles: tuple = ()):
     leading (nv,) axis for batched alpha -- the JAX `packed_adjoint` outputs.
     """
     _check_table(Tp, pairs, singles)
-    batched = alpha.ndim == 2
-    a2d = alpha if batched else alpha[None]
-    if a2d.shape[1] != Tp.shape[2]:
-        raise ValueError(f"alpha has {a2d.shape[1]} points, the table {Tp.shape[2]}")
+    a2d = _alpha_rows(alpha, Tp.shape[2])
     if a2d.device.type == "cpu" and Tp.device.type == "cpu":
         A2, A1 = packed_adjoint_plain(Tp, a2d, pairs, singles)
     elif a2d.is_cuda and Tp.is_cuda:
-        _check_cuda(Tp, [a2d], pairs, singles)
+        _check_cuda(Tp, [a2d], pairs, singles, (torch.bfloat16, torch.float32), Tp.shape[1],
+                    KERNEL_WIDTHS)
         A2, A1 = _cuda_build.adjoint(Tp, a2d, pairs, singles)
         packed_adjoint.launches += 1
     else:
         raise ValueError(f"table on {Tp.device}, alpha on {a2d.device}")
-    pick = (lambda t: t) if batched else (lambda t: t[0])  # noqa: E731
-    return ([pick(A2[:, w]) for w in range(len(pairs))],
-            [pick(A1[:, k]) for k in range(len(singles))])
+    return _adjoint_outputs(A2, A1, alpha.ndim == 2, len(pairs), len(singles))
 
 
 def packed_forward(Tp, G2_sets, G1_sets=(), *, pairs: tuple, singles: tuple = ()):
@@ -137,22 +232,14 @@ def packed_forward(Tp, G2_sets, G1_sets=(), *, pairs: tuple, singles: tuple = ()
     """
     _check_table(Tp, pairs, singles)
     W2 = Tp.shape[1]
-    G2 = torch.stack(list(G2_sets), dim=1) if pairs else None
-    G1 = torch.stack(list(G1_sets), dim=1) if singles else None
+    G2, G1 = _weight_stacks(G2_sets, G1_sets, W2, pairs, singles)
     ref = G2 if G2 is not None else G1
-    nsets = ref.shape[0]
-    if G2 is not None and tuple(G2.shape) != (nsets, len(pairs), W2, W2):
-        raise ValueError(f"G2 stack {tuple(G2.shape)} does not match the table")
-    if G1 is not None and tuple(G1.shape) != (nsets, len(singles), W2):
-        raise ValueError(f"G1 stack {tuple(G1.shape)} does not match the table")
     if ref.device.type == "cpu" and Tp.device.type == "cpu":
         y = packed_forward_plain(Tp, G2, G1, pairs, singles)
     elif ref.is_cuda and Tp.is_cuda:
-        G2c = G2.contiguous() if G2 is not None else torch.zeros(
-            (nsets, 0, W2, W2), dtype=torch.float32, device=Tp.device)
-        G1c = G1.contiguous() if G1 is not None else torch.zeros(
-            (nsets, 0, W2), dtype=torch.float32, device=Tp.device)
-        _check_cuda(Tp, [G2c, G1c], pairs, singles)
+        G2c, G1c = _dense_stacks(G2, G1, W2, Tp.device)
+        _check_cuda(Tp, [G2c, G1c], pairs, singles, (torch.bfloat16, torch.float32), W2,
+                    KERNEL_WIDTHS)
         y = _cuda_build.forward(Tp, G2c, G1c, pairs, singles)
         packed_forward.launches += 1
     else:
@@ -160,10 +247,61 @@ def packed_forward(Tp, G2_sets, G1_sets=(), *, pairs: tuple, singles: tuple = ()
     return list(torch.unbind(y))
 
 
-packed_adjoint.launches = 0
-packed_forward.launches = 0
+def packed_adjoint_regen(xT, alpha, *, P: int, pairs: tuple, singles: tuple = (),
+                         phase_gen: str = "doubling"):
+    """`packed_adjoint` with the phases regenerated from the coordinates.
+
+    Replaces the TPU kernel `_adjoint_kernel` (ops/pallas_ndft.py) in its
+    "doubling" / "direct" modes.  xT: (Dtot, n) scaled window coordinates,
+    P modes per row (the fused path keeps the Nyquist mode: P = N/2 + 1).
+    Same outputs as `packed_adjoint`.
+    """
+    _check_coords(xT, pairs, singles)
+    if phase_gen not in PHASE_GENS:
+        raise ValueError(f"unknown phase_gen {phase_gen!r}, expected one of {PHASE_GENS}")
+    a2d = _alpha_rows(alpha, xT.shape[1])
+    if a2d.device.type == "cpu" and xT.device.type == "cpu":
+        A2, A1 = packed_adjoint_regen_plain(xT, a2d, P, pairs, singles, phase_gen)
+    elif a2d.is_cuda and xT.is_cuda:
+        _check_cuda(xT, [a2d], pairs, singles, (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS)
+        A2, A1 = _cuda_build.adjoint_regen(xT, a2d, 2 * P, pairs, singles, phase_gen)
+        packed_adjoint_regen.launches += 1
+    else:
+        raise ValueError(f"coordinates on {xT.device}, alpha on {a2d.device}")
+    return _adjoint_outputs(A2, A1, alpha.ndim == 2, len(pairs), len(singles))
+
+
+def packed_forward_regen(xT, G2_sets, G1_sets=(), *, P: int, pairs: tuple, singles: tuple = (),
+                         phase_gen: str = "doubling"):
+    """`packed_forward` with the phases regenerated from the coordinates.
+
+    Replaces the TPU kernel `_forward_kernel` (ops/pallas_ndft.py) in its
+    "doubling" / "direct" modes.  xT: (Dtot, n); the weight stacks are
+    (nsets, 2P, 2P) / (nsets, 2P) with 2P = 2 * P.  Returns nsets outputs.
+    """
+    _check_coords(xT, pairs, singles)
+    if phase_gen not in PHASE_GENS:
+        raise ValueError(f"unknown phase_gen {phase_gen!r}, expected one of {PHASE_GENS}")
+    G2, G1 = _weight_stacks(G2_sets, G1_sets, 2 * P, pairs, singles)
+    ref = G2 if G2 is not None else G1
+    if ref.device.type == "cpu" and xT.device.type == "cpu":
+        y = packed_forward_regen_plain(xT, G2, G1, P, pairs, singles, phase_gen)
+    elif ref.is_cuda and xT.is_cuda:
+        G2c, G1c = _dense_stacks(G2, G1, 2 * P, xT.device)
+        _check_cuda(xT, [G2c, G1c], pairs, singles, (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS)
+        y = _cuda_build.forward_regen(xT, G2c, G1c, 2 * P, pairs, singles, phase_gen)
+        packed_forward_regen.launches += 1
+    else:
+        raise ValueError(f"coordinates on {xT.device}, weights on {ref.device}")
+    return list(torch.unbind(y))
+
+
+KERNEL_WRAPPERS = (packed_adjoint, packed_forward, packed_adjoint_regen, packed_forward_regen)
 
 
 def reset_launch_counts():
-    packed_adjoint.launches = 0
-    packed_forward.launches = 0
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+reset_launch_counts()

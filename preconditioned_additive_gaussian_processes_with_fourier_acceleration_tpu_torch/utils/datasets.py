@@ -1,7 +1,8 @@
 """Permutation helpers (port of utils/datasets.py).
 
 Randomness comes from an explicit `torch.Generator`.  Its stream differs
-from jax.random's, so parity tests draw with numpy or JAX and inject.
+from that of the JAX package's keys, so parity tests draw with numpy or JAX
+and inject.
 """
 
 import torch

@@ -66,12 +66,12 @@ def test_additive_table_matvec(data, kind):
 
 
 def test_unported_options_raise(data):
+    """The compensated adjoint is not ported; windows of more than three
+    features raise ValueError, as in the JAX package."""
     X, _ = data
     p = TParams.make(1.0, 0.5, 0.1, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        tfs.additive_fastsum_geometry(torch.tensor(X), t_windows([[0, 1, 2]]))
-    with pytest.raises(NotImplementedError):
-        tfs.additive_fastsum_build("matern12", p, torch.tensor(X), t_windows(WINDOWS), nearfield_lfil=16)
+    with pytest.raises(ValueError):
+        tfs.additive_fastsum_geometry(torch.tensor(X), t_windows([[0, 1, 2, 3]]))
     plan = tfs.additive_fastsum_build("gaussian", p, torch.tensor(X), t_windows(WINDOWS))
     with pytest.raises(NotImplementedError):
         tfs.additive_fastsum_matvec(plan, torch.tensor(X[:, 0]), compensated=True)

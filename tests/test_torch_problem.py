@@ -113,9 +113,14 @@ def test_port_imports_no_jax():
 
 
 def test_unported_paths_raise(synth):
+    """AFN is not ported, nor the stream engine's near-field (cell stencils
+    in the JAX package); fused + stream conflict (ValueError, as in JAX)."""
     X, y = synth
     with pytest.raises(NotImplementedError):
         TProblem(precond="afn").make_loss(torch.tensor(X), torch.tensor(y))
     with pytest.raises(NotImplementedError):
-        TProblem(operator="fastsum", kernel="matern12", windows=[[0, 1]]).make_loss(
-            torch.tensor(X), torch.tensor(y))
+        TProblem(operator="fastsum", kernel="matern12", windows=[[0, 1]],
+                 fastsum_engine="stream").make_loss(torch.tensor(X), torch.tensor(y))
+    with pytest.raises(ValueError):
+        TProblem(operator="fastsum", kernel="matern12", windows=[[0, 1]], fastsum_fused=True,
+                 fastsum_engine="stream").make_loss(torch.tensor(X), torch.tensor(y))

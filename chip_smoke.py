@@ -4,8 +4,9 @@
 
 Phases, one line each (any failure raises and exits non-zero):
   1. device: torch's device name and nvidia-smi's name and power limit;
-  2. build: compiles the two kernel libraries of csrc/ with nvcc (sm_90a),
-     one nvcc per source, both at once, if needed;
+  2. build: compiles the three kernel libraries of csrc/ with nvcc (sm_90a),
+     one nvcc per source, all at once, if needed, and checks grid.sync()
+     with a tiny cooperative kernel over every resident block;
   3. kernels: the table kernels (CUDA adjoint and forward) against their
      plain torch versions on the card at the training shapes (n = 2e5,
      d = 10, five 2-D windows, N = 32, bf16 table), plus a case with a 1-D
@@ -38,6 +39,37 @@ Phases, one line each (any failure raises and exits non-zero):
      float32 vs float64 on the card: 28% apart) and cannot tell the engines
      apart; the SLQ logdet term agrees to 5e-6 there.
 
+  9. dense-kernels: the cooperative CG and Lanczos kernels of
+     csrc/fused_pcg.cu through their entry points (fused_pcg_dense,
+     fused_lanczos_dense) on the additive gaussian K of make_data's points
+     and WINDOWS, float32, n = 2048 and 4096, right-hand side y: CG at
+     (f, l, mu) = (1, 0.5, 0.1) and (1, 0.5, 0.01), maxits 200, tol 1e-5;
+     Lanczos with 10 Rademacher probes and 10 steps at mu = 0.1.  Limits,
+     against the plain versions on the same inputs: where the plain CG
+     stops early the kernel stops early too, with relres <= tol, a float64
+     true residual <= 10 tol and niter within max(2, 10%) of the plain
+     niter (float32 CG on a spectrum clustered at mu amplifies rounding, so
+     two summation orders stop a few steps apart: 101 against 104 at
+     n = 2048); where the plain CG reaches maxits, the kernel's true
+     residual is at most 2x the plain one's.  Lanczos alpha, beta, beta0
+     within 1e-4 of max|alpha|, V within 1e-3 relative Frobenius (float32
+     products over n = 4096 and 10 steps of CGS2 in other orders), and the
+     SLQ logdet from its tridiagonals within 1e-4 relative of the port's
+     slq_logdet on the same probes.  A second launch of each is bitwise
+     equal to the first;
+ 10. dense-fit: GPProblem(gaussian, WINDOWS, operator="dense",
+     precond="chol").fit for 3 Adam steps at n = 4096; every loss finite.
+
+Every kernel case also times one PyTorch call that computes the same
+function from the same inputs (`library_ms`; the port never calls it): for
+the NDFT kernels one torch.einsum per window family over the gathered rows
+of a float32 phase table made outside the timed region (for the
+regenerating kernels the phases are made there too), for CG
+torch.linalg.solve; Lanczos has none.  Each kernel's bound is the larger of
+its flops over the 67 TFLOP/s float32 peak and its bytes (each input read
+once, each output written once) over 3.35 TB/s, the H100 SXM's published
+peaks at 700 W.
+
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits non-zero.
 """
@@ -59,8 +91,18 @@ WINDOWS_FUSED = [[0, 1, 2], [3, 4], [5, 6], [7, 8], [9]]
 FASTSUM_N = 32
 KERNEL_RTOL = 1e-4
 PKG = "preconditioned_additive_gaussian_processes_with_fourier_acceleration_tpu"
-SOURCES = {"table": f"{PKG}_torch/csrc/packed_ndft.cu", "regen": f"{PKG}_torch/csrc/packed_ndft_regen.cu"}
-TPU_KERNELS = {"adjoint": f"{PKG}/ops/pallas_ndft.py:189", "forward": f"{PKG}/ops/pallas_ndft.py:361"}
+SOURCES = {"table": f"{PKG}_torch/csrc/packed_ndft.cu", "regen": f"{PKG}_torch/csrc/packed_ndft_regen.cu",
+           "fused": f"{PKG}_torch/csrc/fused_pcg.cu"}
+TPU_KERNELS = {"adjoint": f"{PKG}/ops/pallas_ndft.py:189", "forward": f"{PKG}/ops/pallas_ndft.py:361",
+               "pcg": f"{PKG}/solvers/pallas_pcg.py:36", "lanczos": f"{PKG}/solvers/pallas_pcg.py:174"}
+# H100 SXM published peaks at its 700 W limit: float32 outside the tensor
+# cores, and HBM3 bandwidth
+F32_PEAK = 67e12
+HBM_PEAK = 3.35e12
+DENSE_NS = (2048, 4096)
+DENSE_MUS = (0.1, 0.01)
+PCG_MAXITS, PCG_TOL = 200, 1e-5
+SLQ_NV, SLQ_ITS = 10, 10
 
 
 def nvidia_smi() -> str:
@@ -100,13 +142,43 @@ def _rel_err(got, want):
     return float(torch.linalg.norm(diff) / torch.linalg.norm(want.double())), float(diff.abs().max())
 
 
-def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets_list, timed):
+def bound(flops, nbytes):
+    """(ms, "operations" | "bytes"): the least time the card could take."""
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_PEAK * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def library_calls(T, pairs, singles):
+    """The yardstick: one torch.einsum per window family over the gathered
+    rows of a float32 phase table T (Dtot, 2P, n) made outside the timed
+    region.  Returns (adjoint(alpha) -> (A2, A1), forward(G2s, G1s) -> y)."""
+    L0, L1 = T[[a for a, _ in pairs]], T[[b for _, b in pairs]]
+    Ls = T[list(singles)]
+
+    def adj(alpha):
+        A2 = torch.einsum("wpi,ri,wqi->rwpq", L0, alpha, L1) if pairs else alpha.new_zeros(0)
+        A1 = torch.einsum("wpi,ri->rwp", Ls, alpha) if singles else alpha.new_zeros(0)
+        return A2, A1
+
+    def fwd(G2s, G1s):
+        y = torch.einsum("wpi,swpq,wqi->si", L0, G2s, L1) if pairs else 0.0
+        return y + torch.einsum("kpi,skp->si", Ls, G1s) if singles else y
+
+    return adj, fwd
+
+
+def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets_list, timed, T32, src_bytes):
     """One adjoint kernel and one forward kernel against their plain versions.
 
     adj(alpha) / fwd(G2, G1) are the wrappers on one layout; adj_plain /
-    fwd_plain the plain versions.  Returns per-case dicts (kernel, mode,
-    shape, rel, max_abs, ms, plain_ms)."""
+    fwd_plain the plain versions; T32 the float32 phases of the layout for
+    the library yardstick; src_bytes the bytes of the kernels' phase source
+    (table or coordinates).  Returns per-case dicts (kernel, mode, shape,
+    rel, max_abs, ms, plain_ms, library_ms, bound_ms, bound_by)."""
     n, dev = X.shape[0], X.device
+    W2 = 2 * P
+    npairs, nsingles = len(lay.pairs), len(lay.singles)
+    lib_adj, lib_fwd = library_calls(T32, lay.pairs, lay.singles)
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
     for nv in nvs:
@@ -114,10 +186,16 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         got = adj(alpha)
         torch.cuda.synchronize()
         want = adj_plain(alpha)
-        rel, mx = _rel_err([torch.stack(g, dim=1) for g in got if g], [w for w in want if w.numel()])
+        want_flat = [w for w in want if w.numel()]
+        rel, mx = _rel_err([torch.stack(g, dim=1) for g in got if g], want_flat)
+        lib_rel, _ = _rel_err([w for w in lib_adj(alpha) if w.numel()], want_flat)
         ms = cuda_ms(lambda: adj(alpha)) if timed else None
         pms = cuda_ms(lambda: adj_plain(alpha)) if timed else None
-        cases.append(dict(kernel=names[0], shape=f"nv={nv}", rel=rel, max_abs=mx, ms=ms, plain_ms=pms))
+        lms = cuda_ms(lambda: lib_adj(alpha)) if timed else None
+        out = nv * (npairs * W2 * W2 + nsingles * W2)
+        b_ms, b_by = bound(2.0 * n * out, src_bytes + 4 * (nv * n + out))
+        cases.append(dict(kernel=names[0], shape=f"nv={nv}", rel=rel, max_abs=mx, lib_rel=lib_rel, ms=ms,
+                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by))
 
     # realistic combined weights: K and dK/dl sets of real adjoint outputs
     from nfft4gp_torch.ops import fastsum as fs
@@ -125,9 +203,9 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
     alpha = torch.randn((-(-max(nsets_list) // 2), n), generator=gen, device=dev)
     A2, A1 = adj_plain(alpha)
     G2all = [torch.stack([fs._folded_combine(W[i], A2[:, i], 2) for W in (lay.w2, lay.dw2)], 1)
-             .reshape(-1, 2 * P, 2 * P) for i in range(len(lay.pairs))]
+             .reshape(-1, W2, W2) for i in range(npairs)]
     G1all = [torch.stack([fs._folded_combine(W[i], A1[:, i], 1) for W in (lay.w1, lay.dw1)], 1)
-             .reshape(-1, 2 * P) for i in range(len(lay.singles))]
+             .reshape(-1, W2) for i in range(nsingles)]
     for nsets in nsets_list:
         G2 = [g[:nsets].contiguous() for g in G2all]
         G1 = [g[:nsets].contiguous() for g in G1all]
@@ -135,18 +213,29 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         torch.cuda.synchronize()
         G2s = torch.stack(G2, 1) if G2 else None
         G1s = torch.stack(G1, 1) if G1 else None
-        rel, mx = _rel_err(got, [fwd_plain(G2s, G1s)])
+        want = fwd_plain(G2s, G1s)
+        rel, mx = _rel_err(got, [want])
+        lib_rel, _ = _rel_err([lib_fwd(G2s, G1s)], [want])
         ms = cuda_ms(lambda: fwd(G2, G1)) if timed else None
         pms = cuda_ms(lambda: fwd_plain(G2s, G1s)) if timed else None
-        cases.append(dict(kernel=names[1], shape=f"nsets={nsets}", rel=rel, max_abs=mx, ms=ms, plain_ms=pms))
+        lms = cuda_ms(lambda: lib_fwd(G2s, G1s)) if timed else None
+        weights = nsets * (npairs * W2 * W2 + nsingles * W2)
+        flops = 2.0 * nsets * n * (npairs * (W2 * W2 + W2) + nsingles * W2)
+        b_ms, b_by = bound(flops, src_bytes + 4 * (weights + nsets * n))
+        cases.append(dict(kernel=names[1], shape=f"nsets={nsets}", rel=rel, max_abs=mx, lib_rel=lib_rel, ms=ms,
+                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by))
 
     for c in cases:
         c["mode"] = tag.split(" ")[0]
         print(f"[{'kernels-regen' if names[0].endswith('regen') else 'kernels'}] {tag} {c['kernel']} "
               f"{c['shape']}: rel_err={c['rel']:.3e} max_abs_err={c['max_abs']:.3e} ms={c['ms']} "
-              f"plain_ms={c['plain_ms']}", flush=True)
+              f"plain_ms={c['plain_ms']} library_ms={c['library_ms']} (einsum rel_err={c['lib_rel']:.1e}) "
+              f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
         if not c["rel"] <= KERNEL_RTOL:
             raise AssertionError(f"{c['kernel']} {tag} {c['shape']} disagrees with its plain version: {c['rel']}")
+        if not c["lib_rel"] <= KERNEL_RTOL:
+            raise AssertionError(f"the einsum yardstick of {c['kernel']} {tag} {c['shape']} computes "
+                                 f"another function: {c['lib_rel']}")
     return cases
 
 
@@ -171,7 +260,7 @@ def check_kernels(X, windows, nvs, nsets_list, timed=True):
         lambda a: pk.packed_adjoint_plain(Tp, a, pairs, singles),
         lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles),
         lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles),
-        pn, pn.P, X, nvs, nsets_list, timed)
+        pn, pn.P, X, nvs, nsets_list, timed, Tp.float(), Tp.numel() * Tp.element_size())
 
 
 def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 20)):
@@ -193,7 +282,7 @@ def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 20)):
             lambda a: pk.packed_adjoint_regen_plain(xT, a, P, pairs, singles, gen),
             lambda G2, G1: pk.packed_forward_regen(xT, G2, G1, **kw),
             lambda G2s, G1s: pk.packed_forward_regen_plain(xT, G2s, G1s, P, pairs, singles, gen),
-            lay, P, X, nvs, nsets_list, True)
+            lay, P, X, nvs, nsets_list, True, pk.phase_slab(xT, P, gen), xT.numel() * xT.element_size())
     return cases
 
 
@@ -217,7 +306,7 @@ def timed_fit(prob, X, y, counted):
     losses = prob.loss_history_
     if len(losses) != 3 or not all(np.isfinite(losses)):
         raise AssertionError(f"losses not finite: {losses}")
-    if min(counts[k] for k in counted) <= 0:
+    if counted and min(counts[k] for k in counted) <= 0:
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
     return losses, np.diff(stamps), counts
 
@@ -256,13 +345,130 @@ def check_fused_engines(X, y):
     np.testing.assert_allclose(grad_f.cpu().numpy(), grad_t.cpu().numpy(), rtol=1e-2, atol=1e-3)
 
 
+def _true_relres(K, x, b):
+    Kd, xd, bd = K.double(), x.double(), b.double()
+    return float(torch.linalg.norm(bd - Kd @ xd) / torch.linalg.norm(bd))
+
+
+def _slq_from_tridiag(alpha, beta):
+    """Mean over probes of sum_j (e1' v_j)^2 log|theta_j| (logdet(K)/n)."""
+    from nfft4gp_torch.solvers.lanczos import _tridiag
+
+    theta, vecs = torch.linalg.eigh(_tridiag(alpha.double(), beta.double()))
+    return float(torch.mean(torch.sum(vecs[:, 0, :] ** 2 * torch.log(torch.abs(theta)), dim=1)))
+
+
+def check_dense_kernels(X, y):
+    """The cooperative CG and Lanczos kernels at n = 2048 and 4096 (module
+    docstring, phase 9).  Returns (per-kernel case dicts, launch counts of
+    the entry points' run)."""
+    from nfft4gp_torch.ops.kernels import KernelParams, additive_kernel_matrix, make_windows
+    from nfft4gp_torch.solvers import fused_pcg as fp
+    from nfft4gp_torch.solvers.lanczos import lanczos_batch, rademacher_probes, slq_logdet
+    from nfft4gp_torch.solvers.pcg import pcg
+
+    dev, W = X.device, make_windows(WINDOWS)
+    probs = {}
+    for n in DENSE_NS:
+        for mu in DENSE_MUS:
+            p = KernelParams.make(1.0, 0.5, mu, dtype=torch.float32, device=dev)
+            probs[n, mu] = (additive_kernel_matrix("gaussian", p, X[:n], W).contiguous(), y[:n].contiguous())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    Zs = {n: rademacher_probes(gen, SLQ_NV, n, dtype=torch.float32) for n in DENSE_NS}
+
+    # the entry points at every shape, their launch counts from 0
+    fp.reset_launch_counts()
+    torch.cuda.synchronize()
+    sols = {key: fp.fused_pcg_dense(K, b, maxits=PCG_MAXITS, tol=PCG_TOL) for key, (K, b) in probs.items()}
+    lans = {n: fp.fused_lanczos_dense(probs[n, DENSE_MUS[0]][0], Zs[n], maxits=SLQ_ITS) for n in DENSE_NS}
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in fp.KERNEL_WRAPPERS}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a dense kernel was not launched: {launches}")
+
+    cases = []
+    for (n, mu), (K, b) in probs.items():
+        x, rr, it = sols[n, mu]
+        again = fp.fused_pcg_dense(K, b, maxits=PCG_MAXITS, tol=PCG_TOL)
+        bitwise = all(torch.equal(u, v) for u, v in zip((x, rr, it), again))
+        xp, rp, itp = fp.fused_pcg_dense_plain(K, b, maxits=PCG_MAXITS, tol=PCG_TOL)
+        it, itp, rr, rp = int(it), int(itp), float(rr), float(rp)
+        true, true_p = _true_relres(K, x, b), _true_relres(K, xp, b)
+        ms = cuda_ms(lambda: fp.fused_pcg_dense(K, b, maxits=PCG_MAXITS, tol=PCG_TOL))
+        pms = cuda_ms(lambda: fp.fused_pcg_dense_plain(K, b, maxits=PCG_MAXITS, tol=PCG_TOL), reps=3, warmup=1)
+        lms = cuda_ms(lambda: torch.linalg.solve(K, b))
+        ems = cuda_ms(lambda: pcg(lambda v: K @ v, b, tol=PCG_TOL, maxits=PCG_MAXITS), reps=3, warmup=1)
+        b_ms, b_by = bound(it * (2.0 * n * n + 10.0 * n), 4.0 * (n * n + 2 * n))
+        c = dict(kernel="fused_pcg_dense", shape=f"n={n} mu={mu}", max_abs=float((x - xp).abs().max()), ms=ms,
+                 plain_ms=pms, library_ms=lms, engine_ms=ems, bound_ms=b_ms, bound_by=b_by)
+        cases.append(c)
+        print(f"[dense-kernels] fused_pcg_dense n={n} (f, l, mu)=(1, 0.5, {mu}): niter={it} (plain {itp}) "
+              f"relres={rr:.3e} (plain {rp:.3e}) true_relres_f64={true:.3e} (plain {true_p:.3e}) "
+              f"max_abs_err={c['max_abs']:.3e} bitwise_repeat={bitwise} ms={ms:.4f} plain_ms={pms:.4f} "
+              f"library_ms(linalg.solve)={lms:.4f} engine_ms(pcg)={ems:.4f} bound_ms={b_ms:.4f} ({b_by})",
+              flush=True)
+        if not bitwise:
+            raise AssertionError(f"fused_pcg_dense n={n} mu={mu}: a second launch differs")
+        if itp < PCG_MAXITS:
+            if not (it < PCG_MAXITS and rr <= PCG_TOL and true <= 10 * PCG_TOL
+                    and abs(it - itp) <= max(2, 0.1 * itp)):
+                raise AssertionError(f"fused_pcg_dense n={n} mu={mu} outside its limits against the plain CG")
+        elif not true <= 2.0 * true_p:
+            raise AssertionError(f"fused_pcg_dense n={n} mu={mu}: true residual {true} > 2x plain {true_p}")
+
+    for n in DENSE_NS:
+        K, Z = probs[n, DENSE_MUS[0]][0], Zs[n]
+        out = lans[n]
+        again = fp.fused_lanczos_dense(K, Z, maxits=SLQ_ITS)
+        bitwise = all(torch.equal(u, v) for u, v in zip(out, again))
+        a, bt, V, b0 = out
+        ap, bp, Vp, b0p = fp.fused_lanczos_dense_plain(K, Z, maxits=SLQ_ITS)
+        scale = float(ap.abs().max())
+        coef_err = max(float((u - v).abs().max()) for u, v in ((a, ap), (bt, bp), (b0, b0p)))
+        v_rel = float(torch.linalg.norm(V - Vp) / torch.linalg.norm(Vp))
+        est = _slq_from_tridiag(a, bt)
+        ref = float(slq_logdet(lambda R: R @ K, lambda R: R.new_zeros((R.shape[0], 1, n)), Z,
+                               maxits=SLQ_ITS).logdet)
+        ms = cuda_ms(lambda: fp.fused_lanczos_dense(K, Z, maxits=SLQ_ITS))
+        pms = cuda_ms(lambda: fp.fused_lanczos_dense_plain(K, Z, maxits=SLQ_ITS), reps=3, warmup=1)
+        ems = cuda_ms(lambda: lanczos_batch(lambda R: R @ K, Z, maxits=SLQ_ITS, tol=0.0), reps=3, warmup=1)
+        # steps the launch ran: until every probe stopped (V's later rows stay 0)
+        live = int(((V != 0).any(dim=2).sum(dim=1) - 1).max())
+        steps = min(SLQ_ITS, live + 1)
+        flops = 2.0 * SLQ_NV * n * n * steps + 4.0 * SLQ_NV * n * steps * (steps + 1)
+        b_ms, b_by = bound(flops, 4.0 * (n * n + SLQ_NV * n * (SLQ_ITS + 2) + SLQ_NV * 2 * SLQ_ITS))
+        max_abs = max(coef_err, float((V - Vp).abs().max()))
+        cases.append(dict(kernel="fused_lanczos_dense", shape=f"n={n} mu={DENSE_MUS[0]}", max_abs=max_abs, ms=ms,
+                          plain_ms=pms, library_ms=None, engine_ms=ems, bound_ms=b_ms, bound_by=b_by))
+        print(f"[dense-kernels] fused_lanczos_dense n={n} nv={SLQ_NV} maxits={SLQ_ITS}: coef_err/max|alpha|="
+              f"{coef_err / scale:.3e} V_rel_err={v_rel:.3e} logdet/n={est:.8e} (slq_logdet {ref:.8e}) "
+              f"bitwise_repeat={bitwise} ms={ms:.4f} plain_ms={pms:.4f} library_ms=None "
+              f"engine_ms(lanczos_batch)={ems:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if not bitwise:
+            raise AssertionError(f"fused_lanczos_dense n={n}: a second launch differs")
+        if not (coef_err <= 1e-4 * scale and v_rel <= 1e-3 and abs(est - ref) <= 1e-4 * abs(ref)):
+            raise AssertionError(f"fused_lanczos_dense n={n} outside its limits against the plain version")
+    print(f"[dense-kernels] launches of the entry points' run: {launches}", flush=True)
+    return cases, launches
+
+
+def check_dense_fit(X, y):
+    from nfft4gp_torch.models.problem import GPProblem
+
+    prob = GPProblem(kernel="gaussian", windows=WINDOWS, operator="dense", precond="chol", maxits=10, nvecs=10)
+    losses, steps, _ = timed_fit(prob, X, y, ())
+    print(f"[dense-fit] n={X.shape[0]} windows={WINDOWS} precond=chol losses={losses} s_per_step={steps.tolist()} "
+          f"median_s_per_step={float(np.median(steps)):.4f}", flush=True)
+
+
 def _summary(name, route, mode, cases, shape, launches):
-    c = next(c for c in cases if c["kernel"] == name and c["shape"] == shape and c["mode"] == mode)
-    base = "adjoint" if "adjoint" in name else "forward"
+    c = next(c for c in cases if c["kernel"] == name and c["shape"] == shape and c.get("mode") == mode)
+    base = next(k for k in ("adjoint", "forward", "pcg", "lanczos") if k in name)
     return {"name": name, "route": "cuda", "source": SOURCES[route], "replaces": TPU_KERNELS[base],
-            "mode": mode, "launches": launches[name],
+            "mode": mode, "shape": shape, "launches": launches[name],
             "max_abs_err": max(d["max_abs"] for d in cases if d["kernel"] == name),
-            "ms": c["ms"], "plain_ms": c["plain_ms"]}
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"]}
 
 
 def main():
@@ -282,6 +488,11 @@ def main():
         _cuda_build.library(lib)
     print(f"[build] {', '.join(p.parent.name for p in paths.values())} compiled in {secs:.1f} s "
           "(one nvcc per source, in parallel)", flush=True)
+    blocks, total = _cuda_build.grid_sync_probe(torch.device("cuda:0"))
+    print(f"[build] grid.sync() over {blocks} resident blocks: sum {total} "
+          f"(expected {blocks * (blocks + 1) // 2})", flush=True)
+    if total != blocks * (blocks + 1) // 2:
+        raise AssertionError("the cooperative grid-wide barrier does not hold")
 
     X, y = make_data(N_POINTS)
     cases = check_kernels(X, WINDOWS, nvs=(1, 10), nsets_list=(1, 2, 20))
@@ -309,10 +520,19 @@ def main():
 
     check_fused_engines(X[:N_AGREE], y[:N_AGREE])
 
+    Xd, yd = make_data(max(DENSE_NS))
+    dense, dcounts = check_dense_kernels(Xd, yd)
+    for c in dense:
+        c["mode"] = "dense"
+    check_dense_fit(Xd, yd)
+
     summary = [_summary("packed_adjoint", "table", "table-bf16", cases, "nv=10", counts),
                _summary("packed_forward", "table", "table-bf16", cases, "nsets=20", counts),
                _summary("packed_adjoint_regen", "regen", "doubling", regen, "nv=10", fcounts),
-               _summary("packed_forward_regen", "regen", "doubling", regen, "nsets=20", fcounts)]
+               _summary("packed_forward_regen", "regen", "doubling", regen, "nsets=20", fcounts),
+               _summary("fused_pcg_dense", "fused", "dense", dense, f"n={DENSE_NS[0]} mu={DENSE_MUS[0]}", dcounts),
+               _summary("fused_lanczos_dense", "fused", "dense", dense, f"n={DENSE_NS[1]} mu={DENSE_MUS[0]}",
+                        dcounts)]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,4 @@
-"""NFFT4GP on PyTorch: the additive-fastsum GP training step for NVIDIA GPUs.
+"""NFFT4GP on PyTorch: GP training on NVIDIA GPUs.
 
 A port of the JAX package
 `preconditioned_additive_gaussian_processes_with_fourier_acceleration_tpu`,
@@ -10,9 +10,11 @@ What is here: the kernel families with (f, l, mu) gradients and additive
 windows, the dense operator, the folded-NDFT fastsum operator for windows
 of one to three features with the matern12 KNN near-field (table engine in
 torch; streamed-table and phase-regenerating engines on the hand-written
-CUDA kernels of `ops/packed_ndft.py`), FGMRES, batched Lanczos/SLQ, the
-Nystrom preconditioner, the marginal-likelihood loss with the reference's
-estimator, Adam and `GPProblem.fit`.
+CUDA kernels of `ops/packed_ndft.py`), PCG, FGMRES, batched Lanczos/SLQ,
+the dense small-n Krylov solves on the cooperative CUDA kernels of
+`solvers/fused_pcg.py`, the Cholesky and Nystrom preconditioners, the
+marginal-likelihood loss with the reference's estimator, Adam,
+`GPProblem.fit` and the exact one-vs-all multiclass GP.
 
 Float32 products run in full float32: TF32 is switched off here.  This is
 the counterpart of the JAX package's `precision="highest"` products; the
@@ -30,14 +32,19 @@ __version__ = "0.1.0"
 
 from .ops.kernels import (  # noqa: E402
     KernelParams,
+    gaussian_kernel,
+    matern32_kernel,
+    matern12_kernel,
     kernel_matrix,
     kernel_matrix_with_grad,
     additive_kernel_matrix,
     additive_kernel_matrix_with_grad,
     make_windows,
 )
+from .solvers.pcg import pcg  # noqa: E402
 from .solvers.fgmres import fgmres  # noqa: E402
 from .solvers.lanczos import lanczos, slq_logdet  # noqa: E402
+from .preconds.chol import CholPrecond, chol_setup  # noqa: E402
 from .preconds.nystrom import NystromPrecond, nystrom_setup  # noqa: E402
 from .models.transforms import transform_forward, transform_inverse  # noqa: E402
 from .models.gp import GPConfig, gp_loss  # noqa: E402

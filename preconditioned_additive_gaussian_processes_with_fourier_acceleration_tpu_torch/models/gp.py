@@ -21,6 +21,7 @@ from ..ops.kernels import (
     additive_kernel_matrix_with_grad,
     kernel_matrix_with_grad,
 )
+from ..preconds.nystrom import nystrom_setup
 from ..solvers.fgmres import fgmres
 from ..solvers.lanczos import slq_logdet
 from .transforms import transform_forward
@@ -86,3 +87,17 @@ def gp_loss(raw_params, y, build_ops: Callable, probes, cfg: GPConfig,
     grad = 0.5 * (-L1_grad + slq.dlogdet * dtvals) * mask
     return GPLossResult(loss=loss, grad=grad, l1=L1, l2=slq.logdet,
                         solve_relres=sol.relres, solve_iters=sol.niter)
+
+
+def gp_loss_gaussian_ran_softplus(raw_params, X, y, probes, *, rank: int = 50, maxits: int = 10,
+                                  tol: float = 1e-6, perm=None) -> GPLossResult:
+    """Convenience loss: dense gaussian kernel + Nystrom ("RAN")
+    preconditioner + softplus transform (ref Nfft4GPGpLossGaussianRANSoftPlus,
+    gp_loss.c:28-94).  perm: the landmark indices (default the first rank
+    points), injectable for reproducible runs."""
+    k = min(rank, X.shape[0])
+    if perm is None:
+        perm = torch.arange(k, device=X.device)
+    cfg = GPConfig(kind="gaussian", maxits=maxits, nvecs=probes.shape[0], tol=tol)
+    return gp_loss(raw_params, y, make_dense_ops("gaussian", X), probes, cfg,
+                   lambda params: nystrom_setup("gaussian", params, X, perm, k, require_grad=True))

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from ..ops import fastsum as fs
-from ..ops.kernels import make_windows
+from ..ops.kernels import additive_kernel_matrix_with_grad, kernel_matrix_with_grad, make_windows
+from ..preconds.chol import chol_setup
 from ..preconds.nystrom import nystrom_setup
 from ..solvers.lanczos import rademacher_probes
 from ..utils.datasets import rand_perm
@@ -60,6 +61,19 @@ def state_from_numpy(device, *, raw_params=None, landmarks=None, probes=None, nf
                          probes=conv(probes), nf_patterns=pats)
 
 
+def tensors_from_numpy(device, *arrays, dtype=None):
+    """Copies of numpy arrays drawn on the JAX side (a dense K, right-hand
+    sides, probe matrices, multiclass raw parameters) as tensors on `device`;
+    dtype applies to floating arrays (default: their own)."""
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.array(a, copy=True))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        out.append(t.to(device))
+    return tuple(out)
+
+
 def _ops(matvec_batch, grad_matvec_batch):
     """(matvec, dmatvec) on one vector (n,) or a batch of rows (nv, n): the
     batch functions share one kernel pass across the rows."""
@@ -79,7 +93,7 @@ class GPProblem:
     kernel:   'gaussian' | 'matern32' | 'matern12'
     windows:  None (full kernel) or list of feature-index lists (additive)
     operator: 'dense' | 'fastsum' (fastsum: additive windows of 1-3 features)
-    precond:  'none' | 'nystrom'
+    precond:  'none' | 'chol' (dense K and dK, exact Cholesky) | 'nystrom'
 
     fastsum_engine: 'stream' (the packed table kernels; their plain torch
     versions on CPU tensors) | 'table' (torch products on per-window
@@ -191,6 +205,16 @@ class GPProblem:
     def _precond_factory(self, X, landmarks=None):
         if self.precond == "none":
             return None
+        warr = self._windows_arr()
+        if self.precond == "chol":
+            def setup(params):
+                if warr is None:
+                    K, dK = kernel_matrix_with_grad(self.kernel, params, X)
+                else:
+                    K, dK = additive_kernel_matrix_with_grad(self.kernel, params, X, warr)
+                return chol_setup(K, dK=dK, require_grad=True)
+
+            return setup
         if self.precond != "nystrom":
             raise NotImplementedError(f"precond {self.precond!r} is not ported yet")
         n = X.shape[0]
@@ -198,7 +222,6 @@ class GPProblem:
         if landmarks is None:
             landmarks = rand_perm(torch.Generator().manual_seed(self.seed), n, k)
         landmarks = landmarks.to(X.device)
-        warr = self._windows_arr()
         return lambda params: nystrom_setup(self.kernel, params, X, landmarks, k,
                                             require_grad=True, windows=warr)
 

@@ -1,17 +1,18 @@
 """Build, load and launch the CUDA kernels of csrc/.
 
-Two shared libraries with a plain C interface, one per source, both from the
-kernel templates of csrc/packed_ndft.cuh:
+Three shared libraries with a plain C interface, one per source:
 
-- `packed_ndft`: csrc/packed_ndft.cu, the table phase source;
-- `packed_ndft_regen`: csrc/packed_ndft_regen.cu, the regenerating phase
-  sources ("doubling", "direct").
+- `packed_ndft`: csrc/packed_ndft.cu, the NDFT kernels (templates of
+  csrc/packed_ndft.cuh) on the table phase source;
+- `packed_ndft_regen`: csrc/packed_ndft_regen.cu, the same templates on the
+  regenerating phase sources ("doubling", "direct");
+- `fused_pcg`: csrc/fused_pcg.cu, the cooperative CG and Lanczos kernels.
 
 Each is compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-into `_build/<name>-<hash of source, header and flags>/lib<name>.so` inside
+into `_build/<name>-<hash of source, headers and flags>/lib<name>.so` inside
 the package (the directory is git-ignored) and loaded with ctypes.  `build()`
 starts one nvcc per missing library, all at once, and waits for them.  The
 hash key means a changed source builds anew and an unchanged one loads at
@@ -33,9 +34,13 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-HEADER = CSRC / "packed_ndft.cuh"
 SOURCES = {"packed_ndft": CSRC / "packed_ndft.cu",
-           "packed_ndft_regen": CSRC / "packed_ndft_regen.cu"}
+           "packed_ndft_regen": CSRC / "packed_ndft_regen.cu",
+           "fused_pcg": CSRC / "fused_pcg.cu"}
+# the headers of csrc/ each source includes: part of its build key
+HEADERS = {"packed_ndft": (CSRC / "packed_ndft.cuh",),
+           "packed_ndft_regen": (CSRC / "packed_ndft.cuh",),
+           "fused_pcg": ()}
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -59,7 +64,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    key = SOURCES[name].read_bytes() + HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    key = b"".join(f.read_bytes() for f in (SOURCES[name], *HEADERS[name]))
+    key += " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(key).hexdigest()[:16]
     return BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
 
@@ -101,20 +107,42 @@ def build() -> tuple[dict, float]:
     return paths, time.perf_counter() - t0
 
 
-@functools.lru_cache(maxsize=None)
-def library(name: str) -> ctypes.CDLL:
-    """Load one library.  Both export the same C functions (adjoint_launch,
-    forward_launch, error_string), their first two arguments being the
-    phase source (table pointer and bf16 flag, or coordinates and
-    phase_gen code); ctypes loads each with RTLD_LOCAL."""
-    paths, _ = build()
-    lib = ctypes.CDLL(str(paths[name]))
+def _ndft_signatures(lib):
+    """adjoint_launch / forward_launch, their first two arguments being the
+    phase source (table pointer and bf16 flag, or coordinates and phase_gen
+    code)."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, P, P]
     lib.adjoint_launch.restype = I
     lib.forward_launch.argtypes = [P, I, I, I, P, I, P, P, I, P, I, P, P]
     lib.forward_launch.restype = I
-    lib.error_string.argtypes = [I]
+
+
+def _fused_pcg_signatures(lib):
+    P, I, IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.fused_pcg_grid.argtypes = [I, IP]
+    lib.fused_pcg_launch.argtypes = [P, P, I, I, ctypes.c_float, I, P, P, P, P, P]
+    lib.fused_lanczos_grid.argtypes = [I, IP]
+    lib.fused_lanczos_launch.argtypes = [P, P, I, I, I, I, P, P, P, P, P, P]
+    lib.grid_sync_probe.argtypes = [P, IP, P]
+    lib.probe_grid_size.argtypes = [IP]
+    for fn in (lib.fused_pcg_grid, lib.fused_pcg_launch, lib.fused_lanczos_grid,
+               lib.fused_lanczos_launch, lib.grid_sync_probe, lib.probe_grid_size):
+        fn.restype = I
+
+
+_SIGNATURES = {"packed_ndft": _ndft_signatures, "packed_ndft_regen": _ndft_signatures,
+               "fused_pcg": _fused_pcg_signatures}
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """Load one library (ctypes, RTLD_LOCAL) with its own C signatures; each
+    also exports error_string."""
+    paths, _ = build()
+    lib = ctypes.CDLL(str(paths[name]))
+    _SIGNATURES[name](lib)
+    lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
 
@@ -194,3 +222,56 @@ def forward_regen(xT, G2, G1, WR, pairs, singles, phase_gen):
     """Launch the regenerating forward kernel: (nsets, n) float32."""
     return _forward(library("packed_ndft_regen"), "packed_forward_regen", xT,
                     PHASE_GEN_CODES[phase_gen], G2, G1, WR, xT.shape[1], pairs, singles)
+
+
+def _grid(lib, query, n: int) -> int:
+    g = ctypes.c_int(0)
+    _check(lib, query(n, ctypes.byref(g)), query.__name__)
+    return g.value
+
+
+def fused_pcg(K, b, maxits: int, tol: float):
+    """Launch the cooperative CG kernel: (x (n,), relres (), niter () int32)."""
+    lib = library("fused_pcg")
+    n = b.shape[0]
+    G = _grid(lib, lib.fused_pcg_grid, n)
+    x = torch.empty(n, dtype=torch.float32, device=b.device)
+    scratch = torch.empty(3 * n + 2 * G, dtype=torch.float32, device=b.device)
+    relres = torch.empty((), dtype=torch.float32, device=b.device)
+    niter = torch.empty((), dtype=torch.int32, device=b.device)
+    code = lib.fused_pcg_launch(K.data_ptr(), b.data_ptr(), n, maxits, float(tol * tol), G,
+                                x.data_ptr(), scratch.data_ptr(), relres.data_ptr(),
+                                niter.data_ptr(), _stream(b))
+    _check(lib, code, "fused_pcg")
+    return x, relres, niter
+
+
+def fused_lanczos(K, Z, maxits: int):
+    """Launch the cooperative Lanczos kernel: (alpha, beta, V, beta0)."""
+    lib = library("fused_pcg")
+    nv, n = Z.shape
+    dev = Z.device
+    G = _grid(lib, lib.fused_lanczos_grid, n)
+    alpha = torch.ones((nv, maxits), dtype=torch.float32, device=dev)
+    beta = torch.zeros((nv, maxits - 1), dtype=torch.float32, device=dev)
+    V = torch.zeros((nv, maxits + 1, n), dtype=torch.float32, device=dev)
+    beta0 = torch.empty(nv, dtype=torch.float32, device=dev)
+    scratch = torch.empty(nv * n + G * nv * (2 * maxits + 3), dtype=torch.float32, device=dev)
+    code = lib.fused_lanczos_launch(K.data_ptr(), Z.data_ptr(), n, nv, maxits, G,
+                                    alpha.data_ptr(), beta.data_ptr(), V.data_ptr(),
+                                    beta0.data_ptr(), scratch.data_ptr(), _stream(Z))
+    _check(lib, code, "fused_lanczos")
+    return alpha, beta, V, beta0
+
+
+def grid_sync_probe(device) -> tuple[int, int]:
+    """Run the grid-wide barrier check: (blocks, the sum block 0 read after
+    grid.sync(), which must be blocks (blocks + 1) / 2)."""
+    lib = library("fused_pcg")
+    g = ctypes.c_int(0)
+    _check(lib, lib.probe_grid_size(ctypes.byref(g)), "probe_grid_size")
+    out = torch.zeros(1 + g.value, dtype=torch.int32, device=device)
+    code = lib.grid_sync_probe(out.data_ptr(), ctypes.byref(g),
+                               ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    _check(lib, code, "grid_sync_probe")
+    return g.value, int(out[0])

@@ -85,6 +85,18 @@ def kernel_matrix_with_grad(kind: str, params: KernelParams, X, Y=None):
     return _assemble_grad(params, k, dk_dl, Y is None)
 
 
+def gaussian_kernel(params, X, Y=None):
+    return kernel_matrix("gaussian", params, X, Y)
+
+
+def matern32_kernel(params, X, Y=None):
+    return kernel_matrix("matern32", params, X, Y)
+
+
+def matern12_kernel(params, X, Y=None):
+    return kernel_matrix("matern12", params, X, Y)
+
+
 def _assemble_grad(params, k, dk_dl, same_points):
     f2 = params.f * params.f
     eye = _eye_like(k, same_points)
@@ -129,3 +141,15 @@ def additive_kernel_matrix(kind: str, params: KernelParams, X, windows, Y=None):
 def additive_kernel_matrix_with_grad(kind: str, params: KernelParams, X, windows, Y=None):
     k, dk_dl = BASE_KERNELS[kind](_additive_r2(X, Y, windows), params.l)
     return _assemble_grad(params, torch.mean(k, dim=0), torch.mean(dk_dl, dim=0), Y is None)
+
+
+# --- matvec closures -------------------------------------------------------------
+
+def dense_symv(K):
+    """y = K x closure (ref Nfft4GPDenseMatSymv, matops.c:3-14)."""
+    return lambda x: K @ x
+
+
+def dense_grad_symv(dK):
+    """y[3, n] = dK[i] x closure (ref Nfft4GPDenseGradMatSymv, matops.c:15-30)."""
+    return lambda x: torch.einsum("knm,m->kn", dK, x)

@@ -15,7 +15,22 @@ than one tile, weight-set counts that straddle the forward's set tiles,
 layouts with only 2-D or only 1-D windows, and the 32-pair / 64-single
 limits of one call.
 
+The cooperative dense Krylov kernels (solvers/fused_pcg.py, csrc/fused_pcg.cu)
+are held against their plain versions at n = 1, 31, 33, 1000 (not a
+multiple of a warp or a panel) and at the n <= 16384 limit, nv = 1 to the
+16-probe limit, maxits = 1 to the 64-step limit, b = 0, breakdowns (K = 0,
+a rank-3 K, a zero probe), and a second launch bitwise equal to the first.
+
 Tolerances:
+- dense Krylov kernels, on K = I + S, S symmetric with a spectrum in
+  about [-0.3, 0.3] (cond ~2, so float32 rounding is not amplified): CG
+  niter within 1, x within 1e-5 of max|x|, relres at maxits rtol 1e-3 /
+  atol 1e-6 (n = 1 converges in one step to a rounding-level residual); Lanczos alpha, beta within 1e-4 of max|alpha|, V within 1e-4
+  relative Frobenius, beta0 rtol 1e-6 -- float32 sums in other orders;
+- a precond="chol" dense loss step (float32) on the card against CPU
+  tensors: loss rtol 1e-4, gradient rtol 1e-3 / atol 1e-4 -- float32
+  Cholesky factors of a K with condition ~1e3 from two libraries; the
+  multiclass loss in float64: rtol 1e-10;
 - kernels: relative Frobenius error 1e-5 -- the same products summed in
   another order in float32, about sqrt(n) eps for n of a few thousand; the
   regenerated phases differ from torch's cos/sin by about 1e-6;
@@ -34,7 +49,10 @@ import torch
 
 from nfft4gp_torch.models.problem import GPProblem
 from nfft4gp_torch.models.transforms import transform_inverse
+from nfft4gp_torch.models import multiclass as mc
+from nfft4gp_torch.ops import _cuda_build
 from nfft4gp_torch.ops import packed_ndft as pk
+from nfft4gp_torch.solvers import fused_pcg as fp
 
 pytestmark = pytest.mark.cuda
 
@@ -255,3 +273,179 @@ def test_fused_matern12_step_on_card_matches_cpu(dev):
     assert np.isfinite(float(loss_c))
     np.testing.assert_allclose(float(loss_c), float(loss_h), rtol=1e-3)
     np.testing.assert_allclose(grad_c.cpu().numpy(), grad_h.numpy(), rtol=1e-2, atol=1e-3)
+
+
+# --- the cooperative dense Krylov kernels ------------------------------------------
+
+def _spd(dev, n, seed=0):
+    """K = I + S, S symmetric Gaussian with spectrum about [-0.3, 0.3]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    R = torch.randn((n, n), generator=g, device=dev) * (0.15 / n ** 0.5)
+    return (torch.eye(n, device=dev) + R + R.T).contiguous(), g
+
+
+def test_grid_sync_probe(dev):
+    blocks, total = _cuda_build.grid_sync_probe(dev)
+    assert blocks >= 132 and total == blocks * (blocks + 1) // 2
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, fp.MAX_N])
+@pytest.mark.parametrize("maxits", [1, 100])
+def test_fused_pcg_matches_plain(dev, n, maxits):
+    K, g = _spd(dev, n)
+    b = torch.randn(n, generator=g, device=dev)
+    before = fp.fused_pcg_dense.launches
+    x, rr, it = fp.fused_pcg_dense(K, b, maxits=maxits, tol=1e-5)
+    again = fp.fused_pcg_dense(K, b, maxits=maxits, tol=1e-5)
+    torch.cuda.synchronize()
+    assert fp.fused_pcg_dense.launches == before + 2
+    assert all(torch.equal(u, v) for u, v in zip((x, rr, it), again))
+    xp, rp, itp = fp.fused_pcg_dense_plain(K, b, maxits=maxits, tol=1e-5)
+    assert x.dtype == torch.float32 and it.dtype == torch.int32
+    assert abs(int(it) - int(itp)) <= 1
+    assert float((x - xp).abs().max()) <= 1e-5 * float(xp.abs().max())
+    if int(itp) < maxits:
+        assert float(rr) <= 1e-5
+    else:
+        np.testing.assert_allclose(float(rr), float(rp), rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["zero_rhs", "breakdown", "tol_ge_1", "float64_b"])
+def test_fused_pcg_edges(dev, case):
+    n = 300
+    K, g = _spd(dev, n)
+    b = torch.randn(n, generator=g, device=dev)
+    kw = dict(maxits=50, tol=1e-5)
+    if case == "zero_rhs":
+        b = torch.zeros_like(b)
+    elif case == "breakdown":
+        K = torch.zeros_like(K)
+    elif case == "tol_ge_1":
+        kw["tol"] = 2.0
+    else:
+        b = b.double()
+    x, rr, it = fp.fused_pcg_dense(K, b, **kw)
+    xp, rp, itp = fp.fused_pcg_dense_plain(K, b, **kw)
+    assert x.dtype == b.dtype
+    if case == "float64_b":
+        assert abs(int(it) - int(itp)) <= 1 and float((x - xp).abs().max()) <= 1e-5 * float(xp.abs().max())
+        return
+    expect = {"zero_rhs": (0, 0.0), "breakdown": (1, 1.0), "tol_ge_1": (0, 1.0)}[case]
+    assert (int(it), float(rr)) == (int(itp), float(rp)) == expect
+    assert not x.any()
+
+
+def _lanczos_close(out, ref, exact_pad=False):
+    a, b, V, b0 = out
+    ap, bp, Vp, b0p = ref
+    scale = float(ap.abs().max())
+    assert float((a - ap).abs().max()) <= 1e-4 * scale
+    if b.numel():
+        assert float((b - bp).abs().max()) <= 1e-4 * scale
+    np.testing.assert_allclose(b0.cpu().numpy(), b0p.cpu().numpy(), rtol=1e-6)
+    nrm = float(torch.linalg.norm(Vp))
+    assert float(torch.linalg.norm(V - Vp)) <= 1e-4 * max(nrm, 1e-30)
+
+
+# maxits stays below n: past n steps the Krylov space is exhausted and the
+# next direction is rounding noise (||w|| ~ sqrt(n) eps, above the eps break)
+LANCZOS_CASES = [(n, nv, m) for n in (1, 31, 33, 1000)
+                 for nv, m in ((1, 1), (1, 10), (10, 10), (fp.MAX_NV, 5))] + [(1000, 3, fp.MAX_ITS)]
+
+
+@pytest.mark.parametrize("n,nv,maxits", LANCZOS_CASES)
+def test_fused_lanczos_matches_plain(dev, n, nv, maxits):
+    K, g = _spd(dev, n)
+    Z = (torch.randint(0, 2, (nv, n), generator=g, device=dev) * 2 - 1).float()
+    before = fp.fused_lanczos_dense.launches
+    out = fp.fused_lanczos_dense(K, Z, maxits=maxits)
+    again = fp.fused_lanczos_dense(K, Z, maxits=maxits)
+    torch.cuda.synchronize()
+    assert fp.fused_lanczos_dense.launches == before + 2
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+    assert tuple(out[0].shape) == (nv, maxits) and tuple(out[1].shape) == (nv, maxits - 1)
+    assert tuple(out[2].shape) == (nv, maxits + 1, n)
+    _lanczos_close(out, fp.fused_lanczos_dense_plain(K, Z, maxits=maxits))
+
+
+def test_fused_lanczos_at_limit(dev):
+    n = fp.MAX_N
+    K, g = _spd(dev, n)
+    Z = (torch.randint(0, 2, (2, n), generator=g, device=dev) * 2 - 1).float()
+    out = fp.fused_lanczos_dense(K, Z, maxits=3)
+    _lanczos_close(out, fp.fused_lanczos_dense_plain(K, Z, maxits=3))
+
+
+def test_fused_lanczos_breakdowns(dev):
+    """Rank-3 K: three live steps, then alpha pads with 1, beta with 0, V
+    with zero rows; a zero probe breaks at once; K = 0 breaks every probe
+    at its first step and the launch leaves its loop."""
+    n = 257
+    g = torch.Generator(device=dev).manual_seed(3)
+    U, _ = torch.linalg.qr(torch.randn((n, 3), generator=g, device=dev))
+    K = ((U * torch.tensor([1e-2, 5e-3, 2e-3], device=dev)) @ U.T).contiguous()
+    Z = (torch.randint(0, 2, (3, n), generator=g, device=dev) * 2 - 1).float()
+    Z[2] = 0.0
+    a, b, V, b0 = out = fp.fused_lanczos_dense(K, Z, maxits=8)
+    torch.cuda.synchronize()
+    assert bool((a[:2, 3:] == 1).all()) and not b[:2, 2:].any() and not V[:2, 4:].any()
+    assert bool((a[2] == 1).all()) and not b[2].any() and not V[2].any() and float(b0[2]) == 0.0
+    _lanczos_close(out, fp.fused_lanczos_dense_plain(K, Z, maxits=8))
+    a, b, V, _ = fp.fused_lanczos_dense(torch.zeros_like(K), Z, maxits=8)
+    assert bool((a == 1).all()) and not b.any() and not V[:, 1:].any()
+
+
+def test_fused_wrappers_refuse(dev):
+    K, _ = _spd(dev, 64)
+    before = (fp.fused_pcg_dense.launches, fp.fused_lanczos_dense.launches)
+    big = torch.empty((fp.MAX_N + 1, fp.MAX_N + 1), device=dev)
+    with pytest.raises(ValueError):
+        fp.fused_pcg_dense(big, torch.ones(fp.MAX_N + 1, device=dev))
+    with pytest.raises(ValueError):
+        fp.fused_pcg_dense(K, torch.ones(64))                          # b on the CPU
+    with pytest.raises(ValueError):
+        fp.fused_lanczos_dense(K, torch.ones((fp.MAX_NV + 1, 64), device=dev))
+    with pytest.raises(ValueError):
+        fp.fused_lanczos_dense(K, torch.ones((2, 64), device=dev), maxits=fp.MAX_ITS + 1)
+    assert (fp.fused_pcg_dense.launches, fp.fused_lanczos_dense.launches) == before
+
+
+def test_dense_chol_step_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(5)
+    n = 400
+    X = rng.uniform(size=(n, 5)).astype(np.float32)
+    y = (np.sin(3 * X[:, 0]) + np.cos(2 * X[:, 2]) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    kw = dict(kernel="gaussian", windows=[[0, 1], [2, 3], [4]], operator="dense", precond="chol",
+              maxits=8, nvecs=4)
+    probes = torch.from_numpy(rng.choice([-1.0, 1.0], size=(4, n)).astype(np.float32))
+    raw = transform_inverse("softplus", torch.tensor([1.0, 0.5, 0.1]))
+
+    def step(device):
+        return GPProblem(**kw).make_loss(torch.from_numpy(X).to(device), torch.from_numpy(y).to(device),
+                                         probes=probes)(raw.to(device))
+
+    loss_c, grad_c = step(dev)
+    loss_h, grad_h = step(torch.device("cpu"))
+    assert np.isfinite(float(loss_c))
+    np.testing.assert_allclose(float(loss_c), float(loss_h), rtol=1e-4)
+    np.testing.assert_allclose(grad_c.cpu().numpy(), grad_h.numpy(), rtol=1e-3, atol=1e-4)
+
+
+def test_multiclass_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(91)
+    n, C = 200, 4
+    labels = rng.integers(0, C, size=n)
+    X = torch.from_numpy(rng.normal(size=(C, 3))[labels] + 0.4 * rng.normal(size=(n, 3)))
+    Ys = torch.from_numpy(np.eye(C)[labels] * 2.0 - 1.0)
+    mu2 = torch.from_numpy(0.01 + 0.02 * rng.uniform(size=(n, C)))
+    raw = torch.from_numpy(np.linspace(0.2, 0.8, 3 * C))
+    X2 = torch.from_numpy(rng.normal(size=(50, 3)))
+    got = mc.exact_class_gp_loss(*(t.to(dev) for t in (raw, X, Ys, mu2)))
+    want = mc.exact_class_gp_loss(raw, X, Ys, mu2)
+    np.testing.assert_allclose(float(got.loss), float(want.loss), rtol=1e-10)
+    np.testing.assert_allclose(got.grad.cpu().numpy(), want.grad.numpy(), rtol=1e-10, atol=1e-13)
+    pg = mc.exact_class_gp_predict(*(t.to(dev) for t in (raw, X, Ys, mu2, X2)), with_std=True)
+    pw = mc.exact_class_gp_predict(raw, X, Ys, mu2, X2, with_std=True)
+    assert torch.equal(pg.labels.cpu(), pw.labels)
+    np.testing.assert_allclose(pg.means.cpu().numpy(), pw.means.numpy(), rtol=1e-10, atol=1e-13)
+    np.testing.assert_allclose(pg.std.cpu().numpy(), pw.std.numpy(), rtol=1e-10, atol=1e-13)

@@ -106,6 +106,7 @@ def test_load_jax_saved_problem(synth, tmp_path):
 def test_port_imports_no_jax():
     code = ("import sys, chip_smoke, nfft4gp_torch\n"
             "import nfft4gp_torch.models.problem, nfft4gp_torch.ops._cuda_build\n"
+            "import nfft4gp_torch.models.multiclass, nfft4gp_torch.solvers.fused_pcg\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                           timeout=120)

@@ -386,14 +386,17 @@ int device_sms(int* sms) {
   return (int)e;
 }
 
-// resident blocks of `kernel` on the whole card, at `smem` dynamic bytes
+// resident blocks of `kernel` on the current card, at `smem` dynamic bytes;
+// `max_smem` is the most any launch of it asks for (the opt-in above 48 KB
+// is set to that, so a launch sized by an earlier query never exceeds it)
 template <typename F>
-int resident_blocks(F kernel, size_t smem, int* blocks) {
+int resident_blocks(F kernel, size_t smem, size_t max_smem, int* blocks) {
   int sms = 0, per_sm = 0;
   int e = device_sms(&sms);
   if (e) return e;
-  if (smem > 48 * 1024) {
-    e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (max_smem > 48 * 1024) {
+    e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)max_smem);
     if (e) return e;
   }
   e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
@@ -409,11 +412,12 @@ size_t pcg_smem(int n) { return (size_t)((n + 3) / 4) * sizeof(float4); }
 
 extern "C" {
 
-// Blocks of the CG launch for n: all resident, at least one row per warp.
+// Blocks of the CG launch for n on the current card: all resident, at least
+// one row per warp.  The caller keeps the answer per (n, card).
 int fused_pcg_grid(int n, int* grid) {
   if (n < 1 || n > MAX_N) return (int)cudaErrorInvalidValue;
   int blocks = 0;
-  const int e = resident_blocks(pcg_kernel, pcg_smem(n), &blocks);
+  const int e = resident_blocks(pcg_kernel, pcg_smem(n), pcg_smem(MAX_N), &blocks);
   if (e) return e;
   const int want = (n + NW - 1) / NW;
   const int G = blocks < want ? blocks : want;
@@ -441,11 +445,12 @@ int fused_pcg_launch(const float* K, const float* b, int n, int maxits, float to
   return (int)cudaGetLastError();
 }
 
-// Blocks of the Lanczos launch for n: all resident, at most one per panel.
+// Blocks of the Lanczos launch for n on the current card: all resident, at
+// most one per panel.  The caller keeps the answer per (n, card).
 int fused_lanczos_grid(int n, int* grid) {
   if (n < 1 || n > MAX_N) return (int)cudaErrorInvalidValue;
   int blocks = 0;
-  const int e = resident_blocks(lanczos_kernel, 0, &blocks);
+  const int e = resident_blocks(lanczos_kernel, 0, 0, &blocks);
   if (e) return e;
   const int panels = (n + PANEL - 1) / PANEL;
   *grid = blocks < panels ? blocks : panels;
@@ -477,7 +482,7 @@ int fused_lanczos_launch(const float* K, const float* Z, int n, int nv, int maxi
 // ints; *grid gets the block count.
 int grid_sync_probe(int* out, int* grid, void* stream) {
   int blocks = 0;
-  int e = resident_blocks(grid_sync_probe_kernel, 0, &blocks);
+  int e = resident_blocks(grid_sync_probe_kernel, 0, 0, &blocks);
   if (e) return e;
   *grid = blocks;
   void* args[] = {&out};
@@ -488,7 +493,7 @@ int grid_sync_probe(int* out, int* grid, void* stream) {
 }
 
 int probe_grid_size(int* grid) {
-  return resident_blocks(grid_sync_probe_kernel, 0, grid);
+  return resident_blocks(grid_sync_probe_kernel, 0, 0, grid);
 }
 
 const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -38,21 +38,19 @@ class InjectedState(NamedTuple):
     nf_patterns: Optional[tuple]
 
 
-def state_from_numpy(device, *, raw_params=None, landmarks=None, probes=None, nf_patterns=None,
-                     dtype=None):
+def state_from_numpy(device, *, raw_params=None, landmarks=None, probes=None, nf_patterns=None):
     """Turn numpy arrays drawn on the JAX side (raw hyperparameters, Nystrom
     landmark indices, the Rademacher probe matrix, the near-field patterns)
     into tensors on `device`, so both packages compute the same loss.
 
     nf_patterns: per window group None or (idx, mask, sym), the output of the
     JAX symmetrize_nearfield_patterns (idx and mask (Wg, n, lfil) arrays).
-    dtype applies to the float arrays (default: their own)."""
+    Float arrays keep their own dtype."""
     def conv(a, kind=None):
         if a is None:
             return None
         t = torch.from_numpy(np.array(a, copy=True))
-        t = t.to(kind) if kind is not None else (t.to(dtype) if dtype is not None else t)
-        return t.to(device)
+        return (t if kind is None else t.to(kind)).to(device)
 
     pats = None if nf_patterns is None else tuple(
         None if p is None else (conv(p[0], torch.int64), conv(p[1], torch.bool), bool(p[2]))
@@ -61,17 +59,11 @@ def state_from_numpy(device, *, raw_params=None, landmarks=None, probes=None, nf
                          probes=conv(probes), nf_patterns=pats)
 
 
-def tensors_from_numpy(device, *arrays, dtype=None):
+def tensors_from_numpy(device, *arrays):
     """Copies of numpy arrays drawn on the JAX side (a dense K, right-hand
-    sides, probe matrices, multiclass raw parameters) as tensors on `device`;
-    dtype applies to floating arrays (default: their own)."""
-    out = []
-    for a in arrays:
-        t = torch.from_numpy(np.array(a, copy=True))
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        out.append(t.to(device))
-    return tuple(out)
+    sides, probe matrices, multiclass raw parameters) as tensors on `device`,
+    each in its own dtype."""
+    return tuple(torch.from_numpy(np.array(a, copy=True)).to(device) for a in arrays)
 
 
 def _ops(matvec_batch, grad_matvec_batch):

@@ -224,42 +224,52 @@ def forward_regen(xT, G2, G1, WR, pairs, singles, phase_gen):
                     PHASE_GEN_CODES[phase_gen], G2, G1, WR, xT.shape[1], pairs, singles)
 
 
-def _grid(lib, query, n: int) -> int:
+@functools.lru_cache(maxsize=None)
+def _grid(query: str, n: int, device: torch.device) -> int:
+    """Blocks of a cooperative launch of n on `device`, from the occupancy
+    query (`fused_pcg_grid` or `fused_lanczos_grid`): asked once per (kernel,
+    n, card), so a launch pays no host query."""
+    lib = library("fused_pcg")
     g = ctypes.c_int(0)
-    _check(lib, query(n, ctypes.byref(g)), query.__name__)
+    with torch.cuda.device(device):
+        _check(lib, getattr(lib, query)(n, ctypes.byref(g)), query)
     return g.value
 
 
 def fused_pcg(K, b, maxits: int, tol: float):
-    """Launch the cooperative CG kernel: (x (n,), relres (), niter () int32)."""
+    """Launch the cooperative CG kernel on b's card: (x (n,), relres (),
+    niter () int32)."""
     lib = library("fused_pcg")
-    n = b.shape[0]
-    G = _grid(lib, lib.fused_pcg_grid, n)
-    x = torch.empty(n, dtype=torch.float32, device=b.device)
-    scratch = torch.empty(3 * n + 2 * G, dtype=torch.float32, device=b.device)
-    relres = torch.empty((), dtype=torch.float32, device=b.device)
-    niter = torch.empty((), dtype=torch.int32, device=b.device)
-    code = lib.fused_pcg_launch(K.data_ptr(), b.data_ptr(), n, maxits, float(tol * tol), G,
-                                x.data_ptr(), scratch.data_ptr(), relres.data_ptr(),
-                                niter.data_ptr(), _stream(b))
+    n, dev = b.shape[0], b.device
+    G = _grid("fused_pcg_grid", n, dev)
+    x = torch.empty(n, dtype=torch.float32, device=dev)
+    scratch = torch.empty(3 * n + 2 * G, dtype=torch.float32, device=dev)
+    relres = torch.empty((), dtype=torch.float32, device=dev)
+    niter = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.fused_pcg_launch(K.data_ptr(), b.data_ptr(), n, maxits, float(tol * tol), G,
+                                    x.data_ptr(), scratch.data_ptr(), relres.data_ptr(),
+                                    niter.data_ptr(), _stream(b))
     _check(lib, code, "fused_pcg")
     return x, relres, niter
 
 
 def fused_lanczos(K, Z, maxits: int):
-    """Launch the cooperative Lanczos kernel: (alpha, beta, V, beta0)."""
+    """Launch the cooperative Lanczos kernel on Z's card: (alpha, beta, V,
+    beta0)."""
     lib = library("fused_pcg")
     nv, n = Z.shape
     dev = Z.device
-    G = _grid(lib, lib.fused_lanczos_grid, n)
+    G = _grid("fused_lanczos_grid", n, dev)
     alpha = torch.ones((nv, maxits), dtype=torch.float32, device=dev)
     beta = torch.zeros((nv, maxits - 1), dtype=torch.float32, device=dev)
     V = torch.zeros((nv, maxits + 1, n), dtype=torch.float32, device=dev)
     beta0 = torch.empty(nv, dtype=torch.float32, device=dev)
     scratch = torch.empty(nv * n + G * nv * (2 * maxits + 3), dtype=torch.float32, device=dev)
-    code = lib.fused_lanczos_launch(K.data_ptr(), Z.data_ptr(), n, nv, maxits, G,
-                                    alpha.data_ptr(), beta.data_ptr(), V.data_ptr(),
-                                    beta0.data_ptr(), scratch.data_ptr(), _stream(Z))
+    with torch.cuda.device(dev):
+        code = lib.fused_lanczos_launch(K.data_ptr(), Z.data_ptr(), n, nv, maxits, G,
+                                        alpha.data_ptr(), beta.data_ptr(), V.data_ptr(),
+                                        beta0.data_ptr(), scratch.data_ptr(), _stream(Z))
     _check(lib, code, "fused_lanczos")
     return alpha, beta, V, beta0
 
@@ -269,9 +279,10 @@ def grid_sync_probe(device) -> tuple[int, int]:
     grid.sync(), which must be blocks (blocks + 1) / 2)."""
     lib = library("fused_pcg")
     g = ctypes.c_int(0)
-    _check(lib, lib.probe_grid_size(ctypes.byref(g)), "probe_grid_size")
-    out = torch.zeros(1 + g.value, dtype=torch.int32, device=device)
-    code = lib.grid_sync_probe(out.data_ptr(), ctypes.byref(g),
-                               ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    with torch.cuda.device(device):
+        _check(lib, lib.probe_grid_size(ctypes.byref(g)), "probe_grid_size")
+        out = torch.zeros(1 + g.value, dtype=torch.int32, device=device)
+        code = lib.grid_sync_probe(out.data_ptr(), ctypes.byref(g),
+                                   ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     _check(lib, code, "grid_sync_probe")
     return g.value, int(out[0])

@@ -310,6 +310,21 @@ def test_fused_pcg_matches_plain(dev, n, maxits):
         np.testing.assert_allclose(float(rr), float(rp), rtol=1e-3, atol=1e-6)
 
 
+def test_fused_pcg_grid_kept_across_sizes(dev):
+    """The launch grid is asked once per (kernel, n, card) and kept: a
+    launch at the limit after a smaller one above 48 KB of shared memory
+    still gets its opt-in, and each agrees with its plain version."""
+    hits = _cuda_build._grid.cache_info().hits
+    for n in (fp.MAX_N, 13000, fp.MAX_N):
+        K, g = _spd(dev, n, seed=n)
+        b = torch.randn(n, generator=g, device=dev)
+        x, _, it = fp.fused_pcg_dense(K, b, maxits=5, tol=1e-12)
+        xp, _, itp = fp.fused_pcg_dense_plain(K, b, maxits=5, tol=1e-12)
+        assert int(it) == int(itp) == 5
+        assert float((x - xp).abs().max()) <= 1e-5 * float(xp.abs().max())
+    assert _cuda_build._grid.cache_info().hits >= hits + 1
+
+
 @pytest.mark.parametrize("case", ["zero_rhs", "breakdown", "tol_ge_1", "float64_b"])
 def test_fused_pcg_edges(dev, case):
     n = 300

@@ -4,30 +4,35 @@
 
 Phases, one line each (any failure raises and exits non-zero):
   1. device: torch's device name and nvidia-smi's name and power limit;
-  2. build: compiles the three kernel libraries of csrc/ with nvcc (sm_90a),
+  2. build: compiles the four kernel libraries of csrc/ with nvcc (sm_90a),
      one nvcc per source, all at once, if needed, and checks grid.sync()
      with a tiny cooperative kernel over every resident block;
-  3. kernels: the table kernels (CUDA adjoint and forward) against their
-     plain torch versions on the card at the training shapes (n = 2e5,
-     d = 10, five 2-D windows, N = 32, bf16 table), plus a case with a 1-D
-     window, plus the fused layout's windows trimmed to 2P = 32;
+  3. kernels: the bf16-table kernels (the tensor-core adjoint and forward
+     of csrc/packed_ndft_tc.cu) against their plain torch versions on the
+     card at the training shapes (n = 2e5, d = 10, five 2-D windows, N = 32,
+     bf16 table; nv = 1, 10 and nsets = 1, 2, 10, 20, the launch mix of an
+     Adam step), plus a case with a 1-D window, plus the fused layout's
+     windows trimmed to 2P = 32; a second launch of each must be bitwise
+     equal to the first, and each prints its share of its bound;
   4. kernels-regen: the phase-regenerating kernels against their plain
      versions at the fused layout WINDOWS_FUSED (its 2-D and 1-D windows;
      N = 32, untrimmed 2P = 34), both phase sources ("doubling", "direct"),
-     nv = 1, 10 and nsets = 1, 2, 20;
+     nv = 1, 10 and nsets = 1, 2, 10, 20;
      in 3 and 4 the limit is a relative Frobenius error <= 1e-4 (two f32
-     sums over 2e5 terms in different orders, about sqrt(n) eps); median
-     times from CUDA events;
+     sums over 2e5 terms in different orders, about sqrt(n) eps); times
+     from CUDA events around back-to-back calls queued behind a sleep
+     kernel (`cuda_ms`: the card's time, not the host's time to issue);
   5. main: GPProblem(fastsum + Nystrom, gaussian, stream engine).fit for 3
      Adam steps at n = 2e5; every loss finite and both table kernels
-     launched during the fit;
+     launched during the fit, their launches printed by shape (nv, nsets);
   6. agree: at n = 2e4, the streamed kernels against the torch table engine
      (loss rtol 4e-2, gradient rtol 2e-1 / atol 2e-2: the engines differ by
      the trimmed Nyquist mode and bf16 table rounding);
   7. fused: GPProblem(matern12, WINDOWS_FUSED, fastsum_fused=True).fit for 3
      Adam steps at n = 2e5: the KNN near-field built once (its form and row
      widths printed), the 3-feature window on the table path; every loss
-     finite and both regenerating kernels launched during the fit;
+     finite and both regenerating kernels launched during the fit, their
+     launches printed by shape;
   8. agree-fused: at n = 2e4, the fused engine against the table engine with
      float32 tables, the same probes, landmarks and near-field patterns, at
      (f, l, mu) = (1, 0.5, 1) (loss rtol 1e-3, gradient rtol 1e-2 / atol
@@ -67,9 +72,12 @@ the NDFT kernels one torch.einsum per window family over the gathered rows
 of a float32 phase table made outside the timed region (for the
 regenerating kernels the phases are made there too), for CG
 torch.linalg.solve; Lanczos has none.  Each kernel's bound is the larger of
-its flops over the 67 TFLOP/s float32 peak and its bytes (each input read
-once, each output written once) over 3.35 TB/s, the H100 SXM's published
-peaks at 700 W.
+its operations over the peak of the unit that runs them and its bytes (each
+input read once, each output written once) over 3.35 TB/s: for the two
+tensor-core kernels three times the flops (the three bf16 terms of the
+float32 operand) over the 989 TFLOP/s bf16 peak, for the other four the
+flops over the 67 TFLOP/s float32 peak; the H100 SXM's published peaks at
+700 W.
 
 A `[done]` line gives the script's wall seconds from its start to the
 summary.  The line before the last is a JSON summary of the kernels; the
@@ -96,18 +104,22 @@ WINDOWS_FUSED = [[0, 1, 2], [3, 4], [5, 6], [7, 8], [9]]
 FASTSUM_N = 32
 KERNEL_RTOL = 1e-4
 PKG = "preconditioned_additive_gaussian_processes_with_fourier_acceleration_tpu"
-SOURCES = {"table": f"{PKG}_torch/csrc/packed_ndft.cu", "regen": f"{PKG}_torch/csrc/packed_ndft_regen.cu",
+SOURCES = {"table": f"{PKG}_torch/csrc/packed_ndft_tc.cu", "regen": f"{PKG}_torch/csrc/packed_ndft_regen.cu",
            "fused": f"{PKG}_torch/csrc/fused_pcg.cu"}
 TPU_KERNELS = {"adjoint": f"{PKG}/ops/pallas_ndft.py:189", "forward": f"{PKG}/ops/pallas_ndft.py:361",
                "pcg": f"{PKG}/solvers/pallas_pcg.py:36", "lanczos": f"{PKG}/solvers/pallas_pcg.py:174"}
 # H100 SXM published peaks at its 700 W limit: float32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, bf16 on the tensor cores, and HBM3 bandwidth
 F32_PEAK = 67e12
+BF16_PEAK = 989e12
 HBM_PEAK = 3.35e12
 DENSE_NS = (2048, 4096)
 DENSE_MUS = (0.1, 0.01)
 PCG_MAXITS, PCG_TOL = 200, 1e-5
 SLQ_NV, SLQ_ITS = 10, 10
+# clock cycles of the sleep kernel that holds the stream while a timed batch
+# is enqueued (about 20 ms on an H100)
+SLEEP_CYCLES = 40_000_000
 
 
 def nvidia_smi() -> str:
@@ -125,18 +137,24 @@ def make_data(n, seed=0):
     return torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
 
 
-def cuda_ms(fn, reps=10, warmup=2):
-    """Median milliseconds of fn() from CUDA events, one event pair per rep."""
+def cuda_ms(fn, reps=10, warmup=2, batches=3):
+    """Milliseconds of one fn() on the card: the median over `batches` of
+    CUDA events around `reps` back-to-back calls, enqueued behind a sleep
+    kernel so that the host's time to issue them does not count (where fn
+    itself waits for the card, its host time still shows)."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         stop.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / reps)
     return float(np.median(times))
 
 
@@ -147,9 +165,11 @@ def _rel_err(got, want):
     return float(torch.linalg.norm(diff) / torch.linalg.norm(want.double())), float(diff.abs().max())
 
 
-def bound(flops, nbytes):
-    """(ms, "operations" | "bytes"): the least time the card could take."""
-    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_PEAK * 1e3
+def bound(flops, nbytes, tc=False):
+    """(ms, "operations" | "bytes"): the least time the card could take; the
+    operations on the CUDA cores, or with tc three bf16 tensor-core passes."""
+    t_ops = (3.0 * flops / BF16_PEAK if tc else flops / F32_PEAK) * 1e3
+    t_bytes = nbytes / HBM_PEAK * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -172,14 +192,16 @@ def library_calls(T, pairs, singles):
     return adj, fwd
 
 
-def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets_list, timed, T32, src_bytes):
+def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets_list, timed, T32, src_bytes,
+               tc=False):
     """One adjoint kernel and one forward kernel against their plain versions.
 
     adj(alpha) / fwd(G2, G1) are the wrappers on one layout; adj_plain /
     fwd_plain the plain versions; T32 the float32 phases of the layout for
     the library yardstick; src_bytes the bytes of the kernels' phase source
-    (table or coordinates).  Returns per-case dicts (kernel, mode, shape,
-    rel, max_abs, ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    (table or coordinates); tc: tensor-core kernels (their bound's unit, a
+    bitwise-repeat check).  Returns per-case dicts (kernel, mode, shape,
+    rel, max_abs, ms, plain_ms, library_ms, bound_ms, bound_by, bitwise)."""
     n, dev = X.shape[0], X.device
     W2 = 2 * P
     npairs, nsingles = len(lay.pairs), len(lay.singles)
@@ -189,7 +211,9 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
     for nv in nvs:
         alpha = torch.randn((nv, n), generator=gen, device=dev)
         got = adj(alpha)
+        again = adj(alpha) if tc else got
         torch.cuda.synchronize()
+        bitwise = all(torch.equal(u, v) for gs, hs in zip(got, again) for u, v in zip(gs, hs))
         want = adj_plain(alpha)
         want_flat = [w for w in want if w.numel()]
         rel, mx = _rel_err([torch.stack(g, dim=1) for g in got if g], want_flat)
@@ -198,9 +222,9 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         pms = cuda_ms(lambda: adj_plain(alpha)) if timed else None
         lms = cuda_ms(lambda: lib_adj(alpha)) if timed else None
         out = nv * (npairs * W2 * W2 + nsingles * W2)
-        b_ms, b_by = bound(2.0 * n * out, src_bytes + 4 * (nv * n + out))
+        b_ms, b_by = bound(2.0 * n * out, src_bytes + 4 * (nv * n + out), tc)
         cases.append(dict(kernel=names[0], shape=f"nv={nv}", rel=rel, max_abs=mx, lib_rel=lib_rel, ms=ms,
-                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by))
+                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by, bitwise=bitwise))
 
     # realistic combined weights: K and dK/dl sets of real adjoint outputs
     from nfft4gp_torch.ops import fastsum as fs
@@ -215,7 +239,9 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         G2 = [g[:nsets].contiguous() for g in G2all]
         G1 = [g[:nsets].contiguous() for g in G1all]
         got = fwd(G2, G1)
+        again = fwd(G2, G1) if tc else got
         torch.cuda.synchronize()
+        bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
         G2s = torch.stack(G2, 1) if G2 else None
         G1s = torch.stack(G1, 1) if G1 else None
         want = fwd_plain(G2s, G1s)
@@ -226,16 +252,20 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         lms = cuda_ms(lambda: lib_fwd(G2s, G1s)) if timed else None
         weights = nsets * (npairs * W2 * W2 + nsingles * W2)
         flops = 2.0 * nsets * n * (npairs * (W2 * W2 + W2) + nsingles * W2)
-        b_ms, b_by = bound(flops, src_bytes + 4 * (weights + nsets * n))
+        b_ms, b_by = bound(flops, src_bytes + 4 * (weights + nsets * n), tc)
         cases.append(dict(kernel=names[1], shape=f"nsets={nsets}", rel=rel, max_abs=mx, lib_rel=lib_rel, ms=ms,
-                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by))
+                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by, bitwise=bitwise))
 
     for c in cases:
         c["mode"] = tag.split(" ")[0]
         print(f"[{'kernels-regen' if names[0].endswith('regen') else 'kernels'}] {tag} {c['kernel']} "
               f"{c['shape']}: rel_err={c['rel']:.3e} max_abs_err={c['max_abs']:.3e} ms={c['ms']} "
               f"plain_ms={c['plain_ms']} library_ms={c['library_ms']} (einsum rel_err={c['lib_rel']:.1e}) "
-              f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
+              f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})"
+              + (f" share_of_bound={c['bound_ms'] / c['ms']:.3f}" if tc and c["ms"] else "")
+              + (f" bitwise_repeat={c['bitwise']}" if tc else ""), flush=True)
+        if not c["bitwise"]:
+            raise AssertionError(f"{c['kernel']} {tag} {c['shape']}: a second launch differs")
         if not c["rel"] <= KERNEL_RTOL:
             raise AssertionError(f"{c['kernel']} {tag} {c['shape']} disagrees with its plain version: {c['rel']}")
         if not c["lib_rel"] <= KERNEL_RTOL:
@@ -253,7 +283,8 @@ def _plan(X, windows):
 
 
 def check_kernels(X, windows, nvs, nsets_list, timed=True):
-    """The table kernels against their plain versions (bf16 table, 2P = 32)."""
+    """The bf16-table (tensor-core) kernels against their plain versions
+    (2P = 32)."""
     from nfft4gp_torch.ops import fastsum as fs
     from nfft4gp_torch.ops import packed_ndft as pk
 
@@ -265,10 +296,10 @@ def check_kernels(X, windows, nvs, nsets_list, timed=True):
         lambda a: pk.packed_adjoint_plain(Tp, a, pairs, singles),
         lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles),
         lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles),
-        pn, pn.P, X, nvs, nsets_list, timed, Tp.float(), Tp.numel() * Tp.element_size())
+        pn, pn.P, X, nvs, nsets_list, timed, Tp.float(), Tp.numel() * Tp.element_size(), tc=True)
 
 
-def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 20)):
+def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20)):
     """The regenerating kernels against their plain versions on the d <= 2
     windows of WINDOWS_FUSED, untrimmed (2P = 34), both phase sources."""
     from nfft4gp_torch.ops import fastsum as fs
@@ -308,6 +339,8 @@ def timed_fit(prob, X, y, counted):
     stamps.append(time.perf_counter())
     prob.fit(X, y, adam_maxits=3, callback=tick)
     counts = {fn.__name__: fn.launches for fn in pk.KERNEL_WRAPPERS}
+    counts["by_shape"] = {fn.__name__: dict(sorted(fn.launches_by_shape.items())) for fn in pk.KERNEL_WRAPPERS
+                          if fn.launches}
     losses = prob.loss_history_
     if len(losses) != 3 or not all(np.isfinite(losses)):
         raise AssertionError(f"losses not finite: {losses}")
@@ -469,11 +502,16 @@ def check_dense_fit(X, y):
 def _summary(name, route, mode, cases, shape, launches):
     c = next(c for c in cases if c["kernel"] == name and c["shape"] == shape and c.get("mode") == mode)
     base = next(k for k in ("adjoint", "forward", "pcg", "lanczos") if k in name)
-    return {"name": name, "route": "cuda", "source": SOURCES[route], "replaces": TPU_KERNELS[base],
-            "mode": mode, "shape": shape, "launches": launches[name],
-            "max_abs_err": max(d["max_abs"] for d in cases if d["kernel"] == name),
-            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": c["library_ms"]}
+    out = {"name": name, "route": "cuda", "source": SOURCES[route], "replaces": TPU_KERNELS[base],
+           "mode": mode, "shape": shape, "launches": launches[name],
+           "max_abs_err": max(d["max_abs"] for d in cases if d["kernel"] == name),
+           "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+           "library_ms": c["library_ms"]}
+    if name in launches.get("by_shape", {}):
+        out["launches_by_shape"] = launches["by_shape"][name]
+        out["ms_by_shape"] = {d["shape"]: d["ms"] for d in cases
+                              if d["kernel"] == name and d.get("mode") == mode and d["ms"] is not None}
+    return out
 
 
 def main():
@@ -500,9 +538,9 @@ def main():
         raise AssertionError("the cooperative grid-wide barrier does not hold")
 
     X, y = make_data(N_POINTS)
-    cases = check_kernels(X, WINDOWS, nvs=(1, 10), nsets_list=(1, 2, 20))
-    cases += check_kernels(X, WINDOWS_1D, nvs=(1, 10), nsets_list=(1, 20), timed=False)
-    check_kernels(X, WINDOWS_FUSED, nvs=(1, 10), nsets_list=(1, 2, 20))
+    cases = check_kernels(X, WINDOWS, nvs=(1, 10), nsets_list=(1, 2, 10, 20))
+    cases += check_kernels(X, WINDOWS_1D, nvs=(1, 10), nsets_list=(1, 2, 10, 20), timed=False)
+    check_kernels(X, WINDOWS_FUSED, nvs=(1, 10), nsets_list=(1, 2, 10, 20))
     regen = check_regen_kernels(X)
 
     prob = GPProblem(kernel="gaussian", windows=WINDOWS, operator="fastsum", precond="nystrom",

@@ -1,6 +1,8 @@
-// Packed NDFT kernels for Hopper (sm_90a), templated on the phase source.
+// Packed NDFT kernels for Hopper (sm_90a) on the CUDA cores, templated on
+// the phase source.
 //
-// Port of the two Pallas kernels of the JAX package's ops/pallas_ndft.py:
+// Port of the two Pallas kernels of the JAX package's ops/pallas_ndft.py
+// (`_adjoint_kernel`, pallas_call at :326; `_forward_kernel`, at :508):
 //   _adjoint_kernel  -> adjoint_pairs_kernel + adjoint_singles_kernel
 //                       + reduce_chunks_kernel (the split-K second pass)
 //   _forward_kernel  -> forward_kernel
@@ -11,16 +13,20 @@
 //   column(j, i, live, out[W])  one point's WR values in registers (zero
 //                               when the point is not live and for a >= WR);
 //   stage_pair / stage_single   a tile of TP points into shared memory.
-// packed_ndft.cu streams them from a table (the "table" modes),
+// Instances: packed_ndft.cu streams them from a float32 table,
 // packed_ndft_regen.cu regenerates them from the raw coordinates (the
-// "doubling" and "direct" modes).  Each .cu file is its own shared library
-// with a plain C interface; both are built side by side.
+// "doubling" and "direct" modes), and packed_ndft_tc.cu uses
+// adjoint_singles_kernel for the 1-D windows of a bf16 table (its 2-D
+// windows and its forward run on the tensor cores).  Each .cu file is its
+// own shared library with a plain C interface; all are built side by side.
 //
 // What bounds them on an H100 SXM: the contraction is 2 nv npairs WR^2 n
 // flops per pass (2e10 at n = 2e5, nv = 10, five windows of WR = 32), run as
-// f32 FMAs on the CUDA cores, so beyond nv ~ 1 the FMA rate and shared-memory
-// operand traffic bound them, not the bytes of the table or the
-// coordinates; tensor-core (wgmma) tiles are the next step.
+// f32 FMAs on the CUDA cores (67 TFLOP/s), so beyond nv ~ 1 the FMA rate and
+// shared-memory operand traffic bound them, not the bytes of the table or
+// the coordinates.  For bf16 tables the tensor cores took over
+// (packed_ndft_tc.cu); the regenerated phases are float32 values, not
+// bf16-exact, so these templates still serve them.
 //
 // Design:
 // - Blocks run in parallel in no order, so the TPU's accumulation across
@@ -39,7 +45,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -50,7 +55,6 @@ struct Rows {
 };
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 constexpr int NT = 256;   // adjoint threads per block
 constexpr int TP = 64;    // points per shared-memory tile

@@ -1,9 +1,11 @@
 """Build, load and launch the CUDA kernels of csrc/.
 
-Three shared libraries with a plain C interface, one per source:
+Four shared libraries with a plain C interface, one per source:
 
-- `packed_ndft`: csrc/packed_ndft.cu, the NDFT kernels (templates of
-  csrc/packed_ndft.cuh) on the table phase source;
+- `packed_ndft_tc`: csrc/packed_ndft_tc.cu, the tensor-core NDFT kernels for
+  bf16 tables (the training path);
+- `packed_ndft`: csrc/packed_ndft.cu, the CUDA-core NDFT kernels (templates
+  of csrc/packed_ndft.cuh) on a float32 table;
 - `packed_ndft_regen`: csrc/packed_ndft_regen.cu, the same templates on the
   regenerating phase sources ("doubling", "direct");
 - `fused_pcg`: csrc/fused_pcg.cu, the cooperative CG and Lanczos kernels.
@@ -34,11 +36,13 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = {"packed_ndft": CSRC / "packed_ndft.cu",
+SOURCES = {"packed_ndft_tc": CSRC / "packed_ndft_tc.cu",
+           "packed_ndft": CSRC / "packed_ndft.cu",
            "packed_ndft_regen": CSRC / "packed_ndft_regen.cu",
            "fused_pcg": CSRC / "fused_pcg.cu"}
 # the headers of csrc/ each source includes: part of its build key
-HEADERS = {"packed_ndft": (CSRC / "packed_ndft.cuh",),
+HEADERS = {"packed_ndft_tc": (CSRC / "packed_ndft.cuh",),
+           "packed_ndft": (CSRC / "packed_ndft.cuh",),
            "packed_ndft_regen": (CSRC / "packed_ndft.cuh",),
            "fused_pcg": ()}
 BUILD_ROOT = _PKG / "_build"
@@ -49,6 +53,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _TILE = 64
 # aim for a few blocks per SM of an H100 (132 SMs) in the adjoint
 _TARGET_BLOCKS = 528
+# right-hand sides per block of the tensor-core adjoint: 32 tiles of 16 rows
+_TC_ROWS = 512
 # phase_gen codes of packed_ndft_regen.cu
 PHASE_GEN_CODES = {"doubling": 0, "direct": 1}
 
@@ -109,13 +115,21 @@ def build() -> tuple[dict, float]:
 
 def _ndft_signatures(lib):
     """adjoint_launch / forward_launch, their first two arguments being the
-    phase source (table pointer and bf16 flag, or coordinates and phase_gen
+    phase source (table pointer and row stride, or coordinates and phase_gen
     code)."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, P, P]
     lib.adjoint_launch.restype = I
     lib.forward_launch.argtypes = [P, I, I, I, P, I, P, P, I, P, I, P, P]
     lib.forward_launch.restype = I
+
+
+def _ndft_tc_signatures(lib):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.tc_adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, I, I, I, P, P]
+    lib.tc_adjoint_launch.restype = I
+    lib.tc_forward_launch.argtypes = [P, I, I, I, P, I, P, P, I, P, I, P, P, P]
+    lib.tc_forward_launch.restype = I
 
 
 def _fused_pcg_signatures(lib):
@@ -131,8 +145,8 @@ def _fused_pcg_signatures(lib):
         fn.restype = I
 
 
-_SIGNATURES = {"packed_ndft": _ndft_signatures, "packed_ndft_regen": _ndft_signatures,
-               "fused_pcg": _fused_pcg_signatures}
+_SIGNATURES = {"packed_ndft_tc": _ndft_tc_signatures, "packed_ndft": _ndft_signatures,
+               "packed_ndft_regen": _ndft_signatures, "fused_pcg": _fused_pcg_signatures}
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,14 +183,20 @@ def rhs_per_block(WR: int) -> int:
     return min(8, 256 // tiles)
 
 
+def _chunks(n, per_chunk):
+    """(nchunks, chunk): whole 64-point tiles per chunk, at most
+    _TARGET_BLOCKS blocks for `per_chunk` blocks per chunk (four per SM of
+    an H100, so no wave of blocks runs nearly empty)."""
+    ntiles = -(-n // _TILE)
+    nchunks = max(1, min(ntiles, _TARGET_BLOCKS // max(per_chunk, 1)))
+    chunk = -(-ntiles // nchunks) * _TILE
+    return -(-n // chunk), chunk
+
+
 def _adjoint(lib, what, src, src_flag, alpha, WR, n, pairs, singles):
     nv = alpha.shape[0]
     np_, ns = len(pairs), len(singles)
-    per_chunk = np_ * -(-nv // rhs_per_block(WR)) + ns
-    ntiles = -(-n // _TILE)
-    nchunks = max(1, min(ntiles, -(-_TARGET_BLOCKS // max(per_chunk, 1))))
-    chunk = -(-ntiles // nchunks) * _TILE
-    nchunks = -(-n // chunk)
+    nchunks, chunk = _chunks(n, np_ * -(-nv // rhs_per_block(WR)) + ns)
     S2 = nv * np_ * WR * WR
     S = S2 + nv * ns * WR
     part = torch.empty((nchunks, S), dtype=torch.float32, device=alpha.device)
@@ -199,17 +219,75 @@ def _forward(lib, what, src, src_flag, G2, G1, WR, n, pairs, singles):
 
 
 def adjoint(Tp, alpha, pairs, singles):
-    """Launch the table adjoint kernels: ((nv, npairs, WR, WR), (nv, nsingles, WR))."""
+    """Launch the float32-table adjoint kernels: ((nv, npairs, WR, WR),
+    (nv, nsingles, WR))."""
     _, WR, n = Tp.shape
-    return _adjoint(library("packed_ndft"), "packed_adjoint", Tp, int(Tp.dtype == torch.bfloat16),
-                    alpha, WR, n, pairs, singles)
+    return _adjoint(library("packed_ndft"), "packed_adjoint", Tp, Tp.stride(1), alpha, WR, n, pairs,
+                    singles)
 
 
 def forward(Tp, G2, G1, pairs, singles):
-    """Launch the table forward kernel: (nsets, n) float32."""
+    """Launch the float32-table forward kernel: (nsets, n) float32."""
     _, WR, n = Tp.shape
-    return _forward(library("packed_ndft"), "packed_forward", Tp, int(Tp.dtype == torch.bfloat16),
-                    G2, G1, WR, n, pairs, singles)
+    return _forward(library("packed_ndft"), "packed_forward", Tp, Tp.stride(1), G2, G1, WR, n, pairs,
+                    singles)
+
+
+def adjoint_tc_split(WR: int, nv: int) -> tuple[int, int, int]:
+    """(nw, wk, mpw) of the tensor-core adjoint for nv right-hand sides: the
+    warps of a block, their split of a tile's four 16-point steps, and the
+    16-row M tiles per warp (nw / wk warps along M); the instances that
+    csrc/packed_ndft_tc.cu compiles."""
+    mtiles = min(nv, _TC_ROWS // WR) * WR // 16
+    for limit, split in ((2, (8, 4, 1)), (4, (8, 2, 1)), (8, (8, 1, 1)), (16, (8, 1, 2)), (24, (12, 1, 2))):
+        if mtiles <= limit:
+            return split
+    return 8, 1, 4
+
+
+def adjoint_tc(Tp, alpha, pairs, singles):
+    """Launch the bf16-table tensor-core adjoint (csrc/packed_ndft_tc.cu):
+    ((nv, npairs, WR, WR), (nv, nsingles, WR))."""
+    lib = library("packed_ndft_tc")
+    _, WR, n = Tp.shape
+    nv = alpha.shape[0]
+    np_, ns = len(pairs), len(singles)
+    nw, wk, mpw = adjoint_tc_split(WR, nv)
+    nchunks, chunk = _chunks(n, np_ * -(-nv // (_TC_ROWS // WR)) + ns)
+    S2 = nv * np_ * WR * WR
+    S = S2 + nv * ns * WR
+    part = torch.empty((nchunks, S), dtype=torch.float32, device=alpha.device)
+    out = torch.empty(S, dtype=torch.float32, device=alpha.device)
+    pr, sg = _ints(v for pair in pairs for v in pair), _ints(singles)
+    with torch.cuda.device(alpha.device):
+        code = lib.tc_adjoint_launch(Tp.data_ptr(), Tp.stride(1), alpha.data_ptr(), WR, n, nv, pr, np_, sg,
+                                     ns, part.data_ptr(), nchunks, chunk, nw, wk, mpw, out.data_ptr(),
+                                     _stream(alpha))
+    _check(lib, code, "packed_adjoint")
+    return out[:S2].reshape(nv, np_, WR, WR), out[S2:].reshape(nv, ns, WR)
+
+
+# weight sets per pass of the tensor-core forward (FWD_SMAX in the source)
+_TC_SETS = 32
+
+
+def forward_tc(Tp, G2, G1, pairs, singles):
+    """Launch the bf16-table tensor-core forward (csrc/packed_ndft_tc.cu):
+    (nsets, n) float32."""
+    lib = library("packed_ndft_tc")
+    _, WR, n = Tp.shape
+    nsets = G2.shape[0]
+    y = torch.empty((nsets, n), dtype=torch.float32, device=G2.device)
+    # the split weights of one pass: 3 bf16 terms per entry, 2 per word
+    gf = torch.empty(max(1, len(pairs) * min(nsets, _TC_SETS) * WR * WR * 3 // 2), dtype=torch.int32,
+                     device=G2.device)
+    pr, sg = _ints(v for pair in pairs for v in pair), _ints(singles)
+    with torch.cuda.device(G2.device):
+        code = lib.tc_forward_launch(Tp.data_ptr(), Tp.stride(1), WR, n, pr, len(pairs), G2.data_ptr(), sg,
+                                     len(singles), G1.data_ptr(), nsets, gf.data_ptr(), y.data_ptr(),
+                                     _stream(G2))
+    _check(lib, code, "packed_forward")
+    return y
 
 
 def adjoint_regen(xT, alpha, WR, pairs, singles, phase_gen):

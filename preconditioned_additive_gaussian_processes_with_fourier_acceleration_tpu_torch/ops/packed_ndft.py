@@ -20,17 +20,27 @@ Each of the four has a plain torch version beside it.  The wrapper follows
 one rule: a CPU tensor goes to the plain version; a CUDA tensor launches the
 hand-written kernel (csrc/, built at first use by ops/_cuda_build.py) and
 raises if the launch fails.  Each wrapper counts its kernel launches in its
-`launches` attribute.
+`launches` attribute, and by shape in `launches_by_shape`.
 
-The table kernels read the table in its stored dtype (bf16 on the training
-path) and accumulate in float32; alpha and the combined weights stay
-float32.  The regenerating kernels take float32 coordinates.
+A bf16 table (the training path's) goes to the tensor-core kernels of
+csrc/packed_ndft_tc.cu: alpha * L0 and the combined weights are split into
+three bf16 terms that hold their float32 significand exactly, so the
+products are those of float32 arithmetic and the sums are float32.  A
+float32 table goes to the CUDA-core kernels of csrc/packed_ndft.cu.  alpha
+and the weights are float32.  The regenerating kernels take float32
+coordinates and run on the CUDA cores.
+
+`pack_phase_table` pads the table's storage along the points to a multiple
+of 64 and returns the view of its first n columns: the tensor-core kernels
+copy 16-byte rows asynchronously, so a bf16 table's row stride must be a
+multiple of 8 elements (a table without it is copied into padded storage
+first).
 
 What bounds them on an H100: at n = 2e5, five 2-D windows and 2P = 32 a
-table pass reads 128 MB of bf16 table, but the contraction is
-2 nv npairs (2P)^2 n flops (2e10 at nv = 10), run as float32 FMAs on the
-CUDA cores.  Beyond a single right-hand side the FMA rate, not the table
-bytes, bounds these first versions; PERF.md has the times.
+table pass reads 128 MB of bf16 table (38 us at 3.35 TB/s), and the
+contraction is 2 nv npairs (2P)^2 n flops (2e10 at nv = 10), three times
+over on the bf16 tensor cores: many right-hand sides or weight sets are
+bound by the tensor cores, one by the table bytes; PERF.md has the times.
 """
 
 import math
@@ -48,14 +58,24 @@ REGEN_KERNEL_WIDTHS = (18, 34)
 PHASE_GENS = ("doubling", "direct")
 _MAX_PAIRS = 32
 _MAX_SINGLES = 64
+# points per padded table row: pack_phase_table rounds its storage up to it
+TABLE_PAD = 64
 
 
 def pack_phase_table(xT, P: int, table_dtype=None):
-    """(Dtot, 2P, n) phase table of the coordinate rows xT (Dtot, n)."""
+    """(Dtot, 2P, n) phase table of the coordinate rows xT (Dtot, n).
+
+    The view of the first n columns of zero-padded (Dtot, 2P, npad)
+    storage, npad a multiple of TABLE_PAD (as the JAX pack_phase_table pads
+    to npad): each table row starts on a 128-byte boundary."""
+    Dtot, n = xT.shape
     pr = torch.arange(P, dtype=xT.dtype, device=xT.device)
     ph = 2.0 * math.pi * xT[:, None, :] * pr[None, :, None]       # (Dtot, P, n)
     T = torch.cat([torch.cos(ph), torch.sin(ph)], dim=1)
-    return T.contiguous() if table_dtype is None else T.to(table_dtype).contiguous()
+    store = torch.zeros((Dtot, 2 * P, -(-n // TABLE_PAD) * TABLE_PAD),
+                        dtype=T.dtype if table_dtype is None else table_dtype, device=xT.device)
+    store[:, :, :n] = T
+    return store[:, :, :n]
 
 
 def phase_slab(xT, P: int, phase_gen: str = "doubling"):
@@ -136,9 +156,23 @@ def _check_rows(nrows, pairs, singles):
 def _check_table(Tp, pairs, singles):
     if Tp.ndim != 3 or Tp.shape[1] % 2:
         raise ValueError(f"phase table must be (Dtot, 2P, n), got {tuple(Tp.shape)}")
-    if not Tp.is_contiguous():
-        raise ValueError("phase table must be contiguous")
+    d, w, n = Tp.stride()
+    if n != 1 or w < Tp.shape[2] or d != Tp.shape[1] * w:
+        raise ValueError("phase table must hold its rows with unit point stride and one row "
+                         f"stride (pack_phase_table's layout), got strides {Tp.stride()}")
     _check_rows(Tp.shape[0], pairs, singles)
+
+
+def _tc_table(Tp):
+    """A bf16 table whose rows start on 16-byte boundaries, as the
+    tensor-core kernels' asynchronous copies need: Tp itself, or a copy
+    into padded storage."""
+    if Tp.stride(1) % 8 == 0 and Tp.data_ptr() % 16 == 0:
+        return Tp
+    n = Tp.shape[2]
+    store = Tp.new_zeros((*Tp.shape[:2], -(-n // TABLE_PAD) * TABLE_PAD))
+    store[:, :, :n] = Tp
+    return store[:, :, :n]
 
 
 def _check_coords(xT, pairs, singles):
@@ -147,15 +181,15 @@ def _check_coords(xT, pairs, singles):
     _check_rows(xT.shape[0], pairs, singles)
 
 
-def _check_cuda(src, others, pairs, singles, src_dtypes, width, widths):
+def _check_cuda(src, others, pairs, singles, src_dtypes, width, widths, table=False):
     """Shape/dtype rules of the CUDA kernels beyond those of the plain path."""
     for t in others:
         if t.device != src.device:
             raise ValueError(f"tensors on {t.device} and {src.device}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous float32 operands")
-    if src.dtype not in src_dtypes or not src.is_contiguous():
-        raise ValueError(f"the CUDA kernels take contiguous {src_dtypes} phases or coordinates, "
+    if src.dtype not in src_dtypes or not (table or src.is_contiguous()):
+        raise ValueError(f"the CUDA kernels take {src_dtypes} tables or contiguous coordinates, "
                          f"got {src.dtype}")
     if width not in widths:
         raise ValueError(f"the CUDA kernels are built for 2P in {widths}, got {width}")
@@ -214,9 +248,12 @@ def packed_adjoint(Tp, alpha, *, pairs: tuple, singles: tuple = ()):
         A2, A1 = packed_adjoint_plain(Tp, a2d, pairs, singles)
     elif a2d.is_cuda and Tp.is_cuda:
         _check_cuda(Tp, [a2d], pairs, singles, (torch.bfloat16, torch.float32), Tp.shape[1],
-                    KERNEL_WIDTHS)
-        A2, A1 = _cuda_build.adjoint(Tp, a2d, pairs, singles)
-        packed_adjoint.launches += 1
+                    KERNEL_WIDTHS, table=True)
+        if Tp.dtype == torch.bfloat16:
+            A2, A1 = _cuda_build.adjoint_tc(_tc_table(Tp), a2d, pairs, singles)
+        else:
+            A2, A1 = _cuda_build.adjoint(Tp, a2d, pairs, singles)
+        _count(packed_adjoint, f"nv={a2d.shape[0]}")
     else:
         raise ValueError(f"table on {Tp.device}, alpha on {a2d.device}")
     return _adjoint_outputs(A2, A1, alpha.ndim == 2, len(pairs), len(singles))
@@ -239,9 +276,12 @@ def packed_forward(Tp, G2_sets, G1_sets=(), *, pairs: tuple, singles: tuple = ()
     elif ref.is_cuda and Tp.is_cuda:
         G2c, G1c = _dense_stacks(G2, G1, W2, Tp.device)
         _check_cuda(Tp, [G2c, G1c], pairs, singles, (torch.bfloat16, torch.float32), W2,
-                    KERNEL_WIDTHS)
-        y = _cuda_build.forward(Tp, G2c, G1c, pairs, singles)
-        packed_forward.launches += 1
+                    KERNEL_WIDTHS, table=True)
+        if Tp.dtype == torch.bfloat16:
+            y = _cuda_build.forward_tc(_tc_table(Tp), G2c, G1c, pairs, singles)
+        else:
+            y = _cuda_build.forward(Tp, G2c, G1c, pairs, singles)
+        _count(packed_forward, f"nsets={G2c.shape[0]}")
     else:
         raise ValueError(f"table on {Tp.device}, weights on {ref.device}")
     return list(torch.unbind(y))
@@ -265,7 +305,7 @@ def packed_adjoint_regen(xT, alpha, *, P: int, pairs: tuple, singles: tuple = ()
     elif a2d.is_cuda and xT.is_cuda:
         _check_cuda(xT, [a2d], pairs, singles, (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS)
         A2, A1 = _cuda_build.adjoint_regen(xT, a2d, 2 * P, pairs, singles, phase_gen)
-        packed_adjoint_regen.launches += 1
+        _count(packed_adjoint_regen, f"nv={a2d.shape[0]}")
     else:
         raise ValueError(f"coordinates on {xT.device}, alpha on {a2d.device}")
     return _adjoint_outputs(A2, A1, alpha.ndim == 2, len(pairs), len(singles))
@@ -290,7 +330,7 @@ def packed_forward_regen(xT, G2_sets, G1_sets=(), *, P: int, pairs: tuple, singl
         G2c, G1c = _dense_stacks(G2, G1, 2 * P, xT.device)
         _check_cuda(xT, [G2c, G1c], pairs, singles, (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS)
         y = _cuda_build.forward_regen(xT, G2c, G1c, 2 * P, pairs, singles, phase_gen)
-        packed_forward_regen.launches += 1
+        _count(packed_forward_regen, f"nsets={G2c.shape[0]}")
     else:
         raise ValueError(f"coordinates on {xT.device}, weights on {ref.device}")
     return list(torch.unbind(y))
@@ -299,9 +339,16 @@ def packed_forward_regen(xT, G2_sets, G1_sets=(), *, P: int, pairs: tuple, singl
 KERNEL_WRAPPERS = (packed_adjoint, packed_forward, packed_adjoint_regen, packed_forward_regen)
 
 
+def _count(fn, shape):
+    """One launch of fn's kernel, also counted by shape ("nv=10", "nsets=20")."""
+    fn.launches += 1
+    fn.launches_by_shape[shape] = fn.launches_by_shape.get(shape, 0) + 1
+
+
 def reset_launch_counts():
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+        fn.launches_by_shape = {}
 
 
 reset_launch_counts()

@@ -15,6 +15,16 @@ than one tile, weight-set counts that straddle the forward's set tiles,
 layouts with only 2-D or only 1-D windows, and the 32-pair / 64-single
 limits of one call.
 
+The tensor-core kernels of bf16 tables (csrc/packed_ndft_tc.cu) are held
+at their own edges: n = 1, 63, 64, 65 (one 64-point tile and its
+neighbours), 37, 4099 and 2e4; nv = 1, 2, 3, 10, 16, 20 (the k-split and
+the M tiles per warp change at 2, 4, 8, 16 and 24 tiles of 16 rows; at
+2P = 32 the grid tiles more than 16 right-hand sides); nsets = 1, 2, 8,
+9, 10, 20, 21 (set groups of 4, 8-column N tiles at 2P = 32) and 33 (two
+passes of at most 32 sets); 2P = 16 and 32, with and without 1-D windows; a
+table view of padded storage whose pad holds NaN; and a second launch
+bitwise equal to the first.
+
 The cooperative dense Krylov kernels (solvers/fused_pcg.py, csrc/fused_pcg.cu)
 are held against their plain versions at n = 1, 31, 33, 1000 (not a
 multiple of a warp or a panel) and at the n <= 16384 limit, nv = 1 to the
@@ -118,6 +128,91 @@ def test_forward_matches_plain(dev, layout, n, P, dtype, nsets):
                                    torch.stack(G1, 1) if singles else None, pairs, singles)
     assert len(ys) == nsets
     assert _rel(torch.stack(ys), want) <= KERNEL_RTOL
+
+
+TC_LAYOUTS = {"pairs": LAYOUTS["pairs"], "mixed": LAYOUTS["mixed"]}
+TC_NS = [1, 63, 64, 65, 37, 4099, 20000]
+
+
+def _tc_inputs(dev, n, P, nan_pad=False):
+    """A bf16 table for the tensor-core kernels; with nan_pad, a view of
+    storage 128 points wider than n whose pad columns hold NaN."""
+    Tp, rng = _table(dev, n, P, torch.bfloat16)
+    if nan_pad:
+        store = torch.full((*Tp.shape[:2], Tp.stride(1) + 128), float("nan"), dtype=torch.bfloat16, device=dev)
+        store[:, :, :n] = Tp
+        Tp = store[:, :, :n]
+    return Tp, rng
+
+
+@pytest.mark.parametrize("layout", sorted(TC_LAYOUTS))
+@pytest.mark.parametrize("n", TC_NS)
+@pytest.mark.parametrize("P", [8, 16])
+@pytest.mark.parametrize("nv", [1, 2, 3, 10, 16, 20])
+def test_tc_adjoint_matches_plain(dev, layout, n, P, nv):
+    pairs, singles = TC_LAYOUTS[layout]
+    Tp, rng = _tc_inputs(dev, n, P)
+    alpha = torch.from_numpy(rng.normal(size=(nv, n)).astype(np.float32)).to(dev)
+    before = pk.packed_adjoint.launches_by_shape.get(f"nv={nv}", 0)
+    A2, A1 = pk.packed_adjoint(Tp, alpha, pairs=pairs, singles=singles)
+    B2, B1 = pk.packed_adjoint(Tp, alpha, pairs=pairs, singles=singles)
+    torch.cuda.synchronize()
+    assert pk.packed_adjoint.launches_by_shape[f"nv={nv}"] == before + 2
+    got = torch.cat([torch.stack(A2, 1).reshape(-1), torch.stack(A1, 1).reshape(-1) if A1 else alpha.new_zeros(0)])
+    again = torch.cat([torch.stack(B2, 1).reshape(-1), torch.stack(B1, 1).reshape(-1) if B1 else alpha.new_zeros(0)])
+    assert torch.equal(got, again)
+    W2, W1 = pk.packed_adjoint_plain(Tp, alpha, pairs, singles)
+    assert _rel(got, torch.cat([W2.reshape(-1), W1.reshape(-1)])) <= KERNEL_RTOL
+
+
+@pytest.mark.parametrize("layout", sorted(TC_LAYOUTS))
+@pytest.mark.parametrize("n", TC_NS)
+@pytest.mark.parametrize("P", [8, 16])
+@pytest.mark.parametrize("nsets", [1, 2, 8, 9, 10, 20, 21, 33])
+def test_tc_forward_matches_plain(dev, layout, n, P, nsets):
+    pairs, singles = TC_LAYOUTS[layout]
+    Tp, rng = _tc_inputs(dev, n, P)
+
+    def weights(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    G2 = [weights(nsets, 2 * P, 2 * P) for _ in pairs]
+    G1 = [weights(nsets, 2 * P) for _ in singles]
+    before = pk.packed_forward.launches_by_shape.get(f"nsets={nsets}", 0)
+    ys = torch.stack(pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles))
+    again = torch.stack(pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles))
+    torch.cuda.synchronize()
+    assert pk.packed_forward.launches_by_shape[f"nsets={nsets}"] == before + 2
+    assert torch.equal(ys, again)
+    want = pk.packed_forward_plain(Tp, torch.stack(G2, 1), torch.stack(G1, 1) if singles else None,
+                                   pairs, singles)
+    assert tuple(ys.shape) == (nsets, n)
+    assert _rel(ys, want) <= KERNEL_RTOL
+
+
+@pytest.mark.parametrize("n", [37, 4099])
+@pytest.mark.parametrize("kind", ["adjoint", "forward", "unaligned"])
+def test_tc_padded_and_unaligned_tables(dev, n, kind):
+    """A view of padded storage whose pad holds NaN: the kernels read no
+    point past n.  A contiguous table with rows off 16-byte boundaries
+    (copied to padded storage by the wrapper) gives the same results."""
+    pairs, singles = LAYOUTS["mixed"]
+    Tp, rng = _tc_inputs(dev, n, 16, nan_pad=kind != "unaligned")
+    if kind == "unaligned":
+        Tp = Tp.contiguous()
+        assert Tp.stride(1) == n
+    alpha = torch.from_numpy(rng.normal(size=(10, n)).astype(np.float32)).to(dev)
+    if kind != "forward":
+        A2, A1 = pk.packed_adjoint(Tp, alpha, pairs=pairs, singles=singles)
+        W2, W1 = pk.packed_adjoint_plain(Tp, alpha, pairs, singles)
+        assert _rel(torch.cat([torch.stack(A2, 1).reshape(-1), torch.stack(A1, 1).reshape(-1)]),
+                    torch.cat([W2.reshape(-1), W1.reshape(-1)])) <= KERNEL_RTOL
+    if kind != "adjoint":
+        G2 = [torch.from_numpy(rng.normal(size=(20, 32, 32)).astype(np.float32)).to(dev) for _ in pairs]
+        G1 = [torch.from_numpy(rng.normal(size=(20, 32)).astype(np.float32)).to(dev) for _ in singles]
+        ys = torch.stack(pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles))
+        want = pk.packed_forward_plain(Tp, torch.stack(G2, 1), torch.stack(G1, 1), pairs, singles)
+        assert bool(torch.isfinite(ys).all()) and _rel(ys, want) <= KERNEL_RTOL
 
 
 def test_wrappers_count_and_refuse(dev):

@@ -5,6 +5,10 @@ interpret mode with phase_gen="table_f32" (ops/pallas_ndft.py).
 Inputs are float64.  Tolerance: 2e-5 relative to the largest entry -- the
 JAX table (pack_phase_table) is stored in float32 and alpha is rounded to it
 in table_f32 mode, while the port keeps the data dtype.
+
+Also, on the CPU, the numerics and layout the tensor-core kernels of bf16
+tables rely on: the three-term bf16 split of a float32 operand is exact,
+and the phase table's storage is padded to 64 points.
 """
 
 import jax.numpy as jnp
@@ -107,3 +111,95 @@ def test_wrapper_rules(rows):
         tpn.packed_adjoint(Tp, torch.ones(xT.shape[1] + 1, dtype=torch.float64), pairs=PAIRS)
     with pytest.raises(ValueError):
         tpn.packed_adjoint(Tp, torch.ones(xT.shape[1], dtype=torch.float64), pairs=((0, 7),))
+
+
+# --- the tensor-core kernels' numerics and table layout, checked on the CPU ---------
+
+def _top8(x):
+    """x truncated to its top 8 significand bits (a bf16 value), float32."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _split3(u, split):
+    """Three bf16 terms hi + mid + lo of float32 u: "truncate" is the split
+    csrc/packed_ndft_tc.cu (`split3`) feeds to the tensor cores, "round" the
+    same with round-to-nearest terms."""
+    top = _top8 if split == "truncate" else (lambda x: x.to(torch.bfloat16).float())
+    r = u - top(u)
+    lo = r - top(r)
+    assert torch.equal(lo.to(torch.bfloat16).float(), lo)      # lo needs at most 8 bits
+    return top(u).to(torch.bfloat16), top(r).to(torch.bfloat16), lo.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("split", ["truncate", "round"])
+@pytest.mark.parametrize("operand", ["alpha_l0", "weights"])
+def test_three_term_split_keeps_float32_products(operand, split):
+    """The split is exact, so the three bf16 x bf16 products (exact in
+    float32 on the tensor cores) add up to the float32 product within 1 ulp;
+    one bf16 term alone misses the kernels' 1e-4 limit on sums of 2e5
+    points.  Operands: alpha * L0 of the adjoint (float32 product of a
+    float32 alpha and a bf16 table row), and combined weights G of the
+    forward (float32, spread over orders of magnitude like fold
+    coefficients)."""
+    rng = np.random.default_rng(61)
+    n, W = 200_000, 32
+    T = torch.from_numpy(np.cos(rng.uniform(0, 2 * np.pi, size=(W, n))).astype(np.float32)).to(torch.bfloat16)
+    if operand == "alpha_l0":
+        alpha = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32))
+        L0 = torch.from_numpy(np.sin(rng.uniform(0, 2 * np.pi, size=(3, n))).astype(np.float32))
+        u = alpha * L0.to(torch.bfloat16).float()
+    else:
+        u = torch.from_numpy((rng.normal(size=(3, n)) * np.exp(-rng.uniform(0, 12, size=(3, n))))
+                             .astype(np.float32))
+    hi, mid, lo = _split3(u, split)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), u.double())
+
+    m = 20_000
+    Td = T[:, :m].double()
+    three = hi[:, None, :m].double() * Td + mid[:, None, :m].double() * Td + lo[:, None, :m].double() * Td
+    p32 = u[:, None, :m] * T[:, :m].float()
+    ulp = torch.nextafter(p32.abs(), torch.tensor(float("inf"))) - p32.abs()
+    assert bool(((three - p32.double()).abs() <= ulp.double()).all())
+
+    exact = u.double() @ T.double().T                          # (3, W) sums over 2e5 points
+    single = hi.double() @ T.double().T
+    rel = float(torch.linalg.norm(single - exact) / torch.linalg.norm(exact))
+    assert rel > 1e-4
+    split = hi.double() @ T.double().T + mid.double() @ T.double().T + lo.double() @ T.double().T
+    assert float(torch.linalg.norm(split - exact) / torch.linalg.norm(exact)) <= 1e-12
+
+
+@pytest.mark.parametrize("n", [37, 64, 65])
+def test_phase_table_storage_is_padded(rows, n):
+    """pack_phase_table returns the first n columns of zero-padded storage
+    (64-point rows); the values are those of the unpadded table."""
+    xT, _ = rows
+    x = torch.tensor(xT[:, :n], dtype=torch.float32)
+    Tp = tpn.pack_phase_table(x, 8, table_dtype=torch.bfloat16)
+    assert tuple(Tp.shape) == (5, 16, n) and Tp.stride() == (16 * Tp.stride(1), Tp.stride(1), 1)
+    assert Tp.stride(1) % tpn.TABLE_PAD == 0 and Tp.stride(1) - n < tpn.TABLE_PAD
+    ph = 2.0 * np.pi * xT[:, None, :n] * np.arange(8)[None, :, None]
+    want = torch.tensor(np.concatenate([np.cos(ph), np.sin(ph)], axis=1), dtype=torch.float32)
+    assert torch.equal(Tp, want.to(torch.bfloat16))
+    store = torch.as_strided(Tp, (5, 16, Tp.stride(1)), Tp.stride())
+    assert not store[:, :, n:].any()
+
+
+def test_unaligned_table_copied_to_padded_rows(rows):
+    """A contiguous bf16 table whose rows do not start on 16 bytes goes to the
+    tensor-core kernels as a padded copy with the same values."""
+    xT, _ = rows
+    T = tpn.pack_phase_table(torch.tensor(xT[:, :37], dtype=torch.float32), 8,
+                             table_dtype=torch.bfloat16).contiguous()
+    assert T.stride(1) == 37
+    Tc = tpn._tc_table(T)
+    assert Tc.stride(1) % 8 == 0 and torch.equal(Tc, T)
+    padded = tpn.pack_phase_table(torch.tensor(xT, dtype=torch.float32), 8, table_dtype=torch.bfloat16)
+    assert tpn._tc_table(padded) is padded
+
+
+def test_launches_by_shape_reset():
+    tpn.packed_adjoint.launches_by_shape["nv=3"] = 2
+    tpn.reset_launch_counts()
+    assert all(fn.launches_by_shape == {} for fn in tpn.KERNEL_WRAPPERS)
+    assert tpn.packed_adjoint.launches == 0

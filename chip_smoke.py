@@ -64,7 +64,39 @@ Phases, one line each (any failure raises and exits non-zero):
      slq_logdet on the same probes.  A second launch of each is bitwise
      equal to the first;
  10. dense-fit: GPProblem(gaussian, WINDOWS, operator="dense",
-     precond="chol").fit for 3 Adam steps at n = 4096; every loss finite.
+     precond="chol").fit for 3 Adam steps at n = 4096; every loss finite;
+ 11. stream-m12: GPProblem(matern12, WINDOWS_FUSED) with no engine argument
+     (its defaults pick the stream engine on CUDA tensors).fit for 3 Adam
+     steps at n = 1.6e5 (at 2e5 the 1-D window's grid would need more than
+     the 2^15 cells build_cell_grid allows, and both packages then keep the
+     KNN near-field on every window; checked): the radius near-field on the
+     four windows of one or
+     two features (per window the grid's cells, capacity, radius, in-radius
+     pairs and bytes, beside the bytes of the JAX package's dense stencil),
+     the KNN near-field's row width on [0, 1, 2]; every loss finite, both
+     table kernels launched, their launches printed by shape; the
+     near-field's value build and apply timed on the card;
+ 12. agree-stream-m12: at n = 2e4 and (f, l, mu) = (1, 0.5, 1), the radius
+     near-field's K and dK/dl products on the card (float32) against the
+     same calls on CPU float64 copies of the points, relative Frobenius
+     error <= 5e-5 (float32 against float64 on the CPU: 1.7e-5; the values
+     are small differences of O(1) terms), and the stream loss and gradient
+     on the card with float32 tables against the stream engine's plain
+     versions on CPU float64, with the same probes, landmarks and
+     3-feature KNN pattern; both sides must build the radius near-field on
+     the four windows of one or two features (limits as in 8; the grid is
+     continuous in the points, so both sides build the same matrix to
+     rounding);
+ 13. predict: [main]'s fitted problem at n = 2e5, the mean at 2000 test
+     points and the std at 16 (one std_chunk); [stream-m12]'s problem, the
+     mean at 2000 points (n > 20000: the fastsum branch and its warning);
+     and at n = 2e4 with (f, l, mu) = (1, 0.5, 0.1), the fastsum predictor
+     against the dense one, relative L2 gap of the mean <= 5e-3 and of the
+     std <= 5e-4 (tests/test_torch_predict.py measured 3.7e-4 / 1.8e-5 at
+     n = 1000, rising to 1.08e-3 / 8.1e-5 at n = 8000); values finite, std
+     > 0, seconds printed;
+ 14. full: GPProblem(gaussian, windows=None) on the first two features at
+     n = 2e5, 2 Adam steps, then the mean at 256 points; all finite.
 
 Every kernel case also times one PyTorch call that computes the same
 function from the same inputs (`library_ms`; the port never calls it): for
@@ -97,6 +129,9 @@ import torch  # noqa: E402
 
 N_POINTS = 200_000
 N_AGREE = 20_000
+# the matern12 stream run: its 1-D window's cell grid (about n / 5.33 cells,
+# lfil 16) stays under build_cell_grid's 2^15-cell cap up to n = 1.74e5
+N_STREAM_M12 = 160_000
 DIM = 10
 WINDOWS = [[0, 1], [2, 3], [4, 5], [6, 7], [8, 9]]
 WINDOWS_1D = [[0, 1], [2, 3], [4]]
@@ -322,10 +357,10 @@ def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20)):
     return cases
 
 
-def timed_fit(prob, X, y, counted):
-    """3 Adam steps of prob.fit with the given kernels' launch counts set to 0
-    just before and read just after.  Returns (losses, seconds to the end of
-    each step from the call of fit, launch counts)."""
+def timed_fit(prob, X, y, counted, steps=3):
+    """`steps` Adam steps of prob.fit with the given kernels' launch counts
+    set to 0 just before and read just after.  Returns (losses, seconds to
+    the end of each step from the call of fit, launch counts)."""
     from nfft4gp_torch.ops import packed_ndft as pk
 
     stamps = []
@@ -337,12 +372,12 @@ def timed_fit(prob, X, y, counted):
     pk.reset_launch_counts()
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
-    prob.fit(X, y, adam_maxits=3, callback=tick)
+    prob.fit(X, y, adam_maxits=steps, callback=tick)
     counts = {fn.__name__: fn.launches for fn in pk.KERNEL_WRAPPERS}
     counts["by_shape"] = {fn.__name__: dict(sorted(fn.launches_by_shape.items())) for fn in pk.KERNEL_WRAPPERS
                           if fn.launches}
     losses = prob.loss_history_
-    if len(losses) != 3 or not all(np.isfinite(losses)):
+    if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"losses not finite: {losses}")
     if counted and min(counts[k] for k in counted) <= 0:
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
@@ -499,6 +534,174 @@ def check_dense_fit(X, y):
           f"median_s_per_step={float(np.median(steps)):.4f}", flush=True)
 
 
+def _nf_values(stencils, params, geom):
+    """The radius near-field entries (K and dK/dl values) of every window
+    with a stencil, at params."""
+    from nfft4gp_torch.ops import fastsum as fs
+
+    return fs._packed_layout(fs.additive_fastsum_coeffs("matern12", params, geom, nearfield_lfil=0), stencils).nf
+
+
+def _nf_apply(entries, V, which="k"):
+    from nfft4gp_torch.ops import fastsum as fs
+
+    return sum(fs._nf_trip_apply_batch(False, e, V, which) for e in entries)
+
+
+def check_stream_m12(X, y):
+    """[stream-m12]: the default matern12 engine on CUDA tensors (phase 11),
+    on the first N_STREAM_M12 points of X; at all of X the radius
+    near-field must refuse the 1-D window's grid, as the JAX package does."""
+    from nfft4gp_torch.models.problem import GPProblem
+    from nfft4gp_torch.models.transforms import transform_forward
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
+
+    full = fs.additive_fastsum_geometry(X, make_windows(WINDOWS_FUSED), N=FASTSUM_N, table_dtype=torch.bfloat16)
+    if fs.additive_nearfield_stencil_direct(full, "matern12", 16) is not None:
+        raise AssertionError(f"stream-m12: at n={X.shape[0]} the 1-D window's grid should exceed 2^15 cells")
+    X, y = X[:N_STREAM_M12], y[:N_STREAM_M12]
+    prob = GPProblem(**FUSED)
+    losses, steps, counts = timed_fit(prob, X, y, ("packed_adjoint", "packed_forward"))
+    dims = sorted({len(w) for w in WINDOWS_FUSED})
+    names = [w for dw in dims for w in WINDOWS_FUSED if len(w) == dw]
+    stens = [e for g in prob.nf_stencils_ or () if g is not None for e in g]
+    form = []
+    for w, e in zip(names, stens):
+        n, width = e.idx.shape
+        nbytes = e.idx.numel() * e.idx.element_size() + e.pos.numel() * e.pos.element_size() + 2 * n * width * 4
+        form.append(dict(window=w, ncells=e.grid.ncells, c=e.grid.c, rho=e.rho, in_radius=int(e.pos.numel()),
+                         ell_width=width, bytes=nbytes, dense_stencil_bytes=2 * 4 * e.grid.ncells * e.grid.c
+                         * e.grid.noffs * e.grid.c))
+    knn = [dict(windows=[w for w in WINDOWS_FUSED if len(w) == dw], nf_sym=p[2], row_width=int(p[0].shape[-1]))
+           for dw, p in zip(dims, prob.nf_patterns_) if p is not None]
+    if len(stens) != sum(len(w) <= 2 for w in WINDOWS_FUSED) or not knn:
+        raise AssertionError(f"stream-m12: not every d <= 2 window has the radius near-field: {form} {knn}")
+    # the near-field alone at the fitted hyperparameters
+    tv, _ = transform_forward("softplus", prob.raw_params_)
+    params = KernelParams(f=tv[0], l=tv[1], mu=tv[2])
+    geom = fs.additive_fastsum_geometry(X, make_windows(WINDOWS_FUSED), N=FASTSUM_N, table_dtype=torch.bfloat16)
+    entries = _nf_values(prob.nf_stencils_, params, geom)
+    gen = torch.Generator(device=X.device).manual_seed(3)
+    V10 = torch.randn((10, X.shape[0]), generator=gen, device=X.device)
+    times = dict(values_ms=cuda_ms(lambda: _nf_values(prob.nf_stencils_, params, geom), reps=3, warmup=1),
+                 apply_nv1_ms=cuda_ms(lambda: _nf_apply(entries, V10[:1])),
+                 apply_nv10_ms=cuda_ms(lambda: _nf_apply(entries, V10)))
+    print(f"[stream-m12] n={X.shape[0]} windows={WINDOWS_FUSED} engine=auto (stream) radius near-field per window="
+          f"{form} knn near-field={knn} near-field on the card (4 windows, K values; values_ms builds K and "
+          f"dK/dl)={times} losses={losses} s_per_step={steps.tolist()} (the first includes the set-up: geometry, "
+          f"cell grids, in-radius pairs, KNN of [0, 1, 2]) median_steady_s_per_step="
+          f"{float(np.median(steps[1:])):.4f} launches={counts} | at n={N_POINTS}: the 1-D window needs more "
+          f"than 2^15 cells, no radius near-field on any window (KNN instead, as in the JAX package)", flush=True)
+    return prob, counts
+
+
+def check_stream_m12_agree(X, y):
+    """[agree-stream-m12] (phase 12)."""
+    from nfft4gp_torch.models.problem import GPProblem
+    from nfft4gp_torch.models.transforms import transform_inverse
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
+
+    Xh, yh = X.cpu().double(), y.cpu().double()
+    V = torch.randn((10, X.shape[0]), generator=torch.Generator().manual_seed(4), dtype=torch.float64)
+    out = []
+    for Xs, Vs in ((X, V.to(X.device, torch.float32)), (Xh, V)):
+        geom = fs.additive_fastsum_geometry(Xs, make_windows(WINDOWS_FUSED), N=FASTSUM_N)
+        stens = fs.additive_nearfield_stencil_direct(geom, "matern12", 16)
+        params = KernelParams.make(1.0, 0.5, 1.0, dtype=Xs.dtype, device=Xs.device)
+        entries = _nf_values(stens, params, geom)
+        out.append(torch.stack([_nf_apply(entries, Vs, w) for w in "kl"]).cpu().double())
+    rel = [float(torch.linalg.norm(out[0][k] - out[1][k]) / torch.linalg.norm(out[1][k])) for k in range(2)]
+
+    # both sides on the stream engine (on the CPU its plain versions), so
+    # both build the radius near-field on the windows of one or two features
+    kw = dict(FUSED, fastsum_table_dtype="float32", fastsum_engine="stream")
+    card = GPProblem(**kw)
+    loss_c, grad_c = card.make_loss(X, y)(transform_inverse("softplus", torch.tensor([1.0, 0.5, 1.0],
+                                                                                    device=X.device)))
+    pats = tuple(None if p is None else (p[0].cpu(), p[1].cpu(), p[2]) for p in card.nf_patterns_)
+    host = GPProblem(**kw)
+    loss_h, grad_h = host.make_loss(Xh, yh, nf_patterns=pats)(
+        transform_inverse("softplus", torch.tensor([1.0, 0.5, 1.0], dtype=torch.float64)))
+    n_sten = [sum(len(g) for g in p.nf_stencils_ or () if g is not None) for p in (card, host)]
+    if n_sten != [sum(len(w) <= 2 for w in WINDOWS_FUSED)] * 2:
+        raise AssertionError(f"agree-stream-m12: radius near-field windows (card, CPU) = {n_sten}")
+    print(f"[agree-stream-m12] n={X.shape[0]} (f, l, mu) = (1, 0.5, 1) radius near-field card f32 vs CPU f64 "
+          f"(K, dK/dl) rel_fro={rel} (limit 5e-5) | stream loss card f32 tables={float(loss_c):.8e} "
+          f"grad={grad_c.tolist()} | CPU float64 (stream, plain versions) loss={float(loss_h):.8e} "
+          f"grad={grad_h.tolist()} rel_loss_gap={abs(float(loss_c) - float(loss_h)) / abs(float(loss_h)):.3e}",
+          flush=True)
+    if not max(rel) <= 5e-5:
+        raise AssertionError(f"agree-stream-m12: the near-field on the card disagrees with CPU float64: {rel}")
+    np.testing.assert_allclose(float(loss_c), float(loss_h), rtol=1e-3)
+    np.testing.assert_allclose(grad_c.cpu().numpy(), grad_h.numpy(), rtol=1e-2, atol=1e-3)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _finite(*ts):
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+def check_predict(prob, sprob, X, y):
+    """[predict] (phase 13)."""
+    from nfft4gp_torch.models.problem import GPProblem
+    from nfft4gp_torch.models.transforms import transform_inverse
+
+    Xt, _ = make_data(2000, seed=7)
+    mean, s_mean = _timed(lambda: prob.predict(X, y, Xt))
+    (m16, std), s_std = _timed(lambda: prob.predict(X, y, Xt[:16], with_std=True))
+    print(f"[predict] main (gaussian, fastsum) n={X.shape[0]} mean at {Xt.shape[0]} points: {s_mean:.2f} s, "
+          f"mean[:4]={mean[:4].tolist()}; mean and std at 16 points: {s_std:.2f} s, std[:4]={std[:4].tolist()}",
+          flush=True)
+    smean, s_smean = _timed(lambda: sprob.predict(X[:N_STREAM_M12], y[:N_STREAM_M12], Xt))
+    print(f"[predict] stream-m12 (matern12, n={N_STREAM_M12}, auto rule at n > 20000: fastsum) mean at "
+          f"{Xt.shape[0]} points: "
+          f"{s_smean:.2f} s, mean[:4]={smean[:4].tolist()}", flush=True)
+    if not (_finite(mean, m16, std, smean) and bool((std > 0).all())):
+        raise AssertionError("predict: a mean or std is not finite, or a std is not positive")
+
+    Xa, ya = X[:N_AGREE], y[:N_AGREE]
+    raw = transform_inverse("softplus", torch.tensor([1.0, 0.5, 0.1], device=X.device))
+    res = {}
+    for op in ("fastsum", "dense"):
+        p = GPProblem(kernel="gaussian", windows=WINDOWS, operator="fastsum", precond="nystrom", rank=50, maxits=10,
+                      nvecs=10, fastsum_N=FASTSUM_N, predict_operator=op, raw_params_=raw)
+        (m, secs) = _timed(lambda: p.predict(Xa, ya, Xt))
+        ((_, sd), secs_std) = _timed(lambda: p.predict(Xa, ya, Xt[:16], with_std=True))
+        res[op] = (m, sd, secs, secs_std)
+    gap = [float(torch.linalg.norm(res["fastsum"][k] - res["dense"][k]) / torch.linalg.norm(res["dense"][k]))
+           for k in range(2)]
+    print(f"[predict] n={N_AGREE} (f, l, mu) = (1, 0.5, 0.1) fastsum vs dense: mean gap {gap[0]:.3e} (limit 5e-3), "
+          f"std gap {gap[1]:.3e} (limit 5e-4); seconds mean/std(16): fastsum {res['fastsum'][2]:.2f}/"
+          f"{res['fastsum'][3]:.2f}, dense {res['dense'][2]:.2f}/{res['dense'][3]:.2f}", flush=True)
+    if not (_finite(*res["fastsum"][:2], *res["dense"][:2]) and gap[0] <= 5e-3 and gap[1] <= 5e-4):
+        raise AssertionError(f"predict: fastsum and dense disagree at n={N_AGREE}: {gap}")
+
+
+def check_full(X, y):
+    """[full] (phase 14)."""
+    from nfft4gp_torch.models.problem import GPProblem
+
+    X2 = X[:, :2].contiguous()
+    prob = GPProblem(kernel="gaussian", operator="fastsum", precond="nystrom", rank=50, maxits=10, nvecs=10,
+                     fastsum_N=FASTSUM_N)
+    losses, steps, _ = timed_fit(prob, X2, y, (), steps=2)
+    Xt, _ = make_data(256, seed=8)
+    mean, secs = _timed(lambda: prob.predict(X2, y, Xt[:, :2].contiguous()))
+    print(f"[full] n={X.shape[0]} windows=None features [0, 1] losses={losses} s_per_step={steps.tolist()} "
+          f"mean at 256 points: {secs:.2f} s, mean[:4]={mean[:4].tolist()}", flush=True)
+    if not _finite(mean):
+        raise AssertionError("full: the mean is not finite")
+
+
 def _summary(name, route, mode, cases, shape, launches):
     c = next(c for c in cases if c["kernel"] == name and c["shape"] == shape and c.get("mode") == mode)
     base = next(k for k in ("adjoint", "forward", "pcg", "lanczos") if k in name)
@@ -569,6 +772,11 @@ def main():
         c["mode"] = "dense"
     check_dense_fit(Xd, yd)
 
+    sprob, scounts = check_stream_m12(X, y)
+    check_stream_m12_agree(X[:N_AGREE], y[:N_AGREE])
+    check_predict(prob, sprob, X, y)
+    check_full(X, y)
+
     summary = [_summary("packed_adjoint", "table", "table-bf16", cases, "nv=10", counts),
                _summary("packed_forward", "table", "table-bf16", cases, "nsets=20", counts),
                _summary("packed_adjoint_regen", "regen", "doubling", regen, "nv=10", fcounts),
@@ -576,6 +784,9 @@ def main():
                _summary("fused_pcg_dense", "fused", "dense", dense, f"n={DENSE_NS[0]} mu={DENSE_MUS[0]}", dcounts),
                _summary("fused_lanczos_dense", "fused", "dense", dense, f"n={DENSE_NS[1]} mu={DENSE_MUS[0]}",
                         dcounts)]
+    for k in summary[:2]:
+        k["launches_stream_m12"] = scounts[k["name"]]
+        k["launches_by_shape_stream_m12"] = scounts["by_shape"][k["name"]]
     print(f"[done] wall seconds from the start of chip_smoke.py to its summary: "
           f"{time.perf_counter() - _T0:.1f}", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

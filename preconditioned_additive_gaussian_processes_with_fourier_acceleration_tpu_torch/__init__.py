@@ -7,14 +7,17 @@ counterpart is found under the same name.  This package imports torch and
 numpy only, never jax.
 
 What is here: the kernel families with (f, l, mu) gradients and additive
-windows, the dense operator, the folded-NDFT fastsum operator for windows
-of one to three features with the matern12 KNN near-field (table engine in
+windows, the dense operator, the folded-NDFT fastsum operator, full (one
+to three features) or additive over windows of one to three features,
+with the matern12 near-field (a KNN pattern, or on the stream engine every
+pair within the pitch of a cell grid, `ops/cellgrid.py`; table engine in
 torch; streamed-table and phase-regenerating engines on the hand-written
 CUDA kernels of `ops/packed_ndft.py`), PCG, FGMRES, batched Lanczos/SLQ,
 the dense small-n Krylov solves on the cooperative CUDA kernels of
 `solvers/fused_pcg.py`, the Cholesky and Nystrom preconditioners, the
-marginal-likelihood loss with the reference's estimator, Adam,
-`GPProblem.fit` and the exact one-vs-all multiclass GP.
+marginal-likelihood loss with the reference's estimator, Adam, prediction
+with std on the dense kernel or the fastsum operator, `GPProblem.fit` and
+`.predict`, and the exact one-vs-all multiclass GP.
 
 Float32 products run in full float32: TF32 is switched off here.  This is
 the counterpart of the JAX package's `precision="highest"` products; the
@@ -47,6 +50,6 @@ from .solvers.lanczos import lanczos, slq_logdet  # noqa: E402
 from .preconds.chol import CholPrecond, chol_setup  # noqa: E402
 from .preconds.nystrom import NystromPrecond, nystrom_setup  # noqa: E402
 from .models.transforms import transform_forward, transform_inverse  # noqa: E402
-from .models.gp import GPConfig, gp_loss  # noqa: E402
+from .models.gp import GPConfig, GPPredictResult, gp_loss, gp_predict, gp_predict_fastsum  # noqa: E402
 from .models.adam import AdamState, adam_init, adam_step  # noqa: E402
 from .models.problem import GPProblem  # noqa: E402

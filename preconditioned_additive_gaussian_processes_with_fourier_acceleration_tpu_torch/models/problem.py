@@ -1,10 +1,10 @@
-"""High-level GP problem: kernel + operator + preconditioner + Adam loop
-(port of models/problem.py, the training half).
+"""High-level GP problem: kernel + operator + preconditioner + Adam loop +
+prediction (port of models/problem.py).
 
 Rebuild of SRC/optimizer/gp_problem.c: one object wires the kernel kind,
 additive windows, the operator (exact dense or Fourier fastsum), the
-preconditioner and the transform into a loss closure, and trains the
-hyperparameters with Adam.  Prediction is not ported yet.
+preconditioner and the transform into a loss closure, trains the
+hyperparameters with Adam and predicts the posterior mean and std.
 """
 
 import ast
@@ -21,7 +21,7 @@ from ..preconds.nystrom import nystrom_setup
 from ..solvers.lanczos import rademacher_probes
 from ..utils.datasets import rand_perm
 from .adam import adam_run
-from .gp import GPConfig, gp_loss, make_dense_ops
+from .gp import GPConfig, gp_loss, gp_predict, gp_predict_fastsum, make_dense_ops
 from .transforms import transform_forward, transform_inverse
 
 _SAVED_FIELDS = (
@@ -83,27 +83,37 @@ class GPProblem:
     """User-facing GP regression problem (ref gp_problem.h:20-75).
 
     kernel:   'gaussian' | 'matern32' | 'matern12'
-    windows:  None (full kernel) or list of feature-index lists (additive)
-    operator: 'dense' | 'fastsum' (fastsum: additive windows of 1-3 features)
+    windows:  None (full kernel of at most 3 features for fastsum) or list
+              of feature-index lists (additive windows of 1-3 features)
+    operator: 'dense' | 'fastsum'
     precond:  'none' | 'chol' (dense K and dK, exact Cholesky) | 'nystrom'
 
-    fastsum_engine: 'stream' (the packed table kernels; their plain torch
-    versions on CPU tensors) | 'table' (torch products on per-window
-    tables) | 'auto' (stream when X is a CUDA tensor, table on the CPU).
-    fastsum_fused: the phase-regenerating kernels instead (the plain
-    versions on CPU tensors), with 'auto' or 'table' as the engine; 'stream'
-    conflicts with it.  3-feature windows run on the table path in the
-    kernel engines.
+    fastsum_engine (additive windows): 'stream' (the packed table kernels;
+    their plain torch versions on CPU tensors) | 'table' (torch products on
+    per-window tables) | 'auto' (stream when X is a CUDA tensor, table on
+    the CPU).  fastsum_fused: the phase-regenerating kernels instead (the
+    plain versions on CPU tensors), with 'auto' or 'table' as the engine;
+    'stream' conflicts with it.  3-feature windows run on the table path in
+    the kernel engines; windows=None runs on the table path.
     fastsum_table_dtype: 'auto' = bfloat16 tables for float32 data, the data
     dtype otherwise; None / 'float32' / a torch dtype name force one.
-    fastsum_nearfield_lfil: the near-field correction's KNN width; None =
-    16 for matern12, else 0.  The table and fused engines build the KNN
-    pattern once per dataset (symmetrized unless the skewed in-degree guard
-    trips) and keep it in `nf_patterns_`.  The stream engine's near-field
-    (cell stencils in the JAX package) is not ported.
+    Prediction always uses tables in the data dtype.
+    fastsum_nearfield_lfil: the near-field correction's size; None = 16 for
+    matern12, else 0.  The stream engine corrects every pair within a
+    radius rho, the pitch of a cell grid sized for about lfil neighbours
+    (`nf_stencils_`); when a grid degenerates (clustered or duplicate
+    data), and on the other engines and 3-feature windows, the correction
+    sits on a KNN pattern of lfil neighbours (`nf_patterns_`,
+    symmetrized unless the skewed in-degree guard trips).  Both are built
+    once per dataset.
+    predict_operator: 'auto' (the training operator; but matern12 fastsum
+    predicts on the dense kernel while n <= 20000, and warns above) |
+    'dense' | 'fastsum'.
 
-    lfil and predict_operator are kept so that a problem saved by the JAX
-    package loads; they select paths not ported yet.
+    lfil (the FSAI fill) is kept so that a problem saved by the JAX package
+    loads; FSAI is not ported.  device: where numpy inputs go (default
+    "cuda", where floating ones become float32; tensors keep their own
+    device and dtype); it is not saved.
     """
 
     kernel: str = "gaussian"
@@ -125,10 +135,35 @@ class GPProblem:
     predict_operator: str = "auto"
     seed: int = 0
     mask: tuple = (1, 1, 1)
+    device: Optional[str] = None
 
     raw_params_: Optional[torch.Tensor] = None
     loss_history_: list = field(default_factory=list)
     nf_patterns_: Optional[tuple] = None
+    nf_stencils_: Optional[tuple] = None
+
+    def _tensors(self, X, *others):
+        """X and the arrays that go with it as tensors.  A tensor keeps its
+        device and dtype.  A numpy X goes to `device` (default CUDA, and an
+        error without a card); on CUDA a floating X becomes float32, the
+        kernels' type, as jnp.asarray makes it under JAX's default (x64
+        off), while on the CPU it keeps its dtype.  The other numpy arrays
+        go to X's device, floating ones in X's dtype."""
+        if not isinstance(X, torch.Tensor):
+            dev = torch.device(self.device if self.device is not None else "cuda")
+            if dev.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("numpy inputs go to the CUDA device and there is none; "
+                                   "set device='cpu' to run on the CPU")
+            X = torch.as_tensor(np.asarray(X))
+            if dev.type == "cuda" and X.is_floating_point():
+                X = X.float()
+            X = X.to(dev)
+
+        def follow(o):
+            t = torch.as_tensor(np.asarray(o), device=X.device)
+            return t.to(X.dtype) if t.is_floating_point() and X.is_floating_point() else t
+
+        return (X,) + tuple(o if isinstance(o, torch.Tensor) else follow(o) for o in others)
 
     def _windows_arr(self):
         return make_windows(self.windows) if self.windows is not None else None
@@ -149,14 +184,14 @@ class GPProblem:
             return None
         return getattr(torch, str(self.fastsum_table_dtype))
 
-    def _build_ops_factory(self, X, nf_patterns=None):
+    def _build_ops_factory(self, X, nf_patterns=None, nf_stencils=None):
         warr = self._windows_arr()
         if self.operator == "dense":
             return make_dense_ops(self.kernel, X, windows=warr)
         if self.operator != "fastsum":
             raise ValueError(f"unknown operator {self.operator}")
         if warr is None:
-            raise NotImplementedError("the torch fastsum operator needs additive windows")
+            return self._full_fastsum_factory(X, nf_patterns)
         if self.fastsum_engine not in ("auto", "stream", "table"):
             raise ValueError(f"unknown fastsum_engine {self.fastsum_engine}")
         if self.fastsum_fused and self.fastsum_engine == "stream":
@@ -165,25 +200,37 @@ class GPProblem:
         use_stream = self.fastsum_engine == "stream" or (
             self.fastsum_engine == "auto" and not self.fastsum_fused and X.is_cuda)
         nf_lfil = self._nf_lfil()
-        if nf_lfil > 0 and use_stream:
-            raise NotImplementedError(
-                "the stream engine's near-field (cell stencils) is not ported yet; "
-                "use fastsum_fused=True or fastsum_engine='table'")
         tdt = self._table_dtype(X)
         geom = fs.additive_fastsum_geometry(X, warr, N=self.fastsum_N, table_dtype=tdt)
-        # the KNN patterns do not depend on the hyperparameters: once per
-        # dataset (the correction values refresh with params inside build)
-        if nf_lfil > 0 and nf_patterns is None:
-            nf_patterns = fs.symmetrize_nearfield_patterns(
-                fs.additive_nearfield_patterns(self.kernel, geom, nf_lfil))
+        # the near-field's pairs do not depend on the hyperparameters: once
+        # per dataset (the correction values refresh with params inside build)
+        nf_stens, nf_lfil_build = None, nf_lfil
+        if nf_lfil > 0:
+            if use_stream:
+                nf_stens = (nf_stencils if nf_stencils is not None
+                            else fs.additive_nearfield_stencil_direct(geom, self.kernel, nf_lfil))
+            if nf_stens is not None:
+                # the radius near-field serves the d <= 2 windows; KNN
+                # patterns remain for the 3-feature groups (table path)
+                nf_lfil_build = 0
+                if nf_patterns is None and any(dw == 3 for dw, _, _ in geom.groups):
+                    pats = fs.additive_nearfield_patterns(self.kernel, geom, nf_lfil)
+                    nf_patterns = fs.symmetrize_nearfield_patterns(
+                        tuple(p if dw == 3 else None for p, (dw, _, _) in zip(pats, geom.groups)))
+            elif nf_patterns is None:
+                # degenerate grids (clustered or duplicate features) and the
+                # other engines: KNN patterns, symmetrized
+                nf_patterns = fs.symmetrize_nearfield_patterns(
+                    fs.additive_nearfield_patterns(self.kernel, geom, nf_lfil))
         self.nf_patterns_ = nf_patterns if nf_lfil > 0 else None
+        self.nf_stencils_ = nf_stens
 
         def build(params):
             plan = fs.additive_fastsum_coeffs(self.kernel, params, geom,
                                               oversample=self.fastsum_oversample,
-                                              nearfield_lfil=nf_lfil, nf_patterns=self.nf_patterns_)
+                                              nearfield_lfil=nf_lfil_build, nf_patterns=self.nf_patterns_)
             if use_stream:
-                pn = fs.packed_ndft_plan(plan, table_dtype=tdt)
+                pn = fs.packed_ndft_plan(plan, table_dtype=tdt, nf_stencils=nf_stens)
                 return _ops(lambda V: fs.packed_ndft_matvec_batch(pn, V),
                             lambda V: fs.packed_ndft_grad_matvec_batch(pn, V))
             if self.fastsum_fused:
@@ -191,6 +238,24 @@ class GPProblem:
                             lambda V: fs.additive_fastsum_grad_matvec_fused_batch(plan, V))
             return _ops(lambda V: fs.additive_fastsum_matvec(plan, V),
                         lambda V: fs.additive_fastsum_grad_matvec(plan, V))
+
+        return build
+
+    def _full_fastsum_factory(self, X, nf_pattern=None):
+        """windows=None: one fastsum plan over all features (at most 3) on
+        the table path, its KNN near-field pattern symmetrized unless the
+        skewed in-degree guard trips."""
+        nf_lfil = self._nf_lfil()
+        geom = fs.fastsum_geometry(X, self.fastsum_N, table_dtype=self._table_dtype(X))
+        if nf_lfil > 0 and nf_pattern is None:
+            nf_pattern = fs.nearfield_patterns(self.kernel, geom, nf_lfil, sym=True)
+        self.nf_patterns_ = nf_pattern if nf_lfil > 0 else None
+        self.nf_stencils_ = None
+
+        def build(params):
+            plan = fs.fastsum_coeffs(self.kernel, params, geom, oversample=self.fastsum_oversample,
+                                     nearfield_lfil=nf_lfil, nf_pattern=self.nf_patterns_)
+            return (lambda v: fs.fastsum_matvec(plan, v)), (lambda v: fs.fastsum_grad_matvec(plan, v))
 
         return build
 
@@ -217,17 +282,21 @@ class GPProblem:
         return lambda params: nystrom_setup(self.kernel, params, X, landmarks, k,
                                             require_grad=True, windows=warr)
 
-    def make_loss(self, X, y, *, probes=None, landmarks=None, nf_patterns=None):
-        """raw_params -> (loss, grad) closure.
+    def make_loss(self, X, y, *, probes=None, landmarks=None, nf_patterns=None, nf_stencils=None):
+        """raw_params -> (loss, grad) closure.  X and y: tensors, or numpy
+        arrays (see `device`).
 
-        probes (nvecs, n), landmarks (>= rank indices) and the near-field
+        probes (nvecs, n), landmarks (>= rank indices), the KNN near-field
         patterns (per window group None or (idx, mask, sym), see
-        state_from_numpy) may be injected, the reference's hook for
+        state_from_numpy; with windows=None one (idx, mask, sym)) and the
+        stream engine's radius near-field (`nf_stencils_` of a problem on
+        the same points) may be injected, the reference's hook for
         reproducible runs; by default the probes and landmarks come from
-        torch generators seeded with seed + 1 and seed, the patterns from
-        the KNN of each window.
+        torch generators seeded with seed + 1 and seed, the near-field
+        from the points.
         """
-        build = self._build_ops_factory(X, nf_patterns)
+        X, y = self._tensors(X, y)
+        build = self._build_ops_factory(X, nf_patterns, nf_stencils)
         psetup = self._precond_factory(X, landmarks)
         if probes is None:
             gen = torch.Generator().manual_seed(self.seed + 1)
@@ -243,10 +312,11 @@ class GPProblem:
 
     def fit(self, X, y, *, init=(1.0, 1.0, 0.1), adam_maxits=100, adam_alpha=0.01,
             adam_tol=1e-6, verbose=False, probes=None, landmarks=None, nf_patterns=None,
-            callback=None):
+            nf_stencils=None, callback=None):
         """Train the hyperparameters with Adam (ref TEST4/foo.cpp:318-347).
 
         callback(it, state, loss, grad), if given, runs after every step."""
+        X, y = self._tensors(X, y)
         x0 = transform_inverse(self.transform,
                                torch.as_tensor(init, dtype=X.dtype, device=X.device))
 
@@ -258,12 +328,43 @@ class GPProblem:
                 print(f"{it + 1:6d} | {float(loss):15.8e} | {float(torch.linalg.norm(grad)):15.8e}"
                       f" | params: {float(tv[0]):.6g} {float(tv[1]):.6g} {float(tv[2]):.6g}")
 
-        loss_fn = self.make_loss(X, y, probes=probes, landmarks=landmarks, nf_patterns=nf_patterns)
+        loss_fn = self.make_loss(X, y, probes=probes, landmarks=landmarks, nf_patterns=nf_patterns,
+                                 nf_stencils=nf_stencils)
         state, losses, _, _ = adam_run(loss_fn, x0, maxits=adam_maxits, tol=adam_tol,
                                        alpha=adam_alpha, callback=cb)
         self.raw_params_ = state.x
         self.loss_history_ = [float(v) for v in losses]
         return self
+
+    def predict(self, X, y, X_test, *, with_std=False, maxits=None, landmarks=None):
+        """Posterior mean (and std) at X_test with the fitted hyperparameters.
+
+        maxits: FGMRES steps per solve, default 2 * maxits * 10.  landmarks:
+        the Nystrom landmark indices, as in make_loss."""
+        if self.raw_params_ is None:
+            raise RuntimeError("call fit() first (or set raw_params_)")
+        X, y, X_test = self._tensors(X, y, X_test)
+        raw = self.raw_params_.to(device=X.device, dtype=X.dtype)
+        psetup = self._precond_factory(X, landmarks)
+        kw = dict(windows=self._windows_arr(), precond_setup=psetup, with_std=with_std,
+                  maxits=maxits or 2 * self.maxits * 10)
+        pred_op = self.predict_operator
+        if pred_op == "auto":
+            pred_op = self.operator
+            if self.operator == "fastsum" and self.kernel == "matern12":
+                if X.shape[0] <= 20_000:
+                    pred_op = "dense"
+                else:
+                    print("[predict] WARNING: matern12 fastsum predictions carry the Fourier kink "
+                          "error; set predict_operator='dense' if the train set fits, or raise "
+                          "fastsum_N", flush=True)
+        if pred_op == "fastsum":
+            res = gp_predict_fastsum(raw, X, y, X_test, self._cfg(), fastsum_N=self.fastsum_N,
+                                     oversample=self.fastsum_oversample,
+                                     nearfield_lfil=self._nf_lfil(), **kw)
+        else:
+            res = gp_predict(raw, X, y, X_test, self._cfg(), **kw)
+        return (res.mean, res.std) if with_std else res.mean
 
     def save(self, path):
         """Persist hyperparameters, config and loss history (.npz), in the

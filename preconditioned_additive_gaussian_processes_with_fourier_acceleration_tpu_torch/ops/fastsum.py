@@ -9,13 +9,16 @@ SRC/external/nfft_interface.c and the NFFT3 fastsum engine):
    for the folded modes p = 0..N/2.
 2. Coefficients, per hyperparameters: the kernel sampled on an oversampled
    torus grid, FFT, central N modes, folded over the sign patterns.  For
-   matern12 a sparse near-field correction phi_exact - phi_fourier on a KNN
-   pattern (the role of fastsum's eps_I near-field sum), on by default.
+   matern12 a sparse near-field correction phi_exact - phi_fourier (the
+   role of fastsum's eps_I near-field sum), on by default: on a KNN
+   pattern, or on the stream engine on every pair within a radius rho
+   (the pitch of a cell grid, ops/cellgrid.py).
 3. Apply: adjoint NDFT (points -> mode tensor), combine with the folded
    weights, forward NDFT (mode tensor -> points), plus the near-field.
 
-Windows of one to three features.  Three engines apply the additive
-operator; each takes one vector (n,) or a batch of rows (nv, n):
+The full (non-additive) operator of one to three features is
+`fastsum_matvec`.  The additive one, over windows of one to three features,
+has three engines; each takes one vector (n,) or a batch of rows (nv, n):
 
 - the TABLE engine (`additive_fastsum_matvec`): torch products on the
   per-window tables, every window dimension;
@@ -39,6 +42,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..solvers.reductions import _comp_scan
+from . import cellgrid as cg
 from .kernels import BASE_KERNELS, KernelParams
 from .knn import knn_pattern
 from .matops import ell_matvec, ell_matvec_batch, ell_rmatvec, ell_rmatvec_batch
@@ -390,17 +395,142 @@ def symmetrize_nearfield_patterns(pats):
     return tuple(out)
 
 
+# --- the stream engine's radius near-field ---------------------------------------
+# The JAX package evaluates this correction straight into the dense cell
+# stencil of ops/cellgrid.py, (ncells, c, 3^d c) per window, a layout that
+# avoids gathers on its backend.  About 11% of a stencil's entries lie
+# within the radius, so the port keeps only those: the pairs are found once
+# per dataset from the same cell grid (candidates in the 3^d neighbouring
+# cells), stored as a symmetric padded-ELL matrix in user order, and the
+# values are evaluated on the in-radius pairs alone.  The matrix is the
+# JAX one, entry for entry.
+
+class NfStencilDirect(NamedTuple):
+    """The in-radius pairs of one window, from its cell grid (pitch = rho).
+
+    idx (n, width): row i lists every point within rho of point i, itself
+    included, in the order of the stencil's neighbour slots; empty slots
+    point at i and carry the value 0.  pos (nnz,): the flat (n * width)
+    positions of the filled slots."""
+
+    grid: cg.CellGrid
+    x: torch.Tensor          # (n, d) scaled window coordinates
+    idx: torch.Tensor
+    pos: torch.Tensor
+    rho: float               # correction radius (= grid pitch)
+
+
+_PAIR_CHUNK = 1 << 22   # candidate pairs per step of _radius_pattern
+
+
+def _radius_pattern(x, grid: cg.CellGrid):
+    """(idx, pos) of NfStencilDirect: every (point, neighbour-slot) pair of
+    the stencil with both slots filled and r^2 <= rho^2, in chunks of about
+    _PAIR_CHUNK candidate pairs."""
+    dev = cg.to_device(grid, x.device)
+    n, c, w9 = grid.n, grid.c, grid.noffs * grid.c
+    nb_ids = cg.stencil_neighbors(dev, torch.where(dev.padmask, dev.pad_src_u + 1, 0))  # 0: empty
+    rho2 = grid.h * grid.h
+    rows, cols = [], []
+    step = max(1, _PAIR_CHUNK // (c * w9))
+    for s in range(0, dev.ncells, step):
+        src, nb = dev.pad_src_u[s: s + step], nb_ids[s: s + step]
+        D = x[src][:, :, None, :] - x[torch.clamp(nb - 1, min=0)][:, None, :, :]
+        m = dev.padmask[s: s + step, :, None] & (nb > 0)[:, None, :] & (torch.sum(D * D, dim=3) <= rho2)
+        cell, i, t = torch.nonzero(m, as_tuple=True)
+        rows.append(src[cell, i])
+        cols.append(nb[cell, t] - 1)
+    rows, cols = torch.cat(rows), torch.cat(cols)
+    order = torch.argsort(rows, stable=True)
+    rows, cols = rows[order], cols[order]
+    counts = torch.bincount(rows, minlength=n)
+    rank = torch.arange(rows.shape[0], device=x.device) - (torch.cumsum(counts, 0) - counts)[rows]
+    width = int(counts.max())
+    idx = torch.arange(n, device=x.device)[:, None].repeat(1, width)
+    idx[rows, rank] = cols
+    return idx, rows * width + rank
+
+
+def additive_nearfield_stencil_direct(geom, kind: str, nearfield_lfil=None, *,
+                                      max_width_factor: int = 48):
+    """Per-group tuples of NfStencilDirect for the d <= 2 windows, once per
+    dataset (ref fastsum.py additive_nearfield_stencil_direct).
+
+    nearfield_lfil sizes the radius through the cell occupancy (max(4,
+    lfil/3) points a cell, so about lfil neighbours within it).  3-feature
+    groups get None (their KNN near-field rides the table path).  Returns
+    None for every window when any window's grid degenerates or its
+    stencil is wider than max_width_factor * max(lfil, 8)."""
+    out = []
+    for dw, _order, geos in geom.groups:
+        lfil = _resolve_nf_lfil(kind, nearfield_lfil, geos[0].x.shape[0], dw)
+        if lfil == 0 or dw == 3:
+            out.append(None)
+            continue
+        entries = []
+        for g in geos:
+            grid = cg.build_cell_grid(g.x.detach().cpu().numpy(), target_occupancy=max(4.0, lfil / 3.0))
+            if grid is None or grid.noffs * grid.c > max_width_factor * max(lfil, 8):
+                return None
+            idx, pos = _radius_pattern(g.x, grid)
+            entries.append(NfStencilDirect(grid=grid, x=g.x, idx=idx, pos=pos, rho=float(grid.h)))
+        out.append(tuple(entries))
+    return tuple(out)
+
+
+class NfStencilEntry(NamedTuple):
+    """One window's radius near-field values, symmetric padded ELL (n, width)
+    on NfStencilDirect.idx: A_k for K, A_l for dK/dl.  The JAX entry also carries an exception list of
+    out-of-stencil edges; a direct stencil's is always empty (one zero
+    value), so the port has none (tests/test_torch_nf_stencil.py pins it)."""
+
+    idx: torch.Tensor
+    A_k: torch.Tensor
+    A_l: torch.Tensor
+
+
+def _nf_direct_values(sten: NfStencilDirect, kind: str, params: KernelParams, scale, b,
+                      db_l) -> NfStencilEntry:
+    """The exact kernel minus the trigonometric polynomial of the untrimmed
+    coefficients b (and db_l), tapered by (1 - r/rho)^2, on the in-radius
+    pairs (ref fastsum.py _nf_direct_values); the phase tables are built in
+    chunks of pairs, which bounds the transient memory."""
+    n, width = sten.idx.shape
+    rows, cols = sten.pos // width, sten.idx.reshape(-1)[sten.pos]
+    D = sten.x[rows] - sten.x[cols]
+    r2s = torch.sum(D * D, dim=1)
+    phi, dphi_l = BASE_KERNELS[kind](r2s / (scale * scale), params.l)
+    tps = trigpoly_eval_multi_chunked([b, db_l], D)
+    w = torch.square(torch.clamp(1.0 - torch.sqrt(r2s) / sten.rho, min=0.0))
+    vals = []
+    for src, tp in zip((phi, dphi_l), tps):
+        v = torch.zeros(n * width, dtype=D.dtype, device=D.device)
+        v[sten.pos] = (src - tp) * w
+        vals.append(v.reshape(n, width))
+    return NfStencilEntry(idx=sten.idx, A_k=vals[0], A_l=vals[1])
+
+
+def _nf_trip_apply_batch(nf_sym: bool, trip, Xb, which: str):
+    """One window's near-field product ('k': K, 'l': dK/dl) on a batch of
+    rows (nv, n), one row gather for all: a radius stencil entry (symmetric
+    ELL) or a KNN (idx, val, dval)."""
+    if isinstance(trip, NfStencilEntry):
+        return ell_matvec_batch(trip.idx, trip.A_k if which == "k" else trip.A_l, Xb)
+    idx, val, dval = trip
+    return nearfield_apply_batch(nf_sym, idx, val if which == "k" else dval, Xb)
+
+
 # --- coefficients ----------------------------------------------------------------
 
-def fastsum_coeffs(kind: str, params: KernelParams, geom: FastsumGeometry, *,
-                   oversample: int = 2, nearfield_lfil: Optional[int] = None,
-                   nf_pattern=None) -> FastsumPlan:
+def fastsum_coeffs(kind: str, params: KernelParams, geom: FastsumGeometry, *, oversample: int = 2,
+                   nearfield_lfil: Optional[int] = None, nf_pattern=None) -> FastsumPlan:
     """Sample the scaled kernel on the (oversample*N)^d torus grid, FFT, and
     keep the central N modes per dim (fastsum's anti-aliasing grid,
     nfft_interface.c:18-27).
 
-    nearfield_lfil: None = auto (_resolve_nf_lfil); nf_pattern: a
-    precomputed (idx, mask) or (idx, mask, sym) pattern for the near-field.
+    nearfield_lfil: None = auto (_resolve_nf_lfil);
+    nf_pattern: a precomputed (idx, mask) or (idx, mask, sym) pattern for
+    the near-field.
     """
     N, d = geom.N, geom.d
     Nos = int(oversample) * N
@@ -425,6 +555,13 @@ def fastsum_coeffs(kind: str, params: KernelParams, geom: FastsumGeometry, *,
     return FastsumPlan(N=N, d=d, kind=kind, geom=geom, b=b, db_l=db_l,
                        w=fold_coeffs(b, N, d), dw_l=fold_coeffs(db_l, N, d), params=params,
                        nf_idx=nf_idx, nf_val=nf_val, nf_dval=nf_dval, nf_sym=nf_sym)
+
+
+def fastsum_build(kind: str, params: KernelParams, X, N: int = 32, *, table_dtype=None,
+                  oversample: int = 2,
+                  nearfield_lfil: Optional[int] = None) -> FastsumPlan:
+    return fastsum_coeffs(kind, params, fastsum_geometry(X, N, table_dtype=table_dtype),
+                          oversample=oversample, nearfield_lfil=nearfield_lfil)
 
 
 # --- folded apply ------------------------------------------------------------
@@ -518,13 +655,58 @@ def _folded_forward(Tcs, B):
     raise NotImplementedError(f"fastsum supports window dims 1..3, got {d}")
 
 
+def _folded_adjoint_comp(Tcs, alpha, chunk: int = 8192):
+    """The folded adjoint summed over chunks of `chunk` points, the per-chunk
+    mode tensors combined by an error-free TwoSum scan: the accumulation
+    error of the adjoint's n-long reduction stays about sqrt(chunk) eps,
+    independent of n (the float64 sums the reference assumes)."""
+    n = Tcs.shape[1]
+    if n <= chunk:
+        return _folded_adjoint(Tcs, alpha)
+    return _comp_scan([_folded_adjoint(Tcs[:, s: s + chunk], alpha[..., s: s + chunk])
+                       for s in range(0, n, chunk)])
+
+
 def _folded_apply_multi(Tcs, W_list, x, *, compensated: bool = False):
-    """One adjoint, one forward per folded weight stack (shared NDFT1)."""
-    if compensated:
-        raise NotImplementedError("the compensated adjoint is not ported yet")
+    """One adjoint, one forward per folded weight stack (shared NDFT1).
+    compensated=True: the chunked float-float adjoint."""
     d = Tcs.shape[0]
-    A = _folded_adjoint(Tcs, x)
+    A = _folded_adjoint_comp(Tcs, x) if compensated else _folded_adjoint(Tcs, x)
     return [_folded_forward(Tcs, _folded_combine(W, A, d)) for W in W_list]
+
+
+# --- non-additive fastsum ----------------------------------------------------------
+# x: one vector (n,) or a batch of rows (nv, n).
+
+def fastsum_base_apply(plan: FastsumPlan, coeffs, x):
+    """The pure kernel sum of a full shifted-order coefficient tensor (for
+    example plan.b or plan.db_l), folded on the fly; no f^2, mu or
+    near-field."""
+    (y,) = _folded_apply_multi(plan.geom.Tcs, [fold_coeffs(coeffs, plan.N, plan.d)], x)
+    return y
+
+
+def _plan_sums(plan: FastsumPlan, x, families, compensated):
+    ys = _folded_apply_multi(plan.geom.Tcs, [getattr(plan, f) for f in families], x,
+                             compensated=compensated)
+    if plan.nf_val is None:
+        return ys
+    return [y + _nearfield_any(plan.nf_sym, plan.nf_idx, getattr(plan, _NF_VALUES[f]), x)
+            for y, f in zip(ys, families)]
+
+
+def fastsum_matvec(plan: FastsumPlan, x, *, compensated: bool = False):
+    """y = f^2 (ksum(x) + mu x) -- ref Nfft4GPNFFTMatSymv nfft_interface.c:400-497."""
+    p = plan.params
+    (y,) = _plan_sums(plan, x, ["w"], compensated)
+    return p.f * p.f * (y + p.mu * x)
+
+
+def fastsum_grad_matvec(plan: FastsumPlan, x, *, compensated: bool = False):
+    """(3, n) stacked dK_j x -- ref nfft_interface.c:499-620; (nv, 3, n) for
+    a batch of rows."""
+    k_part, l_part = _plan_sums(plan, x, ["w", "dw_l"], compensated)
+    return _grad_rows(plan.params, k_part, l_part, x, 1)
 
 
 # --- additive (windowed) fastsum ---------------------------------------------
@@ -559,8 +741,7 @@ class AdditiveFastsumPlan(NamedTuple):
 
 
 def additive_fastsum_coeffs(kind: str, params: KernelParams,
-                            geom: AdditiveFastsumGeometry, *, oversample: int = 2,
-                            nearfield_lfil: Optional[int] = None,
+                            geom: AdditiveFastsumGeometry, *, oversample: int = 2, nearfield_lfil: Optional[int] = None,
                             nf_patterns=None) -> AdditiveFastsumPlan:
     """nf_patterns: optional per-group patterns (additive_nearfield_patterns,
     optionally symmetrized), reused across loss evaluations."""
@@ -581,7 +762,8 @@ def additive_fastsum_coeffs(kind: str, params: KernelParams,
 
 
 def additive_fastsum_build(kind, params, X, windows, N: int = 32, *, table_dtype=None,
-                           oversample: int = 2, nearfield_lfil: Optional[int] = None):
+                           oversample: int = 2,
+                           nearfield_lfil: Optional[int] = None):
     return additive_fastsum_coeffs(
         kind, params, additive_fastsum_geometry(X, windows, N, table_dtype=table_dtype),
         oversample=oversample, nearfield_lfil=nearfield_lfil,
@@ -644,27 +826,33 @@ class PackedLayout(NamedTuple):
     dw2: tuple
     w1: tuple                    # per 1-D window, singles order
     dw1: tuple
-    nf: tuple                    # (idx, val, dval) per d <= 2 window with a near-field
-    nf_sym: bool
+    nf: tuple                    # per d <= 2 window with a near-field: a KNN
+    nf_sym: bool                 # (idx, val, dval) or a NfStencilEntry
     rest: tuple                  # d = 3 groups, applied on the table path
 
 
-def _packed_layout(plan: AdditiveFastsumPlan) -> PackedLayout:
+def _packed_layout(plan: AdditiveFastsumPlan, nf_stencils=None) -> PackedLayout:
     """Flatten the d <= 2 windows into the packed layout (ref fastsum.py
-    _packed_layout); the near-field triples list the 2-D windows, then the
-    1-D ones."""
+    _packed_layout); the near-field entries list the 2-D windows, then the
+    1-D ones.  nf_stencils (additive_nearfield_stencil_direct): a window
+    with a stencil takes its radius near-field in place of a KNN triple
+    (ref packed_ndft_plan)."""
     syms = {pl.nf_sym for _, _, plans in plan.groups for pl in plans if pl.nf_val is not None}
     if len(syms) > 1:
         raise ValueError("mixed near-field pattern forms across window groups "
                          "(nf_sym must be global -- rebuild the plan with one policy)")
     rows, pairs, singles = [], [], []
     w2, dw2, w1, dw1, nf2, nf1, rest = [], [], [], [], [], [], []
-    for dw, order, plans in plan.groups:
+    for gi, (dw, order, plans) in enumerate(plan.groups):
         if dw == 3:
             rest.append((dw, order, plans))
             continue
-        for pl in plans:
-            trip = None if pl.nf_val is None else (pl.nf_idx, pl.nf_val, pl.nf_dval)
+        stens = nf_stencils[gi] if nf_stencils is not None else None
+        for k, pl in enumerate(plans):
+            if stens is not None:
+                trip = _nf_direct_values(stens[k], pl.kind, plan.params, pl.geom.scale, pl.b, pl.db_l)
+            else:
+                trip = None if pl.nf_val is None else (pl.nf_idx, pl.nf_val, pl.nf_dval)
             if dw == 2:
                 pairs.append((len(rows), len(rows) + 1))
                 rows += [pl.geom.x[:, 0], pl.geom.x[:, 1]]
@@ -709,8 +897,8 @@ def _layout_sums(lay, Xb, families, kernel_sums):
     else:
         accs = [torch.zeros_like(Xb) for _ in families]
     for s, fam in enumerate(families):
-        for idx, val, dval in lay.nf:
-            accs[s] = accs[s] + nearfield_apply_batch(lay.nf_sym, idx, val if fam == "w" else dval, Xb)
+        for trip in lay.nf:
+            accs[s] = accs[s] + _nf_trip_apply_batch(lay.nf_sym, trip, Xb, "k" if fam == "w" else "l")
     if lay.rest:
         accs = [a + r for a, r in zip(accs, _window_sums(lay.rest, Xb, families))]
     return accs
@@ -744,8 +932,10 @@ class PackedNDFT:
     params: KernelParams
 
 
-def packed_ndft_plan(plan: AdditiveFastsumPlan, *, table_dtype=None) -> PackedNDFT:
-    lay = _packed_layout(plan)
+def packed_ndft_plan(plan: AdditiveFastsumPlan, *, table_dtype=None, nf_stencils=None) -> PackedNDFT:
+    """nf_stencils: the radius near-field of additive_nearfield_stencil_direct,
+    its values (K and dK/dl) evaluated here for the plan's hyperparameters."""
+    lay = _packed_layout(plan, nf_stencils)
     first = plan.groups[0][2][0]
     P = first.N // 2
     return PackedNDFT(

@@ -50,7 +50,19 @@ Tolerances:
   FGMRES solve and the SLQ estimate; for the fused matern12 engine, at
   mu = 1 where its FGMRES converges, loss rtol 1e-3, gradient rtol 1e-2 /
   atol 1e-3 -- at mu = 0.1 the 20-step FGMRES stops unconverged and float32
-  rounding alone moved the loss by 5e-3 between card and CPU.
+  rounding alone moved the loss by 5e-3 between card and CPU;
+- the stream engine's radius near-field (float32 on the card against CPU
+  float64 copies of the points): relative Frobenius error 5e-5 of its K and
+  dK/dl products (float32 against float64 on the CPU: 1.7e-5 at n = 2e4,
+  2.6e-6 at n = 2000; the values are small differences of O(1) terms); a
+  matern12 stream loss step at mu = 1 with float32 tables against CPU
+  float64, as the fused one;
+- prediction on the card (float32) against CPU float64: mean 1e-4, std 1e-5
+  relative L2 (float32 against float64 on the CPU: 1.2e-5 / 1.3e-6 for the
+  fastsum predictor, 6.6e-6 / 2.4e-6 for the dense one).
+
+float64 numpy inputs with the default device run fit and predict on the
+card in float32: finite values, the table kernels launched.
 """
 
 import numpy as np
@@ -368,6 +380,100 @@ def test_fused_matern12_step_on_card_matches_cpu(dev):
     assert np.isfinite(float(loss_c))
     np.testing.assert_allclose(float(loss_c), float(loss_h), rtol=1e-3)
     np.testing.assert_allclose(grad_c.cpu().numpy(), grad_h.numpy(), rtol=1e-2, atol=1e-3)
+
+
+def _m12_data(n, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(n, 6)).astype(np.float32)
+    y = (np.sin(3 * X[:, 0]) + np.cos(2 * X[:, 3]) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return X, y, rng
+
+
+def test_radius_nearfield_on_card_matches_cpu(dev):
+    """The radius near-field's K and dK/dl products of a 2-D and a 1-D
+    window on the card against the same calls on CPU float64 points."""
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
+
+    X, _, rng = _m12_data(3000, 17)
+    V = torch.from_numpy(rng.normal(size=(4, 3000)))
+    outs = []
+    for Xs, Vs in ((torch.from_numpy(X).to(dev), V.float().to(dev)), (torch.from_numpy(X).double(), V)):
+        geom = fs.additive_fastsum_geometry(Xs, make_windows([[0, 1], [2]]), N=32)
+        stens = fs.additive_nearfield_stencil_direct(geom, "matern12", 16)
+        assert stens is not None
+        plan = fs.additive_fastsum_coeffs("matern12", KernelParams.make(1.0, 0.5, 1.0, dtype=Xs.dtype,
+                                                                        device=Xs.device), geom, nearfield_lfil=0)
+        nf = fs._packed_layout(plan, stens).nf
+        assert len(nf) == 2
+        outs.append([sum(fs._nf_trip_apply_batch(False, e, Vs, w) for e in nf).cpu().double() for w in "kl"])
+    for got, want in zip(*outs):
+        assert _rel(got, want) <= 5e-5
+
+
+def test_matern12_stream_step_on_card_matches_cpu(dev):
+    """One matern12 loss step on the stream engine (radius near-field on the
+    2-D and 1-D windows, KNN on the 3-feature one, float32 tables) on the
+    card against CPU float64, with the same probes, landmarks and KNN
+    pattern."""
+    X, y, rng = _m12_data(3000, 19)
+    kw = dict(kernel="matern12", windows=[[0, 1, 2], [3, 4], [5]], operator="fastsum", precond="nystrom",
+              rank=30, maxits=8, nvecs=4, fastsum_N=32, fastsum_table_dtype="float32", fastsum_engine="stream")
+    probes = torch.from_numpy(rng.choice([-1.0, 1.0], size=(4, 3000)))
+    landmarks = torch.from_numpy(rng.permutation(3000)[:30])
+    raw = transform_inverse("softplus", torch.tensor([1.0, 0.5, 1.0], dtype=torch.float64))
+    before = (pk.packed_adjoint.launches, pk.packed_forward.launches)
+    card = GPProblem(**kw)
+    loss_c, grad_c = card.make_loss(torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev), probes=probes,
+                                    landmarks=landmarks)(raw.float().to(dev))
+    assert pk.packed_adjoint.launches > before[0] and pk.packed_forward.launches > before[1]
+    assert [s is not None for s in card.nf_stencils_] == [True, True, False]
+    pats = tuple(None if p is None else (p[0].cpu(), p[1].cpu(), p[2]) for p in card.nf_patterns_)
+    loss_h, grad_h = GPProblem(**kw).make_loss(torch.from_numpy(X).double(), torch.from_numpy(y).double(),
+                                               probes=probes, landmarks=landmarks, nf_patterns=pats)(raw)
+    assert np.isfinite(float(loss_c))
+    np.testing.assert_allclose(float(loss_c), float(loss_h), rtol=1e-3)
+    np.testing.assert_allclose(grad_c.cpu().numpy(), grad_h.numpy(), rtol=1e-2, atol=1e-3)
+
+
+def test_numpy_float64_fit_on_card(dev):
+    """float64 numpy inputs with the default device: float32 on the card (as
+    jnp.asarray gives them under JAX's default), the stream engine's
+    kernels launched by fit and predict."""
+    rng = np.random.default_rng(23)
+    n = 2000
+    X = rng.uniform(size=(n, 5))
+    y = np.sin(3 * X[:, 0]) + np.cos(2 * X[:, 2]) + 0.1 * rng.normal(size=n)
+    prob = GPProblem(kernel="gaussian", windows=[[0, 1], [2, 3], [4]], operator="fastsum", precond="nystrom",
+                     rank=30, maxits=8, nvecs=4, fastsum_N=32, predict_operator="dense")
+    before = (pk.packed_adjoint.launches, pk.packed_forward.launches)
+    prob.fit(X, y, adam_maxits=2)
+    assert pk.packed_adjoint.launches > before[0] and pk.packed_forward.launches > before[1]
+    assert prob.raw_params_.is_cuda and prob.raw_params_.dtype == torch.float32
+    assert len(prob.loss_history_) == 2 and np.isfinite(prob.loss_history_).all()
+    mean = prob.predict(X, y, X[:50])
+    assert mean.is_cuda and mean.dtype == torch.float32 and bool(torch.isfinite(mean).all())
+
+
+@pytest.mark.parametrize("op", ["fastsum", "dense"])
+def test_predict_on_card_matches_cpu(dev, op):
+    rng = np.random.default_rng(13)
+    n = 3000
+    X = rng.uniform(size=(n, 5)).astype(np.float32)
+    y = (np.sin(3 * X[:, 0]) + np.cos(2 * X[:, 2]) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    Xt = rng.uniform(size=(200, 5)).astype(np.float32)
+    landmarks = torch.from_numpy(rng.permutation(n)[:30])
+    out = []
+    for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float64)):
+        p = GPProblem(kernel="gaussian", windows=[[0, 1], [2, 3], [4]], operator="fastsum", rank=30, maxits=8,
+                      predict_operator=op, raw_params_=transform_inverse("softplus", torch.tensor([1.0, 0.5, 0.1])))
+        t = [torch.from_numpy(a).to(device, dtype) for a in (X, y, Xt)]
+        mean = p.predict(*t, landmarks=landmarks)
+        _, std = p.predict(t[0], t[1], t[2][:8], with_std=True, landmarks=landmarks)
+        assert mean.device.type == device.type
+        out.append((mean.cpu().double(), std.cpu().double()))
+    assert _rel(out[0][0], out[1][0]) <= 1e-4
+    assert _rel(out[0][1], out[1][1]) <= 1e-5
 
 
 # --- the cooperative dense Krylov kernels ------------------------------------------

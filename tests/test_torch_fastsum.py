@@ -1,5 +1,6 @@
-"""Port parity: fastsum geometry, coefficients and the additive table-engine
-matvecs vs ops/fastsum.py, float64 on CPU.
+"""Port parity: fastsum geometry, coefficients, the additive
+table-engine matvecs, the full (non-additive) matvecs and the compensated
+adjoint vs ops/fastsum.py, float64 on CPU.
 
 Tolerance: 1e-10 relative to the largest entry.  Same formulas in float64;
 the coefficient FFT (pocketfft vs XLA's) and the table GEMMs sum in other
@@ -66,12 +67,44 @@ def test_additive_table_matvec(data, kind):
 
 
 def test_unported_options_raise(data):
-    """The compensated adjoint is not ported; windows of more than three
-    features raise ValueError, as in the JAX package."""
+    """Windows, and full fastsum problems, of more than three features raise
+    ValueError, as in the JAX package."""
     X, _ = data
-    p = TParams.make(1.0, 0.5, 0.1, dtype=torch.float64)
     with pytest.raises(ValueError):
         tfs.additive_fastsum_geometry(torch.tensor(X), t_windows([[0, 1, 2, 3]]))
-    plan = tfs.additive_fastsum_build("gaussian", p, torch.tensor(X), t_windows(WINDOWS))
-    with pytest.raises(NotImplementedError):
-        tfs.additive_fastsum_matvec(plan, torch.tensor(X[:, 0]), compensated=True)
+    with pytest.raises(ValueError):
+        tfs.fastsum_geometry(torch.tensor(X[:, :4]))
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("kind", ["gaussian", "matern32", "matern12"])
+def test_full_fastsum_matvec(data, d, kind):
+    """The non-additive operator, matern12 with its default KNN near-field
+    (lower-triangular form), one vector and a batch of rows."""
+    X, x = data
+    tp, jp = TParams.make(1.1, 0.4, 0.05, dtype=torch.float64), JParams.make(1.1, 0.4, 0.05)
+    t = tfs.fastsum_build(kind, tp, torch.tensor(X[:, :d]), N=16)
+    j = jfs.fastsum_build(kind, jp, jnp.asarray(X[:, :d]), N=16)
+    assert (t.nf_val is None) == (j.nf_val is None) == (kind != "matern12")
+    V = np.stack([x, np.cos(7 * x)])
+    _close(tfs.fastsum_matvec(t, torch.tensor(x)), jfs.fastsum_matvec(j, jnp.asarray(x)))
+    _close(tfs.fastsum_grad_matvec(t, torch.tensor(x)), jfs.fastsum_grad_matvec(j, jnp.asarray(x)))
+    _close(tfs.fastsum_matvec(t, torch.tensor(V)), np.stack([jfs.fastsum_matvec(j, jnp.asarray(v)) for v in V]))
+    _close(tfs.fastsum_grad_matvec(t, torch.tensor(V)),
+           np.stack([jfs.fastsum_grad_matvec(j, jnp.asarray(v)) for v in V]))
+    _close(tfs.fastsum_base_apply(t, t.db_l, torch.tensor(x)), jfs.fastsum_base_apply(j, j.db_l, jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_compensated_adjoint(data, d):
+    """The chunked TwoSum adjoint with a chunk small enough that its scan runs
+    (150 points in chunks of 32), and the compensated matvecs."""
+    X, x = data
+    t = tfs.fastsum_geometry(torch.tensor(X[:, :d]), 16)
+    j = jfs.fastsum_geometry(jnp.asarray(X[:, :d]), 16)
+    _close(tfs._folded_adjoint_comp(t.Tcs, torch.tensor(x), chunk=32),
+           jfs._folded_adjoint_comp(j.Tcs, jnp.asarray(x), chunk=32))
+    _close(tfs._folded_adjoint_comp(t.Tcs, torch.tensor(x), chunk=32), tfs._folded_adjoint(t.Tcs, torch.tensor(x)))
+    tpl, jpl = _plans(X, "gaussian", 16)
+    _close(tfs.additive_fastsum_grad_matvec(tpl, torch.tensor(x), compensated=True),
+           jfs.additive_fastsum_grad_matvec(jpl, jnp.asarray(x), compensated=True))

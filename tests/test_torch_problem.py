@@ -106,6 +106,7 @@ def test_load_jax_saved_problem(synth, tmp_path):
 def test_port_imports_no_jax():
     code = ("import sys, chip_smoke, nfft4gp_torch\n"
             "import nfft4gp_torch.models.problem, nfft4gp_torch.ops._cuda_build\n"
+            "import nfft4gp_torch.models.gp, nfft4gp_torch.ops.cellgrid, nfft4gp_torch.ops.fastsum\n"
             "import nfft4gp_torch.models.multiclass, nfft4gp_torch.solvers.fused_pcg\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -114,14 +115,73 @@ def test_port_imports_no_jax():
 
 
 def test_unported_paths_raise(synth):
-    """AFN is not ported, nor the stream engine's near-field (cell stencils
-    in the JAX package); fused + stream conflict (ValueError, as in JAX)."""
+    """The FSAI and AFN preconditioners are not ported; fused + stream
+    conflict (ValueError, as in JAX)."""
     X, y = synth
-    with pytest.raises(NotImplementedError):
-        TProblem(precond="afn").make_loss(torch.tensor(X), torch.tensor(y))
-    with pytest.raises(NotImplementedError):
-        TProblem(operator="fastsum", kernel="matern12", windows=[[0, 1]],
-                 fastsum_engine="stream").make_loss(torch.tensor(X), torch.tensor(y))
+    for precond in ("fsai", "afn"):
+        with pytest.raises(NotImplementedError):
+            TProblem(precond=precond).make_loss(torch.tensor(X), torch.tensor(y))
     with pytest.raises(ValueError):
         TProblem(operator="fastsum", kernel="matern12", windows=[[0, 1]], fastsum_fused=True,
                  fastsum_engine="stream").make_loss(torch.tensor(X), torch.tensor(y))
+
+
+@pytest.mark.parametrize("kernel", ["gaussian", "matern12"])
+def test_full_fastsum_problem(synth, kernel):
+    """windows=None: one fastsum plan over three features, matern12 with
+    its symmetrized KNN near-field; loss and gradient against the JAX
+    GPProblem, float64: rtol 1e-9 for gaussian; 1e-7 for matern12, whose
+    operators agree to 5e-16 while its losses, through the 12-step FGMRES
+    and the SLQ estimate, measured 2.8e-9 apart."""
+    X, y = synth
+    X = X[:, :3]
+    kw = dict(kernel=kernel, operator="fastsum", precond="nystrom", rank=16, maxits=6, nvecs=4,
+              fastsum_N=16, seed=2)
+    inj = _injected(kw, X.shape[0])
+    raw = transform_inverse("softplus", torch.tensor([1.0, 0.5, 0.1], dtype=torch.float64))
+    jl, jg = JProblem(**kw).make_loss(jnp.asarray(X), jnp.asarray(y))(jnp.asarray(raw.numpy()))
+    prob = TProblem(**kw)
+    tl, tg = prob.make_loss(torch.tensor(X), torch.tensor(y), probes=inj.probes, landmarks=inj.landmarks)(raw)
+    assert (prob.nf_patterns_ is None) == (kernel == "gaussian") and prob.nf_stencils_ is None
+    rtol = 1e-9 if kernel == "gaussian" else 1e-7
+    np.testing.assert_allclose(float(tl), float(jl), rtol=rtol)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=rtol, atol=rtol * np.abs(np.asarray(jg)).max())
+
+
+def test_numpy_inputs(synth, monkeypatch):
+    """make_loss, fit and predict take numpy arrays, as the JAX API does:
+    with device="cpu" they run on the CPU with the same numbers as tensors;
+    with the default device and no card they raise."""
+    X, y = synth
+    inj = _injected(DENSE, X.shape[0])
+    raw = transform_inverse("softplus", torch.tensor([1.0, 0.6, 0.1], dtype=torch.float64))
+    want = TProblem(**DENSE).make_loss(torch.tensor(X), torch.tensor(y), probes=inj.probes,
+                                       landmarks=inj.landmarks)(raw)
+    got = TProblem(**DENSE, device="cpu").make_loss(X, y, probes=inj.probes, landmarks=inj.landmarks)(raw)
+    assert float(got[0]) == float(want[0]) and torch.equal(got[1], want[1])
+    prob = TProblem(**DENSE, device="cpu").fit(X, y, adam_maxits=2, probes=inj.probes,
+                                               landmarks=inj.landmarks)
+    assert prob.raw_params_.device.type == "cpu" and len(prob.loss_history_) == 2
+    mean = prob.predict(X, y, X[:5], landmarks=inj.landmarks)
+    assert mean.shape == (5,) and mean.dtype == torch.float64
+    # a tensor X keeps its device; numpy y and X_test follow it
+    assert torch.equal(TProblem(**DENSE, raw_params_=prob.raw_params_).predict(
+        torch.tensor(X), y, X[:5], landmarks=inj.landmarks), mean)
+    # numpy arrays beside X take its dtype; on the CPU a numpy X keeps its own
+    Xt, yt = TProblem(**DENSE, device="cpu")._tensors(X.astype(np.float32), y)
+    assert Xt.dtype == yt.dtype == torch.float32 and Xt.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda p: p.make_loss(X, y), lambda p: p.fit(X, y, adam_maxits=1),
+                 lambda p: p.predict(X, y, X[:5])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call(TProblem(**DENSE, raw_params_=prob.raw_params_))
+    # the device is not saved: the .npz keeps the JAX package's format
+    assert "device" not in str(np.load(_saved(prob))["config"][0])
+
+
+def _saved(prob):
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(), "p.npz")
+    prob.save(path)
+    return path

@@ -12,8 +12,11 @@ Phases, one line each (any failure raises and exits non-zero):
      card at the training shapes (n = 2e5, d = 10, five 2-D windows, N = 32,
      bf16 table; nv = 1, 10 and nsets = 1, 2, 10, 20, the launch mix of an
      Adam step), plus a case with a 1-D window, plus the fused layout's
-     windows trimmed to 2P = 32; a second launch of each must be bitwise
-     equal to the first, and each prints its share of its bound;
+     windows trimmed to 2P = 32; and the float32-table kernels (the CUDA-core
+     adjoint and forward of csrc/packed_ndft.cu) at [afn-pcg]'s shape
+     (n = 1e5, the window [0, 1], 2P = 32, nv = 1, nsets = 1); a second
+     launch of each must be bitwise equal to the first, and each prints its
+     share of its bound;
   4. kernels-regen: the phase-regenerating kernels against their plain
      versions at the fused layout WINDOWS_FUSED (its 2-D and 1-D windows;
      N = 32, untrimmed 2P = 34), both phase sources ("doubling", "direct"),
@@ -96,7 +99,35 @@ Phases, one line each (any failure raises and exits non-zero):
      n = 1000, rising to 1.08e-3 / 8.1e-5 at n = 8000); values finite, std
      > 0, seconds printed;
  14. full: GPProblem(gaussian, windows=None) on the first two features at
-     n = 2e5, 2 Adam steps, then the mean at 256 points; all finite.
+     n = 2e5, 2 Adam steps, then the mean at 256 points; all finite;
+ 15. afn: GPProblem(matern12, WINDOWS_FUSED, precond="afn", rank=200,
+     lfil=16) on the stream engine (bf16 tables, radius near-field) at
+     n = 1.6e5, fit(init=(1, 0.1, 0.01), adam_maxits=3, replan_every=2):
+     both plans on the AFN branch (k, use_ran and seconds of each), the
+     seconds and repaired Schur rows of every factorization, seconds per
+     step, one AFN dvp and solve over 10 probes, peak memory, both table
+     kernels launched (by shape); then the mean at 2000 points (AFN planned
+     at (1, 1, 0.1), as in the JAX package);
+ 16. agree-afn: at n = 2e4 and (f, l, mu) = (1, 0.1, 1), one plan made on
+     the CPU (force_afn, rank 200) and the same probes on both sides: the
+     AFN solve and dvp over 10 probes (relative Frobenius <= 5e-3), the
+     stream loss (float32 tables; relative gap <= 5e-4) and gradient (rtol
+     1e-2 / atol 1e-3) on the card against CPU float64 (the stream engine's
+     plain versions); CPU float32 against float64 measured 4.3e-4 / 3.0e-4 /
+     1.3e-5 and gradient entries within 1e-6 (PERF.md);
+ 17. afn-pcg: K x = y by the port's pcg to relres 1e-2 (at most 400
+     iterations) on matern12, the first two features and the window
+     [0, 1], (f, l, mu) = (1, 0.1, 0.01), n = 1e5, float32 tables (the
+     CUDA-core kernels): no
+     preconditioner, Nystrom (200 landmarks), AFN (maxrank 200, lfil 16);
+     iterations, final relres, set-up and solve seconds; AFN must converge,
+     and the float32-table kernels' launches of its solve are read;
+ 18. fsai: GPProblem(gaussian, WINDOWS, precond="fsai", lfil=16) on the
+     stream engine at n = 2e5, 2 Adam steps; losses finite;
+ 19. cli: the port's CLI as a subprocess on the card (--precond afn
+     --adam-maxits 2) on synthetic files in the reference's text formats
+     (n = 2e4 train, 2000 test points, WINDOWS as the 'g' windows, in a
+     temporary directory); exit 0 and a finite RMSE.
 
 Every kernel case also times one PyTorch call that computes the same
 function from the same inputs (`library_ms`; the port never calls it): for
@@ -112,7 +143,7 @@ flops over the 67 TFLOP/s float32 peak; the H100 SXM's published peaks at
 700 W.
 
 A `[done]` line gives the script's wall seconds from its start to the
-summary.  The line before the last is a JSON summary of the kernels; the
+summary, and each phase's.  The line before the last is a JSON summary of the kernels; the
 last line is {"ok": true, "device": {...}}.  Without CUDA the script exits
 non-zero.
 """
@@ -139,8 +170,8 @@ WINDOWS_FUSED = [[0, 1, 2], [3, 4], [5, 6], [7, 8], [9]]
 FASTSUM_N = 32
 KERNEL_RTOL = 1e-4
 PKG = "preconditioned_additive_gaussian_processes_with_fourier_acceleration_tpu"
-SOURCES = {"table": f"{PKG}_torch/csrc/packed_ndft_tc.cu", "regen": f"{PKG}_torch/csrc/packed_ndft_regen.cu",
-           "fused": f"{PKG}_torch/csrc/fused_pcg.cu"}
+SOURCES = {"table": f"{PKG}_torch/csrc/packed_ndft_tc.cu", "table_f32": f"{PKG}_torch/csrc/packed_ndft.cu",
+           "regen": f"{PKG}_torch/csrc/packed_ndft_regen.cu", "fused": f"{PKG}_torch/csrc/fused_pcg.cu"}
 TPU_KERNELS = {"adjoint": f"{PKG}/ops/pallas_ndft.py:189", "forward": f"{PKG}/ops/pallas_ndft.py:361",
                "pcg": f"{PKG}/solvers/pallas_pcg.py:36", "lanczos": f"{PKG}/solvers/pallas_pcg.py:174"}
 # H100 SXM published peaks at its 700 W limit: float32 outside the tensor
@@ -228,14 +259,14 @@ def library_calls(T, pairs, singles):
 
 
 def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets_list, timed, T32, src_bytes,
-               tc=False):
+               tc=False, repeat=False):
     """One adjoint kernel and one forward kernel against their plain versions.
 
     adj(alpha) / fwd(G2, G1) are the wrappers on one layout; adj_plain /
     fwd_plain the plain versions; T32 the float32 phases of the layout for
     the library yardstick; src_bytes the bytes of the kernels' phase source
-    (table or coordinates); tc: tensor-core kernels (their bound's unit, a
-    bitwise-repeat check).  Returns per-case dicts (kernel, mode, shape,
+    (table or coordinates); tc: tensor-core kernels (their bound's unit);
+    repeat: a second launch must be bitwise equal to the first.  Returns per-case dicts (kernel, mode, shape,
     rel, max_abs, ms, plain_ms, library_ms, bound_ms, bound_by, bitwise)."""
     n, dev = X.shape[0], X.device
     W2 = 2 * P
@@ -246,7 +277,7 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
     for nv in nvs:
         alpha = torch.randn((nv, n), generator=gen, device=dev)
         got = adj(alpha)
-        again = adj(alpha) if tc else got
+        again = adj(alpha) if repeat else got
         torch.cuda.synchronize()
         bitwise = all(torch.equal(u, v) for gs, hs in zip(got, again) for u, v in zip(gs, hs))
         want = adj_plain(alpha)
@@ -274,7 +305,7 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         G2 = [g[:nsets].contiguous() for g in G2all]
         G1 = [g[:nsets].contiguous() for g in G1all]
         got = fwd(G2, G1)
-        again = fwd(G2, G1) if tc else got
+        again = fwd(G2, G1) if repeat else got
         torch.cuda.synchronize()
         bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
         G2s = torch.stack(G2, 1) if G2 else None
@@ -297,8 +328,8 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
               f"{c['shape']}: rel_err={c['rel']:.3e} max_abs_err={c['max_abs']:.3e} ms={c['ms']} "
               f"plain_ms={c['plain_ms']} library_ms={c['library_ms']} (einsum rel_err={c['lib_rel']:.1e}) "
               f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})"
-              + (f" share_of_bound={c['bound_ms'] / c['ms']:.3f}" if tc and c["ms"] else "")
-              + (f" bitwise_repeat={c['bitwise']}" if tc else ""), flush=True)
+              + (f" share_of_bound={c['bound_ms'] / c['ms']:.3f}" if c["ms"] else "")
+              + (f" bitwise_repeat={c['bitwise']}" if repeat else ""), flush=True)
         if not c["bitwise"]:
             raise AssertionError(f"{c['kernel']} {tag} {c['shape']}: a second launch differs")
         if not c["rel"] <= KERNEL_RTOL:
@@ -317,21 +348,23 @@ def _plan(X, windows):
     return fs.additive_fastsum_build("gaussian", params, X, make_windows(windows), N=FASTSUM_N)
 
 
-def check_kernels(X, windows, nvs, nsets_list, timed=True):
-    """The bf16-table (tensor-core) kernels against their plain versions
-    (2P = 32)."""
+def check_kernels(X, windows, nvs, nsets_list, timed=True, table_dtype=torch.bfloat16):
+    """The table kernels against their plain versions (2P = 32): the
+    tensor-core ones of a bf16 table, or the CUDA-core ones of a float32
+    table (csrc/packed_ndft.cu)."""
     from nfft4gp_torch.ops import fastsum as fs
     from nfft4gp_torch.ops import packed_ndft as pk
 
-    pn = fs.packed_ndft_plan(_plan(X, windows), table_dtype=torch.bfloat16)
+    tc = table_dtype == torch.bfloat16
+    pn = fs.packed_ndft_plan(_plan(X, windows), table_dtype=table_dtype)
     Tp, pairs, singles = pn.Tp, pn.pairs, pn.singles
     return check_pair(
-        f"table-bf16 windows={windows}", ("packed_adjoint", "packed_forward"),
+        f"table-{'bf16' if tc else 'f32'} windows={windows} n={X.shape[0]}", ("packed_adjoint", "packed_forward"),
         lambda a: pk.packed_adjoint(Tp, a, pairs=pairs, singles=singles),
         lambda a: pk.packed_adjoint_plain(Tp, a, pairs, singles),
         lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles),
         lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles),
-        pn, pn.P, X, nvs, nsets_list, timed, Tp.float(), Tp.numel() * Tp.element_size(), tc=True)
+        pn, pn.P, X, nvs, nsets_list, timed, Tp.float(), Tp.numel() * Tp.element_size(), tc=tc, repeat=True)
 
 
 def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20)):
@@ -357,28 +390,30 @@ def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20)):
     return cases
 
 
-def timed_fit(prob, X, y, counted, steps=3):
-    """`steps` Adam steps of prob.fit with the given kernels' launch counts
-    set to 0 just before and read just after.  Returns (losses, seconds to
-    the end of each step from the call of fit, launch counts)."""
+def timed_fit(prob, X, y, counted, steps=3, **fit_kw):
+    """`steps` Adam steps of prob.fit (with fit_kw) with the given kernels'
+    launch counts set to 0 just before and read just after.  Every loss and
+    gradient must be finite.  Returns (losses, seconds to the end of each
+    step from the call of fit, launch counts)."""
     from nfft4gp_torch.ops import packed_ndft as pk
 
-    stamps = []
+    stamps, grads_ok = [], []
 
-    def tick(*_):
+    def tick(it, state, loss, grad):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        grads_ok.append(bool(torch.isfinite(grad).all()))
 
     pk.reset_launch_counts()
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
-    prob.fit(X, y, adam_maxits=steps, callback=tick)
+    prob.fit(X, y, adam_maxits=steps, callback=tick, **fit_kw)
     counts = {fn.__name__: fn.launches for fn in pk.KERNEL_WRAPPERS}
     counts["by_shape"] = {fn.__name__: dict(sorted(fn.launches_by_shape.items())) for fn in pk.KERNEL_WRAPPERS
                           if fn.launches}
     losses = prob.loss_history_
-    if len(losses) != steps or not all(np.isfinite(losses)):
-        raise AssertionError(f"losses not finite: {losses}")
+    if len(losses) != steps or not all(np.isfinite(losses)) or not all(grads_ok):
+        raise AssertionError(f"losses or gradients not finite: {losses}, gradients finite {grads_ok}")
     if counted and min(counts[k] for k in counted) <= 0:
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
     return losses, np.diff(stamps), counts
@@ -702,6 +737,238 @@ def check_full(X, y):
         raise AssertionError("full: the mean is not finite")
 
 
+AFN = dict(kernel="matern12", windows=WINDOWS_FUSED, operator="fastsum", precond="afn", rank=200, lfil=16,
+           maxits=10, nvecs=10, fastsum_N=FASTSUM_N)
+AFN_INIT = (1.0, 0.1, 0.01)
+N_AFN_PCG = 100_000
+N_CLI = 20_000
+# limits of [agree-afn], card float32 against CPU float64: about 10x the
+# CPU float32-against-float64 gaps at n = 2e4 (solve 4.3e-4, dvp 3.0e-4,
+# loss 1.3e-5, relative; gradient entries 1e-6), the card's kernels'
+# rounding added
+AFN_AGREE = dict(solve=5e-3, dvp=5e-3, loss=5e-4, grad_rtol=1e-2, grad_atol=1e-3)
+
+
+def _instrument(module, name, record, summary):
+    """Replace module.name by a wrapper that appends (seconds, summary(out))
+    of each call (synchronized) to record; returns the function that puts
+    the original back."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t, summary(out)))
+        return out
+
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, fn)
+
+
+def _params(raw):
+    from nfft4gp_torch.models.transforms import transform_forward
+    from nfft4gp_torch.ops.kernels import KernelParams
+
+    tv, _ = transform_forward("softplus", raw)
+    return KernelParams(f=tv[0], l=tv[1], mu=tv[2])
+
+
+def check_afn(X, y):
+    """[afn] (phase 15): the AFN slice at full width, fit with re-planning,
+    then a mean."""
+    from nfft4gp_torch.models import problem as pm
+    from nfft4gp_torch.ops.kernels import make_windows
+    from nfft4gp_torch.preconds.afn import afn_setup_from_plan
+    from nfft4gp_torch.solvers.lanczos import rademacher_probes
+
+    X, y = X[:N_STREAM_M12], y[:N_STREAM_M12]
+    plans, facts = [], []
+    restore = [_instrument(pm, "afn_plan", plans, lambda p: (p.k, p.use_ran)),
+               _instrument(pm, "afn_setup_from_plan", facts, lambda pre: int(pre.breakdown))]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        prob = pm.GPProblem(**AFN)
+        losses, steps, counts = timed_fit(prob, X, y, ("packed_adjoint", "packed_forward"), init=AFN_INIT,
+                                          replan_every=2)
+    finally:
+        for r in restore:
+            r()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    plan = prob.afn_plan_
+    pre = afn_setup_from_plan("matern12", _params(prob.raw_params_), X, plan, require_grad=True,
+                              windows=make_windows(WINDOWS_FUSED))
+    Z = rademacher_probes(torch.Generator(device=X.device).manual_seed(6), 10, X.shape[0], dtype=X.dtype)
+    dvp_ms = cuda_ms(lambda: pre.dvp(Z), reps=2, warmup=1, batches=2)
+    solve_ms = cuda_ms(lambda: pre.solve(Z), reps=3, warmup=1, batches=2)
+    Xt, _ = make_data(2000, seed=9)
+    mean, s_mean = _timed(lambda: prob.predict(X, y, Xt))
+    print(f"[afn] n={X.shape[0]} {AFN} init={AFN_INIT} replan_every=2: plans (k, use_ran) and seconds="
+          f"{[(p[1], round(p[0], 3)) for p in plans]} n2={X.shape[0] - plan.k} factorizations (seconds, repaired "
+          f"rows)={[(round(f[0], 4), f[1]) for f in facts]} losses={losses} s_per_step={steps.tolist()} "
+          f"dvp(nv=10) ms={dvp_ms:.2f} solve(nv=10) ms={solve_ms:.3f} transpose pattern width="
+          f"{plan.pattern_t[0].shape[1]} peak_GiB={peak:.2f} launches={counts} | mean at {Xt.shape[0]} points "
+          f"(AFN planned at (1, 1, 0.1)): {s_mean:.2f} s, mean[:4]={mean[:4].tolist()}", flush=True)
+    train_plans = plans[:2]
+    if len(train_plans) != 2 or any(use_ran for _, (_, use_ran) in train_plans):
+        raise AssertionError(f"afn: expected two plans on the AFN branch, got {plans}")
+    if not _finite(mean):
+        raise AssertionError("afn: the mean is not finite")
+    return counts
+
+
+def check_afn_agree(X, y):
+    """[agree-afn] (phase 16): card float32 against CPU float64 (the stream
+    engine's plain versions), one injected AFN plan, the same probes."""
+    from nfft4gp_torch.models.problem import GPProblem
+    from nfft4gp_torch.models.transforms import transform_inverse
+    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
+    from nfft4gp_torch.preconds.afn import afn_plan, afn_setup_from_plan
+    from nfft4gp_torch.solvers.lanczos import rademacher_probes
+
+    Xh, yh = X.cpu().double(), y.cpu().double()
+    p = (1.0, 0.1, 1.0)
+    plan_h = afn_plan("matern12", KernelParams.make(*p, dtype=torch.float64), Xh, maxrank=200, lfil=16,
+                      rank=200, force_afn=True)
+    plan_c = plan_h._replace(perm=plan_h.perm.to(X.device),
+                             pattern=tuple(t.to(X.device) for t in plan_h.pattern),
+                             pattern_t=tuple(t.to(X.device) for t in plan_h.pattern_t))
+    probes = rademacher_probes(torch.Generator().manual_seed(5), 10, X.shape[0], dtype=torch.float64)
+    kw = dict(AFN, fastsum_table_dtype="float32", fastsum_engine="stream")
+    raw = transform_inverse("softplus", torch.tensor(p, dtype=torch.float64))
+    card = GPProblem(**kw)
+    loss_c, grad_c = card.make_loss(X, y, probes=probes.float().to(X.device), afn_plan=plan_c)(
+        raw.float().to(X.device))
+    pats = tuple(None if q is None else (q[0].cpu(), q[1].cpu(), q[2]) for q in card.nf_patterns_)
+    host = GPProblem(**kw)
+    loss_h, grad_h = host.make_loss(Xh, yh, probes=probes, nf_patterns=pats, afn_plan=plan_h)(raw)
+    W = make_windows(WINDOWS_FUSED)
+    pre_c = afn_setup_from_plan("matern12", _params(raw.float().to(X.device)), X, plan_c, require_grad=True,
+                                windows=W)
+    pre_h = afn_setup_from_plan("matern12", _params(raw), Xh, plan_h, require_grad=True, windows=W)
+    Zc = probes.float().to(X.device)
+    rel = {}
+    for name in ("solve", "dvp"):
+        got = getattr(pre_c, name)(Zc).cpu().double()
+        want = getattr(pre_h, name)(probes)
+        rel[name] = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    gap = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    print(f"[agree-afn] n={X.shape[0]} (f, l, mu) = {p} plan k={plan_h.k} (force_afn) repaired rows card/CPU="
+          f"{int(pre_c.breakdown)}/{int(pre_h.breakdown)} rel_fro card f32 vs CPU f64: {rel} | stream loss card "
+          f"f32 tables={float(loss_c):.8e} grad={grad_c.tolist()} | CPU float64 loss={float(loss_h):.8e} "
+          f"grad={grad_h.tolist()} rel_loss_gap={gap:.3e} limits={AFN_AGREE}", flush=True)
+    if not (rel["solve"] <= AFN_AGREE["solve"] and rel["dvp"] <= AFN_AGREE["dvp"] and gap <= AFN_AGREE["loss"]):
+        raise AssertionError(f"agree-afn: card and CPU disagree: {rel}, loss gap {gap}")
+    np.testing.assert_allclose(grad_c.cpu().numpy(), grad_h.numpy(), rtol=AFN_AGREE["grad_rtol"],
+                               atol=AFN_AGREE["grad_atol"])
+
+
+def check_afn_pcg(X, y):
+    """[afn-pcg] (phase 17): K x = y by PCG to 1e-2, no preconditioner,
+    Nystrom and AFN, on the float32-table kernels.  Returns the launch
+    counts of the AFN solve and its iterations."""
+    from nfft4gp_torch.models.problem import GPProblem
+    from nfft4gp_torch.ops import packed_ndft as pk
+    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
+    from nfft4gp_torch.preconds.afn import afn_plan, afn_setup_from_plan
+    from nfft4gp_torch.preconds.nystrom import nystrom_setup
+    from nfft4gp_torch.solvers.pcg import pcg
+    from nfft4gp_torch.utils.datasets import rand_perm
+
+    # the first two features: the AFN plan orders and patterns the points
+    # in the space the kernel of the one window sees
+    X, y = X[:N_AFN_PCG, :2].contiguous(), y[:N_AFN_PCG]
+    windows = [[0, 1]]
+    W = make_windows(windows)
+    prob = GPProblem(kernel="matern12", windows=windows, operator="fastsum", fastsum_engine="stream",
+                     fastsum_table_dtype="float32", fastsum_N=FASTSUM_N)
+    params = KernelParams.make(1.0, 0.1, 0.01, dtype=X.dtype, device=X.device)
+    (mv, _), s_op = _timed(lambda: prob._build_ops_factory(X)(params))
+    gen = torch.Generator(device=X.device).manual_seed(8)
+
+    def afn():
+        plan = afn_plan("matern12", params, X, maxrank=200, lfil=16, generator=gen)
+        return afn_setup_from_plan("matern12", params, X, plan, windows=W), plan
+
+    setups = {"none": lambda: (None, None),
+              "nystrom": lambda: (nystrom_setup("matern12", params, X, rand_perm(gen, X.shape[0], 200), 200,
+                                                windows=W), None),
+              "afn": afn}
+    rows, counts = {}, None
+    for name, setup in setups.items():
+        (pre, plan), s_setup = _timed(setup)
+        pk.reset_launch_counts()
+        res, s_solve = _timed(lambda: pcg(mv, y, precond=None if pre is None else pre.solve, tol=1e-2,
+                                          maxits=400))
+        if name == "afn":
+            counts = {fn.__name__: fn.launches for fn in pk.KERNEL_WRAPPERS}
+            counts["by_shape"] = {fn.__name__: dict(fn.launches_by_shape) for fn in pk.KERNEL_WRAPPERS
+                                  if fn.launches}
+            counts["iterations"] = res.niter
+        rows[name] = dict(niter=res.niter, relres=float(res.relres), setup_s=round(s_setup, 3),
+                          solve_s=round(s_solve, 3))
+        if plan is not None:
+            rows[name].update(k=plan.k, use_ran=plan.use_ran)
+    print(f"[afn-pcg] n={X.shape[0]} d=2 matern12 windows={windows} (f, l, mu) = (1, 0.1, 0.01) N={FASTSUM_N} "
+          f"float32 tables, tol 1e-2, maxits 400 (operator set-up {s_op:.2f} s): {rows} launches of the AFN "
+          f"solve={counts}", flush=True)
+    if not (rows["afn"]["niter"] <= 400 and rows["afn"]["relres"] <= 1e-2):
+        raise AssertionError(f"afn-pcg: AFN-PCG did not reach 1e-2 in 400 iterations: {rows['afn']}")
+    if min(counts["packed_adjoint"], counts["packed_forward"]) <= 0:
+        raise AssertionError(f"afn-pcg: a float32-table kernel was not launched: {counts}")
+    return counts
+
+
+def check_fsai(X, y):
+    """[fsai] (phase 18): gaussian, five 2-D windows, FSAI, 2 Adam steps."""
+    from nfft4gp_torch.models.problem import GPProblem
+
+    prob = GPProblem(kernel="gaussian", windows=WINDOWS, operator="fastsum", precond="fsai", lfil=16, maxits=10,
+                     nvecs=10, fastsum_N=FASTSUM_N)
+    losses, steps, counts = timed_fit(prob, X, y, ("packed_adjoint", "packed_forward"), steps=2)
+    print(f"[fsai] n={X.shape[0]} windows={WINDOWS} lfil=16 losses={losses} s_per_step={steps.tolist()} "
+          f"(the first includes the KNN pattern and its transpose) launches={counts}", flush=True)
+
+
+def _write_text(path, header, values):
+    """A file in the reference's text format: the header, then the values."""
+    values = np.asarray(values).reshape(-1)
+    with open(path, "w") as f:
+        f.write(" ".join(str(h) for h in header) + "\n")
+        np.savetxt(f, values, fmt="%.17g" if values.dtype.kind == "f" else "%d")
+
+
+def check_cli(X, y):
+    """[cli] (phase 19): the port's CLI as a subprocess on the card, on
+    synthetic files of the first N_CLI points (the reference's text
+    formats) with WINDOWS as the 'g' windows."""
+    import os
+    import tempfile
+
+    Xn, yn = X[:N_CLI + 2000].cpu().double().numpy(), y[:N_CLI + 2000].cpu().double().numpy()
+    with tempfile.TemporaryDirectory() as d:
+        for part, rows in (("train", slice(0, N_CLI)), ("test", slice(N_CLI, N_CLI + 2000))):
+            Xp = Xn[rows]
+            _write_text(os.path.join(d, f"syn.{part}.feature"), Xp.shape, Xp.T)
+            _write_text(os.path.join(d, f"syn.{part}.label"), (Xp.shape[0],), yn[rows])
+        _write_text(os.path.join(d, "syn.g.window"), (len(WINDOWS), 2), np.asarray(WINDOWS).T)
+        cmd = [sys.executable, "-m", f"{PKG}_torch.cli", "--data-dir", d, "--name", "syn", "--precond", "afn",
+               "--adam-maxits", "2"]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        secs = time.perf_counter() - t
+    lines = proc.stdout.strip().splitlines()
+    print(f"[cli] {' '.join(cmd[3:])} (n_train={N_CLI}): exit {proc.returncode} in {secs:.1f} s; "
+          f"{' / '.join(lines[-4:])}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    rmse = float(proc.stdout.split("prediction RMSE:")[1].split()[0])
+    if not np.isfinite(rmse):
+        raise AssertionError(f"cli: RMSE {rmse}")
+
+
 def _summary(name, route, mode, cases, shape, launches):
     c = next(c for c in cases if c["kernel"] == name and c["shape"] == shape and c.get("mode") == mode)
     base = next(k for k in ("adjoint", "forward", "pcg", "lanczos") if k in name)
@@ -729,6 +996,13 @@ def main():
     print(f"[device] torch: {name}, count {torch.cuda.device_count()}; nvidia-smi name, power.limit:", flush=True)
     print(smi, flush=True)
 
+    phase_s, lap = {}, [_T0]
+
+    def mark(phase):
+        now = time.perf_counter()
+        phase_s[phase] = round(now - lap[0], 1)
+        lap[0] = now
+
     paths, secs = _cuda_build.build()
     for lib in paths:
         _cuda_build.library(lib)
@@ -739,20 +1013,27 @@ def main():
           f"(expected {blocks * (blocks + 1) // 2})", flush=True)
     if total != blocks * (blocks + 1) // 2:
         raise AssertionError("the cooperative grid-wide barrier does not hold")
+    mark("build")
 
     X, y = make_data(N_POINTS)
     cases = check_kernels(X, WINDOWS, nvs=(1, 10), nsets_list=(1, 2, 10, 20))
     cases += check_kernels(X, WINDOWS_1D, nvs=(1, 10), nsets_list=(1, 2, 10, 20), timed=False)
     check_kernels(X, WINDOWS_FUSED, nvs=(1, 10), nsets_list=(1, 2, 10, 20))
+    # the float32-table kernels at [afn-pcg]'s shape
+    f32 = check_kernels(X[:N_AFN_PCG, :2].contiguous(), [[0, 1]], nvs=(1,), nsets_list=(1,),
+                        table_dtype=torch.float32)
     regen = check_regen_kernels(X)
+    mark("kernels")
 
     prob = GPProblem(kernel="gaussian", windows=WINDOWS, operator="fastsum", precond="nystrom",
                      rank=50, maxits=10, nvecs=10, fastsum_N=FASTSUM_N)
     losses, steps, counts = timed_fit(prob, X, y, ("packed_adjoint", "packed_forward"))
     print(f"[main] n={N_POINTS} losses={losses} s_per_step={steps.tolist()} "
           f"median_s_per_step={float(np.median(steps)):.4f} launches={counts}", flush=True)
+    mark("main")
 
     check_engines(X[:N_AGREE], y[:N_AGREE])
+    mark("agree")
 
     fprob = GPProblem(fastsum_fused=True, **FUSED)
     flosses, fsteps, fcounts = timed_fit(fprob, X, y, ("packed_adjoint_regen", "packed_forward_regen"))
@@ -763,22 +1044,41 @@ def main():
           flush=True)
     if not any(p is not None for p in fprob.nf_patterns_):
         raise AssertionError("the matern12 fused path built no near-field")
+    mark("fused")
 
     check_fused_engines(X[:N_AGREE], y[:N_AGREE])
+    mark("agree-fused")
 
     Xd, yd = make_data(max(DENSE_NS))
     dense, dcounts = check_dense_kernels(Xd, yd)
     for c in dense:
         c["mode"] = "dense"
     check_dense_fit(Xd, yd)
+    mark("dense")
 
     sprob, scounts = check_stream_m12(X, y)
+    mark("stream-m12")
     check_stream_m12_agree(X[:N_AGREE], y[:N_AGREE])
+    mark("agree-stream-m12")
     check_predict(prob, sprob, X, y)
+    mark("predict")
     check_full(X, y)
+    mark("full")
+    acounts = check_afn(X, y)
+    mark("afn")
+    check_afn_agree(X[:N_AGREE], y[:N_AGREE])
+    mark("agree-afn")
+    pcounts = check_afn_pcg(X, y)
+    mark("afn-pcg")
+    check_fsai(X, y)
+    mark("fsai")
+    check_cli(X, y)
+    mark("cli")
 
     summary = [_summary("packed_adjoint", "table", "table-bf16", cases, "nv=10", counts),
                _summary("packed_forward", "table", "table-bf16", cases, "nsets=20", counts),
+               _summary("packed_adjoint", "table_f32", "table-f32", f32, "nv=1", pcounts),
+               _summary("packed_forward", "table_f32", "table-f32", f32, "nsets=1", pcounts),
                _summary("packed_adjoint_regen", "regen", "doubling", regen, "nv=10", fcounts),
                _summary("packed_forward_regen", "regen", "doubling", regen, "nsets=20", fcounts),
                _summary("fused_pcg_dense", "fused", "dense", dense, f"n={DENSE_NS[0]} mu={DENSE_MUS[0]}", dcounts),
@@ -787,8 +1087,13 @@ def main():
     for k in summary[:2]:
         k["launches_stream_m12"] = scounts[k["name"]]
         k["launches_by_shape_stream_m12"] = scounts["by_shape"][k["name"]]
+        k["launches_afn"] = acounts[k["name"]]
+        k["launches_by_shape_afn"] = acounts["by_shape"][k["name"]]
+    for k in summary[2:4]:
+        k["pcg_iterations"] = pcounts["iterations"]
     print(f"[done] wall seconds from the start of chip_smoke.py to its summary: "
-          f"{time.perf_counter() - _T0:.1f}", flush=True)
+          f"{time.perf_counter() - _T0:.1f}; seconds by phase (the first from the script's start): {phase_s}",
+          flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -14,10 +14,13 @@ pair within the pitch of a cell grid, `ops/cellgrid.py`; table engine in
 torch; streamed-table and phase-regenerating engines on the hand-written
 CUDA kernels of `ops/packed_ndft.py`), PCG, FGMRES, batched Lanczos/SLQ,
 the dense small-n Krylov solves on the cooperative CUDA kernels of
-`solvers/fused_pcg.py`, the Cholesky and Nystrom preconditioners, the
-marginal-likelihood loss with the reference's estimator, Adam, prediction
-with std on the dense kernel or the fastsum operator, `GPProblem.fit` and
-`.predict`, and the exact one-vs-all multiclass GP.
+`solvers/fused_pcg.py`, the Cholesky, Nystrom, FSAI and AFN
+preconditioners (with FPS and the rank estimates of `ops/fps.py` and
+`ops/rankest.py`), the marginal-likelihood loss with the reference's
+estimator, Adam, prediction with std on the dense kernel or the fastsum
+operator, `GPProblem.fit` and `.predict`, the exact one-vs-all multiclass
+GP, the readers of the reference's text formats (`io/`) and the TEST4
+command-line program (`cli.py`).
 
 Float32 products run in full float32: TF32 is switched off here.  This is
 the counterpart of the JAX package's `precision="highest"` products; the
@@ -49,6 +52,8 @@ from .solvers.fgmres import fgmres  # noqa: E402
 from .solvers.lanczos import lanczos, slq_logdet  # noqa: E402
 from .preconds.chol import CholPrecond, chol_setup  # noqa: E402
 from .preconds.nystrom import NystromPrecond, nystrom_setup  # noqa: E402
+from .preconds.fsai import FsaiPrecond, fsai_setup  # noqa: E402
+from .preconds.afn import AfnPrecond, afn_setup  # noqa: E402
 from .models.transforms import transform_forward, transform_inverse  # noqa: E402
 from .models.gp import GPConfig, GPPredictResult, gp_loss, gp_predict, gp_predict_fastsum  # noqa: E402
 from .models.adam import AdamState, adam_init, adam_step  # noqa: E402

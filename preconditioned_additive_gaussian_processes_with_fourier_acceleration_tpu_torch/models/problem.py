@@ -15,12 +15,15 @@ import numpy as np
 import torch
 
 from ..ops import fastsum as fs
-from ..ops.kernels import additive_kernel_matrix_with_grad, kernel_matrix_with_grad, make_windows
+from ..ops.kernels import KernelParams, additive_kernel_matrix_with_grad, kernel_matrix_with_grad, make_windows
+from ..ops.knn import knn_pattern
+from ..preconds.afn import AfnPlan, afn_plan, afn_setup_from_plan, plan_from_arrays
 from ..preconds.chol import chol_setup
+from ..preconds.fsai import fsai_setup, transpose_pattern
 from ..preconds.nystrom import nystrom_setup
 from ..solvers.lanczos import rademacher_probes
 from ..utils.datasets import rand_perm
-from .adam import adam_run
+from .adam import adam_init, adam_run
 from .gp import GPConfig, gp_loss, gp_predict, gp_predict_fastsum, make_dense_ops
 from .transforms import transform_forward, transform_inverse
 
@@ -36,15 +39,19 @@ class InjectedState(NamedTuple):
     landmarks: Optional[torch.Tensor]
     probes: Optional[torch.Tensor]
     nf_patterns: Optional[tuple]
+    afn_plan: Optional[AfnPlan] = None
 
 
-def state_from_numpy(device, *, raw_params=None, landmarks=None, probes=None, nf_patterns=None):
+def state_from_numpy(device, *, raw_params=None, landmarks=None, probes=None, nf_patterns=None,
+                     afn_plan=None):
     """Turn numpy arrays drawn on the JAX side (raw hyperparameters, Nystrom
-    landmark indices, the Rademacher probe matrix, the near-field patterns)
-    into tensors on `device`, so both packages compute the same loss.
+    landmark indices, the Rademacher probe matrix, the near-field patterns,
+    an AFN plan) into tensors on `device`, so both packages compute the same
+    loss.
 
     nf_patterns: per window group None or (idx, mask, sym), the output of the
     JAX symmetrize_nearfield_patterns (idx and mask (Wg, n, lfil) arrays).
+    afn_plan: a JAX AfnPlan (its perm, k, use_ran and pattern are read).
     Float arrays keep their own dtype."""
     def conv(a, kind=None):
         if a is None:
@@ -55,8 +62,10 @@ def state_from_numpy(device, *, raw_params=None, landmarks=None, probes=None, nf
     pats = None if nf_patterns is None else tuple(
         None if p is None else (conv(p[0], torch.int64), conv(p[1], torch.bool), bool(p[2]))
         for p in nf_patterns)
+    plan = None if afn_plan is None else plan_from_arrays(
+        afn_plan.perm, afn_plan.k, afn_plan.use_ran, afn_plan.pattern, device)
     return InjectedState(raw_params=conv(raw_params), landmarks=conv(landmarks, torch.int64),
-                         probes=conv(probes), nf_patterns=pats)
+                         probes=conv(probes), nf_patterns=pats, afn_plan=plan)
 
 
 def tensors_from_numpy(device, *arrays):
@@ -86,7 +95,10 @@ class GPProblem:
     windows:  None (full kernel of at most 3 features for fastsum) or list
               of feature-index lists (additive windows of 1-3 features)
     operator: 'dense' | 'fastsum'
-    precond:  'none' | 'chol' (dense K and dK, exact Cholesky) | 'nystrom'
+    precond:  'none' | 'chol' (dense K and dK, exact Cholesky) | 'nystrom' |
+              'fsai' (KNN pattern of lfil, built once per dataset) | 'afn'
+              (rank landmarks; the plan is made once per loss closure at
+              params0, `afn_plan_`)
 
     fastsum_engine (additive windows): 'stream' (the packed table kernels;
     their plain torch versions on CPU tensors) | 'table' (torch products on
@@ -110,10 +122,9 @@ class GPProblem:
     predicts on the dense kernel while n <= 20000, and warns above) |
     'dense' | 'fastsum'.
 
-    lfil (the FSAI fill) is kept so that a problem saved by the JAX package
-    loads; FSAI is not ported.  device: where numpy inputs go (default
-    "cuda", where floating ones become float32; tensors keep their own
-    device and dtype); it is not saved.
+    device: where numpy inputs go (default "cuda", where floating ones
+    become float32; tensors keep their own device and dtype); it is not
+    saved.
     """
 
     kernel: str = "gaussian"
@@ -141,6 +152,7 @@ class GPProblem:
     loss_history_: list = field(default_factory=list)
     nf_patterns_: Optional[tuple] = None
     nf_stencils_: Optional[tuple] = None
+    afn_plan_: Optional[AfnPlan] = None
 
     def _tensors(self, X, *others):
         """X and the arrays that go with it as tensors.  A tensor keeps its
@@ -259,9 +271,11 @@ class GPProblem:
 
         return build
 
-    def _precond_factory(self, X, landmarks=None):
+    def _precond_factory(self, X, params0: KernelParams, landmarks=None, plan=None):
+        """(setup, plan): setup(params) -> preconditioner, or None; plan the
+        AFN plan (injected or made at params0) with precond='afn', else None."""
         if self.precond == "none":
-            return None
+            return None, None
         warr = self._windows_arr()
         if self.precond == "chol":
             def setup(params):
@@ -271,33 +285,54 @@ class GPProblem:
                     K, dK = additive_kernel_matrix_with_grad(self.kernel, params, X, warr)
                 return chol_setup(K, dK=dK, require_grad=True)
 
-            return setup
+            return setup, None
+        if self.precond == "fsai":
+            pattern = knn_pattern(X, self.lfil)
+            pattern_t = transpose_pattern(*pattern)
+            return (lambda params: fsai_setup(self.kernel, params, X, self.lfil, require_grad=True,
+                                              windows=warr, pattern=pattern, pattern_t=pattern_t)), None
+        if self.precond == "afn":
+            if plan is None:
+                plan = afn_plan(self.kernel, params0, X, maxrank=self.rank, lfil=self.lfil,
+                                generator=torch.Generator(device=X.device).manual_seed(self.seed))
+            return (lambda params: afn_setup_from_plan(self.kernel, params, X, plan, require_grad=True,
+                                                       windows=warr)), plan
         if self.precond != "nystrom":
-            raise NotImplementedError(f"precond {self.precond!r} is not ported yet")
+            raise ValueError(f"unknown precond {self.precond}")
         n = X.shape[0]
         k = min(self.rank, n)
         if landmarks is None:
             landmarks = rand_perm(torch.Generator().manual_seed(self.seed), n, k)
         landmarks = landmarks.to(X.device)
-        return lambda params: nystrom_setup(self.kernel, params, X, landmarks, k,
-                                            require_grad=True, windows=warr)
+        return (lambda params: nystrom_setup(self.kernel, params, X, landmarks, k,
+                                             require_grad=True, windows=warr)), None
 
-    def make_loss(self, X, y, *, probes=None, landmarks=None, nf_patterns=None, nf_stencils=None):
+    def make_loss(self, X, y, params0=(1.0, 1.0, 0.1), *, probes=None, landmarks=None,
+                  nf_patterns=None, nf_stencils=None, afn_plan=None):
         """raw_params -> (loss, grad) closure.  X and y: tensors, or numpy
-        arrays (see `device`).
+        arrays (see `device`).  params0: the (f, l, mu) the AFN plan's rank
+        estimate runs at.
 
         probes (nvecs, n), landmarks (>= rank indices), the KNN near-field
         patterns (per window group None or (idx, mask, sym), see
-        state_from_numpy; with windows=None one (idx, mask, sym)) and the
+        state_from_numpy; with windows=None one (idx, mask, sym)), the
         stream engine's radius near-field (`nf_stencils_` of a problem on
-        the same points) may be injected, the reference's hook for
-        reproducible runs; by default the probes and landmarks come from
-        torch generators seeded with seed + 1 and seed, the near-field
-        from the points.
+        the same points) and the AFN plan (`afn_plan_`, or a JAX plan
+        through state_from_numpy) may be injected, the reference's hook for
+        reproducible runs; by default the probes, landmarks and the rank
+        estimate's subsamples come from torch generators seeded with
+        seed + 1, seed and seed, the near-field from the points.
         """
         X, y = self._tensors(X, y)
-        build = self._build_ops_factory(X, nf_patterns, nf_stencils)
-        psetup = self._precond_factory(X, landmarks)
+        return self._loss(X, y, self._build_ops_factory(X, nf_patterns, nf_stencils), params0,
+                          probes, landmarks, afn_plan)
+
+    def _loss(self, X, y, build, params0, probes, landmarks, afn_plan):
+        """make_loss on tensors, around the operator factory `build`."""
+        p0 = KernelParams.make(*params0, dtype=X.dtype, device=X.device)
+        psetup, plan = self._precond_factory(X, p0, landmarks, afn_plan)
+        if plan is not None:
+            self.afn_plan_ = plan
         if probes is None:
             gen = torch.Generator().manual_seed(self.seed + 1)
             probes = rademacher_probes(gen, self.nvecs, X.shape[0], dtype=X.dtype)
@@ -311,11 +346,19 @@ class GPProblem:
         return loss_fn
 
     def fit(self, X, y, *, init=(1.0, 1.0, 0.1), adam_maxits=100, adam_alpha=0.01,
-            adam_tol=1e-6, verbose=False, probes=None, landmarks=None, nf_patterns=None,
-            nf_stencils=None, callback=None):
+            adam_tol=1e-6, verbose=False, replan_every=0, probes=None, landmarks=None,
+            nf_patterns=None, nf_stencils=None, afn_plan=None, callback=None):
         """Train the hyperparameters with Adam (ref TEST4/foo.cpp:318-347).
 
-        callback(it, state, loss, grad), if given, runs after every step."""
+        replan_every > 0 (AFN only): make the AFN plan (rank estimate, FPS,
+        KNN pattern) anew every `replan_every` Adam steps at the current
+        hyperparameters, the Adam state carried across (the reference
+        re-runs the set-up at every loss evaluation, gp_loss.c:163-172); an
+        injected afn_plan serves the first segment.  The operator (tables,
+        near-field) is built once for all segments.  The other injections
+        are those of make_loss.  callback(it, state, loss, grad), if given,
+        runs after every step (`it` counts within a segment, as verbose
+        does)."""
         X, y = self._tensors(X, y)
         x0 = transform_inverse(self.transform,
                                torch.as_tensor(init, dtype=X.dtype, device=X.device))
@@ -328,24 +371,40 @@ class GPProblem:
                 print(f"{it + 1:6d} | {float(loss):15.8e} | {float(torch.linalg.norm(grad)):15.8e}"
                       f" | params: {float(tv[0]):.6g} {float(tv[1]):.6g} {float(tv[2]):.6g}")
 
-        loss_fn = self.make_loss(X, y, probes=probes, landmarks=landmarks, nf_patterns=nf_patterns,
-                                 nf_stencils=nf_stencils)
-        state, losses, _, _ = adam_run(loss_fn, x0, maxits=adam_maxits, tol=adam_tol,
-                                       alpha=adam_alpha, callback=cb)
+        # the operator's geometry and near-field depend on X alone: built once,
+        # while each segment makes its AFN plan anew
+        build = self._build_ops_factory(X, nf_patterns, nf_stencils)
+        seg_len = replan_every if replan_every and self.precond == "afn" else adam_maxits
+        state, losses, cur, plan = adam_init(x0), [], tuple(init), afn_plan
+        remaining = adam_maxits
+        while remaining > 0:
+            seg = min(seg_len, remaining)
+            loss_fn = self._loss(X, y, build, cur, probes, landmarks, plan)
+            state, seg_losses, _, grads = adam_run(loss_fn, state.x, maxits=seg, tol=adam_tol,
+                                                   alpha=adam_alpha, callback=cb, state0=state)
+            losses.extend(seg_losses)
+            tv, _ = transform_forward(self.transform, state.x)
+            cur, plan = tuple(float(v) for v in tv), None
+            remaining -= seg
+            if grads and float(torch.linalg.norm(grads[-1])) < adam_tol:
+                break
         self.raw_params_ = state.x
         self.loss_history_ = [float(v) for v in losses]
         return self
 
-    def predict(self, X, y, X_test, *, with_std=False, maxits=None, landmarks=None):
+    def predict(self, X, y, X_test, *, with_std=False, maxits=None, landmarks=None, afn_plan=None):
         """Posterior mean (and std) at X_test with the fitted hyperparameters.
 
-        maxits: FGMRES steps per solve, default 2 * maxits * 10.  landmarks:
-        the Nystrom landmark indices, as in make_loss."""
+        maxits: FGMRES steps per solve, default 2 * maxits * 10.  landmarks
+        and afn_plan: as in make_loss.  The AFN plan is made at
+        (f, l, mu) = (1, 1, 0.1), not at the fitted values, as in the JAX
+        package; `afn_plan_` keeps the training plan."""
         if self.raw_params_ is None:
             raise RuntimeError("call fit() first (or set raw_params_)")
         X, y, X_test = self._tensors(X, y, X_test)
         raw = self.raw_params_.to(device=X.device, dtype=X.dtype)
-        psetup = self._precond_factory(X, landmarks)
+        p0 = KernelParams.make(1.0, 1.0, 0.1, dtype=X.dtype, device=X.device)
+        psetup, _ = self._precond_factory(X, p0, landmarks, afn_plan)
         kw = dict(windows=self._windows_arr(), precond_setup=psetup, with_std=with_std,
                   maxits=maxits or 2 * self.maxits * 10)
         pred_op = self.predict_operator

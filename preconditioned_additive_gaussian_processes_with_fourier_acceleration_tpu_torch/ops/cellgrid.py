@@ -8,13 +8,13 @@ offsets.  The pitch is the radius of the stream engine's near-field
 line-for-line copy of the JAX host code: both packages bin the same points
 into the same grid.
 
-Ported is what that near-field uses: the uniform grid, the pad map from
-user order to cell slots and the neighbour slices.  The JAX package's
-dense stencil layout (`StencilMatrix`, `stencil_matvec`, the pad and unpad
-maps of sorted vectors), its quantile binning, the transpose and the ELL
-embedding (`stencil_transpose`, `stencil_embed`) are left to the port of
-the FSAI and AFN preconditioners, which decides whether it needs them.
-Dimensions d = 1, 2, 3.
+Ported is what that near-field uses (the uniform grid, the pad map from
+user order to cell slots and the neighbour slices) and the quantile
+binning with which the AFN plan cell-sorts its Schur points
+(preconds/afn.py).  The JAX package's dense stencil layout
+(`StencilMatrix`, `stencil_matvec`, `stencil_transpose`, `stencil_embed`)
+is not ported: it exists to avoid gathers on the TPU, and the port applies
+the same sparse matrices as padded ELL.  Dimensions d = 1, 2, 3.
 """
 
 import itertools
@@ -42,7 +42,8 @@ class CellGrid(NamedTuple):
     rank_of: np.ndarray     # (n,) SORTED point -> slot within cell
     starts: np.ndarray      # (ncells + 1,) cell start offsets in sorted order
     lo: np.ndarray          # (d,) box lower corner
-    h: float                # cell pitch
+    h: float                # cell pitch (uniform binning; nan for quantile)
+    edges: Optional[tuple] = None   # per-axis bin edges (quantile binning)
 
     @property
     def ncells(self):
@@ -56,12 +57,16 @@ class CellGrid(NamedTuple):
 def build_cell_grid(x, h: Optional[float] = None, *,
                     target_occupancy: float = 12.0,
                     max_capacity_factor: float = 4.0,
-                    min_h: Optional[float] = None) -> Optional[CellGrid]:
-    """Bin points (host numpy, (n, d), d <= 3) into a uniform cell grid of
-    pitch h (default sized for ~target_occupancy points a cell; min_h
-    raises it).  Returns None when the layout degenerates (the fullest cell
-    far above the expected occupancy: clustered or duplicate-heavy data);
-    callers then keep ELL."""
+                    min_h: Optional[float] = None,
+                    binning: str = "uniform") -> Optional[CellGrid]:
+    """Bin points (host numpy, (n, d), d <= 3) into a cell grid.
+
+    binning='uniform': pitch h (default sized for ~target_occupancy points
+    a cell; min_h raises it).  binning='quantile': per-axis equal-mass bin
+    edges, for densities far from uniform (a PCA projection of high-d data).
+    Returns None when the layout degenerates (the fullest cell far above the
+    expected occupancy: clustered or duplicate-heavy data); callers then
+    keep ELL or the unsorted order."""
     x = np.asarray(x)
     n, d = x.shape
     if d > 3 or n == 0:
@@ -69,15 +74,30 @@ def build_cell_grid(x, h: Optional[float] = None, *,
     lo = x.min(axis=0)
     hi = x.max(axis=0)
     ext = np.maximum(hi - lo, 1e-12)
-    if h is None:
-        vol = float(np.prod(ext))
-        h = (vol * target_occupancy / n) ** (1.0 / d)
-    if min_h is not None:
-        h = max(h, float(min_h))
-    h = float(max(h, 1e-12))
-    shape = tuple(min(int(np.ceil(e / h)) + 1, 2 ** 15) for e in ext)
-    idx = np.minimum((x - lo[None, :]) / h,
-                     np.asarray(shape)[None, :] - 1).astype(np.int64)
+    edges = None
+    if binning == "quantile":
+        nb = max(1, int(round((n / target_occupancy) ** (1.0 / d))))
+        shape = (nb,) * d
+        idx = np.empty((n, d), np.int64)
+        edges = []
+        for j in range(d):
+            e = np.maximum.accumulate(np.quantile(x[:, j], np.linspace(0.0, 1.0, nb + 1)))
+            edges.append(e)
+            idx[:, j] = np.clip(np.searchsorted(e[1:-1], x[:, j], "right"), 0, nb - 1)
+        edges = tuple(edges)
+        h = float("nan")
+    elif binning == "uniform":
+        if h is None:
+            vol = float(np.prod(ext))
+            h = (vol * target_occupancy / n) ** (1.0 / d)
+        if min_h is not None:
+            h = max(h, float(min_h))
+        h = float(max(h, 1e-12))
+        shape = tuple(min(int(np.ceil(e / h)) + 1, 2 ** 15) for e in ext)
+        idx = np.minimum((x - lo[None, :]) / h,
+                         np.asarray(shape)[None, :] - 1).astype(np.int64)
+    else:
+        raise ValueError(f"unknown binning {binning!r}")
     flat = idx[:, 0]
     for j in range(1, d):
         flat = flat * shape[j] + idx[:, j]
@@ -88,7 +108,7 @@ def build_cell_grid(x, h: Optional[float] = None, *,
     c = int(counts.max()) if counts.size else 1
     # capacity guard: clustered or duplicate data concentrates far above the
     # target occupancy and the padded layout degenerates
-    expected_occ = n * h ** d / float(np.prod(ext))
+    expected_occ = target_occupancy if binning == "quantile" else n * h ** d / float(np.prod(ext))
     if c > max_capacity_factor * max(expected_occ, 1.0):
         return None
     starts = np.zeros(ncells + 1, np.int64)
@@ -100,7 +120,7 @@ def build_cell_grid(x, h: Optional[float] = None, *,
         shape=shape, c=c, n=n, d=d,
         perm=order.astype(np.int32), inv_perm=inv.astype(np.int32),
         cell_of=cell_sorted.astype(np.int32), rank_of=rank.astype(np.int32),
-        starts=starts.astype(np.int32), lo=lo, h=h,
+        starts=starts.astype(np.int32), lo=lo, h=h, edges=edges,
     )
 
 

@@ -8,7 +8,9 @@
               dk/dl = (3 r^2 / l^3) exp(-sqrt(3) r / l)
   matern12  : k = exp(-r / l),           dk/dl = (r / l^2) k
 
-Gradients stack as dK[3, n, m] in (df, dl, dmu) order.  Additive kernels
+Gradients stack as dK[3, n, m] in (df, dl, dmu) order.  Point sets may
+carry leading batch dimensions, (..., n, d) -> K (..., n, m) and dK
+(3, ..., n, m) (the FSAI row blocks).  Additive kernels
 average the base kernel over feature windows, a (W, dw) index tensor with
 -1 padding (ref SRC/linearalg/kernels.c:3046-3495).
 """
@@ -101,7 +103,7 @@ def _assemble_grad(params, k, dk_dl, same_points):
     f2 = params.f * params.f
     eye = _eye_like(k, same_points)
     kmu = k + params.mu * eye
-    dK = torch.stack([2.0 * params.f * kmu, f2 * dk_dl, f2 * eye])
+    dK = torch.stack([2.0 * params.f * kmu, f2 * dk_dl, f2 * eye.expand_as(k)])
     return f2 * kmu, dK
 
 
@@ -118,12 +120,12 @@ def _window_slice(X, window):
     """Columns of X selected by one window row; padded (-1) columns are zero,
     so they add nothing to a squared distance (ref kernels.c:3054-3060)."""
     window = window.to(X.device)
-    cols = X[:, torch.clamp(window, min=0)]
+    cols = X[..., torch.clamp(window, min=0)]
     return cols * (window >= 0).to(X.dtype)
 
 
 def _additive_r2(X, Y, windows):
-    """Per-window squared distances, shape (W, n, m)."""
+    """Per-window squared distances, shape (W, ..., n, m)."""
     return torch.stack([
         sq_distance(_window_slice(X, w), None if Y is None else _window_slice(Y, w))
         for w in windows

@@ -61,7 +61,8 @@ def knn_pattern_host(X, lfil: int):
 
     Same output contract, as numpy (idx int32, mask bool).  Preceding
     neighbours come from a widening overall-KNN query (k doubles until every
-    row has enough preceding candidates or the whole prefix is used).
+    row has enough preceding candidates or the whole prefix is used), run
+    on all host cores.
     """
     from scipy.spatial import cKDTree
 
@@ -75,7 +76,7 @@ def knn_pattern_host(X, lfil: int):
         todo = np.arange(1, n)
         kq = min(max(4 * lfil, 64), n)
         while todo.size:
-            _, nb = tree.query(X[todo], k=kq)
+            _, nb = tree.query(X[todo], k=kq, workers=-1)
             nb = np.atleast_2d(nb)
             prec = nb < todo[:, None]
             cnt = prec.sum(axis=1)

@@ -18,3 +18,13 @@ def rand_perm(generator: torch.Generator, n: int, k: int | None = None):
     if k is not None:
         perm = perm[:k]
     return perm
+
+
+def expand_perm(perm_prefix, n: int):
+    """Complete a k-prefix permutation to a full n-permutation, the remaining
+    indices appended in ascending order (ref Nfft4GPExpandPerm,
+    SRC/utils/utils.h:141-149).  On the prefix's device."""
+    perm_prefix = torch.as_tensor(perm_prefix)
+    mask = torch.ones(n, dtype=torch.bool, device=perm_prefix.device)
+    mask[perm_prefix] = False
+    return torch.cat([perm_prefix, torch.nonzero(mask).flatten().to(perm_prefix.dtype)])

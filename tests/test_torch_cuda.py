@@ -63,6 +63,17 @@ Tolerances:
 
 float64 numpy inputs with the default device run fit and predict on the
 card in float32: finite values, the table kernels launched.
+
+The AFN and FSAI preconditioners (plain torch) at n = 4096, float32 on the
+card against CPU float64 on the same plan or pattern: relative Frobenius
+5e-3 for AFN's factors, solve, dvp, logdet and trace, 2e-4 for FSAI's
+(float32 against float64 on the CPU: up to 5.1e-4 and 2.0e-5; AFN's
+landmark Cholesky has condition ~1e3); the FSAI row repair through
+cholesky_ex on the card equal to the CPU's (float64, 1e-12); and the
+float32-table kernels (csrc/packed_ndft.cu) at chip_smoke's [afn-pcg]
+shape, n = 1e5, one 2-D window, 2P = 32, nv = 1 and nsets = 1: relative
+Frobenius 1e-4 against the plain versions (sqrt(n) eps for 1e5-term
+sums), a second launch bitwise equal.
 """
 
 import numpy as np
@@ -665,3 +676,93 @@ def test_multiclass_on_card_matches_cpu(dev):
     assert torch.equal(pg.labels.cpu(), pw.labels)
     np.testing.assert_allclose(pg.means.cpu().numpy(), pw.means.numpy(), rtol=1e-10, atol=1e-13)
     np.testing.assert_allclose(pg.std.cpu().numpy(), pw.std.numpy(), rtol=1e-10, atol=1e-13)
+
+
+def _afn_fsai(which, X, Z, dtype, device, plan_or_pattern):
+    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
+    from nfft4gp_torch.preconds import afn as ta
+    from nfft4gp_torch.preconds import fsai as tf
+
+    Xs = torch.from_numpy(X).to(device=device, dtype=dtype)
+    Zs = torch.from_numpy(Z).to(device=device, dtype=dtype)
+    p = KernelParams.make(1.0, 0.3, 0.1, dtype=dtype, device=device)
+    W = make_windows([[0, 1], [2, 3]])
+    if which == "afn":
+        plan = plan_or_pattern
+        plan = plan._replace(perm=plan.perm.to(device), pattern=tuple(t.to(device) for t in plan.pattern),
+                             pattern_t=tuple(t.to(device) for t in plan.pattern_t))
+        pre = ta.afn_setup_from_plan("gaussian", p, Xs, plan, require_grad=True, windows=W)
+        factors = [pre.L11, pre.gs.val, pre.gs.dval]
+    else:
+        pre = tf.fsai_setup("gaussian", p, Xs, 16, require_grad=True, windows=W,
+                            pattern=tuple(t.to(device) for t in plan_or_pattern))
+        factors = [pre.val, pre.dval]
+    return [t.cpu().double() for t in factors + [pre.solve(Zs), pre.dvp(Zs), pre.logdet().reshape(1),
+                                                 pre.trace()]]
+
+
+@pytest.mark.parametrize("which", ["afn", "fsai"])
+def test_afn_fsai_on_card_match_cpu(dev, which):
+    """Set-up, solve and dvp of AFN and FSAI at n = 4096 on CUDA tensors
+    (float32) against CPU float64, the same plan or pattern on both."""
+    from nfft4gp_torch.ops.kernels import KernelParams
+    from nfft4gp_torch.ops.knn import knn_pattern
+    from nfft4gp_torch.preconds.afn import afn_plan
+
+    rng = np.random.default_rng(41)
+    n = 4096
+    X = rng.uniform(size=(n, 4))
+    Z = rng.choice([-1.0, 1.0], size=(4, n))
+    if which == "afn":
+        shared = afn_plan("gaussian", KernelParams.make(1.0, 0.3, 0.1, dtype=torch.float64), torch.from_numpy(X),
+                          maxrank=200, lfil=16, rank=200, force_afn=True)
+    else:
+        shared = knn_pattern(torch.from_numpy(X), 16)
+    card = _afn_fsai(which, X, Z, torch.float32, dev, shared)
+    host = _afn_fsai(which, X, Z, torch.float64, torch.device("cpu"), shared)
+    limit = 5e-3 if which == "afn" else 2e-4
+    for got, want in zip(card, host):
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) <= limit
+
+
+def test_fsai_breakdown_repair_on_card(dev):
+    """Singular and indefinite row blocks: cholesky_ex on the card flags and
+    repairs the same rows as on the CPU, with the same values."""
+    from nfft4gp_torch.preconds.fsai import fsai_rows_from_blocks
+
+    rng = np.random.default_rng(3)
+    n, lfil = 12, 5
+    A = rng.normal(size=(n, lfil, lfil))
+    blocks = A @ np.transpose(A, (0, 2, 1)) + 0.5 * np.eye(lfil)
+    blocks[4] = np.ones((lfil, lfil))
+    blocks[7] = -np.eye(lfil)
+    mask = np.ones((n, lfil), bool)
+    dblocks = rng.normal(size=(n, 3, lfil, lfil))
+    dblocks = 0.5 * (dblocks + np.swapaxes(dblocks, 2, 3))
+    args = [torch.from_numpy(a) for a in (blocks, dblocks, mask)]
+    want = fsai_rows_from_blocks(*args)
+    got = fsai_rows_from_blocks(*[a.to(dev) for a in args])
+    assert int(got[2]) == int(want[2]) == 2
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0, atol=1e-12 * float(w.abs().max()))
+
+
+def test_f32_table_kernels_at_afn_pcg_shape(dev):
+    """The float32-table adjoint and forward at chip_smoke's [afn-pcg]
+    shape against their plain versions; second launches bitwise equal."""
+    n, P = 100_000, 16
+    Tp, rng = _table(dev, n, P, torch.float32)
+    pairs, singles = ((0, 1),), ()
+    alpha = torch.from_numpy(rng.normal(size=(1, n)).astype(np.float32)).to(dev)
+    A2 = pk.packed_adjoint(Tp, alpha, pairs=pairs, singles=singles)[0]
+    again = pk.packed_adjoint(Tp, alpha, pairs=pairs, singles=singles)[0]
+    assert torch.equal(A2[0], again[0])
+    W2, _ = pk.packed_adjoint_plain(Tp, alpha, pairs, singles)
+    assert _rel(A2[0], W2[:, 0]) <= 1e-4
+    G2 = [torch.from_numpy(rng.normal(size=(1, 2 * P, 2 * P)).astype(np.float32)).to(dev)]
+    y = pk.packed_forward(Tp, G2, pairs=pairs, singles=singles)[0]
+    assert torch.equal(y, pk.packed_forward(Tp, G2, pairs=pairs, singles=singles)[0])
+    want = pk.packed_forward_plain(Tp, torch.stack(G2, 1), None, pairs, singles)[0]
+    assert _rel(y, want) <= 1e-4

@@ -108,6 +108,8 @@ def test_port_imports_no_jax():
             "import nfft4gp_torch.models.problem, nfft4gp_torch.ops._cuda_build\n"
             "import nfft4gp_torch.models.gp, nfft4gp_torch.ops.cellgrid, nfft4gp_torch.ops.fastsum\n"
             "import nfft4gp_torch.models.multiclass, nfft4gp_torch.solvers.fused_pcg\n"
+            "import nfft4gp_torch.preconds.afn, nfft4gp_torch.preconds.fsai, nfft4gp_torch.ops.fps\n"
+            "import nfft4gp_torch.ops.rankest, nfft4gp_torch.io, nfft4gp_torch.cli\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                           timeout=120)
@@ -115,12 +117,8 @@ def test_port_imports_no_jax():
 
 
 def test_unported_paths_raise(synth):
-    """The FSAI and AFN preconditioners are not ported; fused + stream
-    conflict (ValueError, as in JAX)."""
+    """fused + stream conflict (ValueError, as in JAX)."""
     X, y = synth
-    for precond in ("fsai", "afn"):
-        with pytest.raises(NotImplementedError):
-            TProblem(precond=precond).make_loss(torch.tensor(X), torch.tensor(y))
     with pytest.raises(ValueError):
         TProblem(operator="fastsum", kernel="matern12", windows=[[0, 1]], fastsum_fused=True,
                  fastsum_engine="stream").make_loss(torch.tensor(X), torch.tensor(y))

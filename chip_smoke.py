@@ -20,7 +20,9 @@ Phases, one line each (any failure raises and exits non-zero):
   4. kernels-regen: the phase-regenerating kernels against their plain
      versions at the fused layout WINDOWS_FUSED (its 2-D and 1-D windows;
      N = 32, untrimmed 2P = 34), both phase sources ("doubling", "direct"),
-     nv = 1, 10 and nsets = 1, 2, 10, 20;
+     nv = 1, 10 and nsets = 1, 2, 10, 20 (the adjoint on the tensor cores
+     in 3xTF32, csrc/packed_ndft_regen.cu); a second launch of each must be
+     bitwise equal to the first;
      in 3 and 4 the limit is a relative Frobenius error <= 1e-4 (two f32
      sums over 2e5 terms in different orders, about sqrt(n) eps); times
      from CUDA events around back-to-back calls queued behind a sleep
@@ -137,10 +139,13 @@ regenerating kernels the phases are made there too), for CG
 torch.linalg.solve; Lanczos has none.  Each kernel's bound is the larger of
 its operations over the peak of the unit that runs them and its bytes (each
 input read once, each output written once) over 3.35 TB/s: for the two
-tensor-core kernels three times the flops (the three bf16 terms of the
-float32 operand) over the 989 TFLOP/s bf16 peak, for the other four the
-flops over the 67 TFLOP/s float32 peak; the H100 SXM's published peaks at
-700 W.
+bf16-table tensor-core kernels three times the flops (the three bf16 terms
+of the float32 operand) over the 989 TFLOP/s bf16 peak; for the
+regenerating adjoint three times its 2-D windows' flops (3xTF32) over the
+495 TFLOP/s dense TF32 peak plus its 1-D windows' flops over the 67
+TFLOP/s float32 peak; for the other four the flops over the float32 peak;
+the H100 SXM's published peaks at 700 W.  Each entry of the kernels JSON
+names the units its operations run on (`engine`).
 
 A `[done]` line gives the script's wall seconds from its start to the
 summary, and each phase's.  The line before the last is a JSON summary of the kernels; the
@@ -175,10 +180,17 @@ SOURCES = {"table": f"{PKG}_torch/csrc/packed_ndft_tc.cu", "table_f32": f"{PKG}_
 TPU_KERNELS = {"adjoint": f"{PKG}/ops/pallas_ndft.py:189", "forward": f"{PKG}/ops/pallas_ndft.py:361",
                "pcg": f"{PKG}/solvers/pallas_pcg.py:36", "lanczos": f"{PKG}/solvers/pallas_pcg.py:174"}
 # H100 SXM published peaks at its 700 W limit: float32 outside the tensor
-# cores, bf16 on the tensor cores, and HBM3 bandwidth
+# cores, bf16 and TF32 on the tensor cores (dense), and HBM3 bandwidth
 F32_PEAK = 67e12
 BF16_PEAK = 989e12
+TF32_PEAK = 495e12
 HBM_PEAK = 3.35e12
+# the units a kernel's operations run on, and their rate: the CUDA cores, or
+# three passes on the tensor cores (bf16: the three-term split of a float32
+# operand; tf32: 3xTF32, big*big + big*small + small*big)
+PEAKS = {"f32": F32_PEAK, "bf16x3": BF16_PEAK / 3, "tf32x3": TF32_PEAK / 3}
+ENGINES = {"f32": "CUDA cores", "bf16x3": "tensor cores, mma.sync bf16, 3-term split of the float32 operand",
+           "tf32x3": "tensor cores, mma.sync m16n8k8 3xTF32; the Nyquist columns and 1-D windows on the CUDA cores"}
 DENSE_NS = (2048, 4096)
 DENSE_MUS = (0.1, 0.01)
 PCG_MAXITS, PCG_TOL = 200, 1e-5
@@ -231,10 +243,10 @@ def _rel_err(got, want):
     return float(torch.linalg.norm(diff) / torch.linalg.norm(want.double())), float(diff.abs().max())
 
 
-def bound(flops, nbytes, tc=False):
-    """(ms, "operations" | "bytes"): the least time the card could take; the
-    operations on the CUDA cores, or with tc three bf16 tensor-core passes."""
-    t_ops = (3.0 * flops / BF16_PEAK if tc else flops / F32_PEAK) * 1e3
+def bound(flops, nbytes, unit="f32", f32_flops=0.0):
+    """(ms, "operations" | "bytes"): the least time the card could take;
+    flops on `unit` (a key of PEAKS) plus f32_flops on the CUDA cores."""
+    t_ops = (flops / PEAKS[unit] + f32_flops / F32_PEAK) * 1e3
     t_bytes = nbytes / HBM_PEAK * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -259,15 +271,17 @@ def library_calls(T, pairs, singles):
 
 
 def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets_list, timed, T32, src_bytes,
-               tc=False, repeat=False):
+               units=("f32", "f32"), repeat=False):
     """One adjoint kernel and one forward kernel against their plain versions.
 
     adj(alpha) / fwd(G2, G1) are the wrappers on one layout; adj_plain /
     fwd_plain the plain versions; T32 the float32 phases of the layout for
     the library yardstick; src_bytes the bytes of the kernels' phase source
-    (table or coordinates); tc: tensor-core kernels (their bound's unit);
-    repeat: a second launch must be bitwise equal to the first.  Returns per-case dicts (kernel, mode, shape,
-    rel, max_abs, ms, plain_ms, library_ms, bound_ms, bound_by, bitwise)."""
+    (table or coordinates); units: the PEAKS keys of the adjoint's 2-D
+    windows and of the forward (the adjoint's 1-D windows run on the CUDA
+    cores); repeat: a second launch must be bitwise equal to the first.
+    Returns per-case dicts (kernel, mode, shape, rel, max_abs, ms, plain_ms,
+    library_ms, bound_ms, bound_by, bitwise, engine)."""
     n, dev = X.shape[0], X.device
     W2 = 2 * P
     npairs, nsingles = len(lay.pairs), len(lay.singles)
@@ -288,9 +302,11 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         pms = cuda_ms(lambda: adj_plain(alpha)) if timed else None
         lms = cuda_ms(lambda: lib_adj(alpha)) if timed else None
         out = nv * (npairs * W2 * W2 + nsingles * W2)
-        b_ms, b_by = bound(2.0 * n * out, src_bytes + 4 * (nv * n + out), tc)
+        b_ms, b_by = bound(2.0 * n * nv * npairs * W2 * W2, src_bytes + 4 * (nv * n + out), units[0],
+                           f32_flops=2.0 * n * nv * nsingles * W2)
         cases.append(dict(kernel=names[0], shape=f"nv={nv}", rel=rel, max_abs=mx, lib_rel=lib_rel, ms=ms,
-                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by, bitwise=bitwise))
+                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by, bitwise=bitwise,
+                          engine=ENGINES[units[0]]))
 
     # realistic combined weights: K and dK/dl sets of real adjoint outputs
     from nfft4gp_torch.ops import fastsum as fs
@@ -318,9 +334,10 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         lms = cuda_ms(lambda: lib_fwd(G2s, G1s)) if timed else None
         weights = nsets * (npairs * W2 * W2 + nsingles * W2)
         flops = 2.0 * nsets * n * (npairs * (W2 * W2 + W2) + nsingles * W2)
-        b_ms, b_by = bound(flops, src_bytes + 4 * (weights + nsets * n), tc)
+        b_ms, b_by = bound(flops, src_bytes + 4 * (weights + nsets * n), units[1])
         cases.append(dict(kernel=names[1], shape=f"nsets={nsets}", rel=rel, max_abs=mx, lib_rel=lib_rel, ms=ms,
-                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by, bitwise=bitwise))
+                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by, bitwise=bitwise,
+                          engine=ENGINES[units[1]]))
 
     for c in cases:
         c["mode"] = tag.split(" ")[0]
@@ -364,12 +381,15 @@ def check_kernels(X, windows, nvs, nsets_list, timed=True, table_dtype=torch.bfl
         lambda a: pk.packed_adjoint_plain(Tp, a, pairs, singles),
         lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles),
         lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles),
-        pn, pn.P, X, nvs, nsets_list, timed, Tp.float(), Tp.numel() * Tp.element_size(), tc=tc, repeat=True)
+        pn, pn.P, X, nvs, nsets_list, timed, Tp.float(), Tp.numel() * Tp.element_size(),
+        units=("bf16x3", "bf16x3") if tc else ("f32", "f32"), repeat=True)
 
 
 def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20)):
     """The regenerating kernels against their plain versions on the d <= 2
-    windows of WINDOWS_FUSED, untrimmed (2P = 34), both phase sources."""
+    windows of WINDOWS_FUSED, untrimmed (2P = 34), both phase sources: the
+    adjoint on the tensor cores (3xTF32), the forward on the CUDA cores; a
+    second launch must be bitwise equal."""
     from nfft4gp_torch.ops import fastsum as fs
     from nfft4gp_torch.ops import packed_ndft as pk
 
@@ -386,7 +406,8 @@ def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20)):
             lambda a: pk.packed_adjoint_regen_plain(xT, a, P, pairs, singles, gen),
             lambda G2, G1: pk.packed_forward_regen(xT, G2, G1, **kw),
             lambda G2s, G1s: pk.packed_forward_regen_plain(xT, G2s, G1s, P, pairs, singles, gen),
-            lay, P, X, nvs, nsets_list, True, pk.phase_slab(xT, P, gen), xT.numel() * xT.element_size())
+            lay, P, X, nvs, nsets_list, True, pk.phase_slab(xT, P, gen), xT.numel() * xT.element_size(),
+            units=("tf32x3", "f32"), repeat=True)
     return cases
 
 
@@ -508,7 +529,7 @@ def check_dense_kernels(X, y):
         ems = cuda_ms(lambda: pcg(lambda v: K @ v, b, tol=PCG_TOL, maxits=PCG_MAXITS), reps=3, warmup=1)
         b_ms, b_by = bound(it * (2.0 * n * n + 10.0 * n), 4.0 * (n * n + 2 * n))
         c = dict(kernel="fused_pcg_dense", shape=f"n={n} mu={mu}", max_abs=float((x - xp).abs().max()), ms=ms,
-                 plain_ms=pms, library_ms=lms, engine_ms=ems, bound_ms=b_ms, bound_by=b_by)
+                 plain_ms=pms, library_ms=lms, engine_ms=ems, bound_ms=b_ms, bound_by=b_by, engine=ENGINES["f32"])
         cases.append(c)
         print(f"[dense-kernels] fused_pcg_dense n={n} (f, l, mu)=(1, 0.5, {mu}): niter={it} (plain {itp}) "
               f"relres={rr:.3e} (plain {rp:.3e}) true_relres_f64={true:.3e} (plain {true_p:.3e}) "
@@ -547,7 +568,8 @@ def check_dense_kernels(X, y):
         b_ms, b_by = bound(flops, 4.0 * (n * n + SLQ_NV * n * (SLQ_ITS + 2) + SLQ_NV * 2 * SLQ_ITS))
         max_abs = max(coef_err, float((V - Vp).abs().max()))
         cases.append(dict(kernel="fused_lanczos_dense", shape=f"n={n} mu={DENSE_MUS[0]}", max_abs=max_abs, ms=ms,
-                          plain_ms=pms, library_ms=None, engine_ms=ems, bound_ms=b_ms, bound_by=b_by))
+                          plain_ms=pms, library_ms=None, engine_ms=ems, bound_ms=b_ms, bound_by=b_by,
+                          engine=ENGINES["f32"]))
         print(f"[dense-kernels] fused_lanczos_dense n={n} nv={SLQ_NV} maxits={SLQ_ITS}: coef_err/max|alpha|="
               f"{coef_err / scale:.3e} V_rel_err={v_rel:.3e} logdet/n={est:.8e} (slq_logdet {ref:.8e}) "
               f"bitwise_repeat={bitwise} ms={ms:.4f} plain_ms={pms:.4f} library_ms=None "
@@ -976,7 +998,7 @@ def _summary(name, route, mode, cases, shape, launches):
            "mode": mode, "shape": shape, "launches": launches[name],
            "max_abs_err": max(d["max_abs"] for d in cases if d["kernel"] == name),
            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-           "library_ms": c["library_ms"]}
+           "library_ms": c["library_ms"], "engine": c["engine"]}
     if name in launches.get("by_shape", {}):
         out["launches_by_shape"] = launches["by_shape"][name]
         out["ms_by_shape"] = {d["shape"]: d["ms"] for d in cases
@@ -987,7 +1009,11 @@ def _summary(name, route, mode, cases, shape, launches):
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
-    import nfft4gp_torch  # noqa: F401  (switches TF32 off)
+    try:
+        import nfft4gp_torch  # noqa: F401  (switches TF32 off)
+    except ModuleNotFoundError as e:
+        sys.exit(f"chip_smoke: the port's package is not beside this script ({e}); run it from the root of a "
+                 "checkout")
     from nfft4gp_torch.models.problem import GPProblem
     from nfft4gp_torch.ops import _cuda_build
 

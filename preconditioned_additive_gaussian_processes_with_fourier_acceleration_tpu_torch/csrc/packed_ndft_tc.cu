@@ -7,7 +7,8 @@
 // path: bf16 table, float32 alpha and weights, float32 sums):
 //   _adjoint_kernel (pallas_call at :326) -> adjoint_tc_kernel for the 2-D
 //       windows, adjoint_singles_kernel (packed_ndft.cuh, CUDA cores) for the
-//       1-D windows, reduce_slices_kernel (fixed-order split-K sum);
+//       1-D windows, reduce_slices_kernel (tc_common.cuh: fixed-order
+//       split-K sum);
 //   _forward_kernel (pallas_call at :508) -> split_weights_kernel (once per
 //       call) + forward_tc_kernel.
 //
@@ -67,6 +68,7 @@
 #include <stdint.h>
 
 #include "packed_ndft.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -79,30 +81,6 @@ constexpr int TC_RBMAX_ROWS = 512;  // adjoint rows (rhs x WR) per block: 32 M t
 constexpr int FWD_R = 256;         // forward points per block
 constexpr int FWD_SG = 4;          // weight sets per staged group
 constexpr int FWD_SMAX = 32;       // weight sets per forward pass
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; bytes < 16 zero-fills the rest of the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // D += A B, A 16x16 (row), B 16x8 (col), bf16 in, float32 accumulate
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -334,29 +312,6 @@ struct Bf16Rows {
   }
 };
 
-constexpr int RED_X = 32, RED_Y = 16;  // outputs x slice groups per reduce block
-
-// out[o] = sum over the nchunks slices of part[c][o] in a fixed order: slice
-// group y adds slices y, y + RED_Y, ... and the groups are added in order
-// (RED_Y independent load streams per output instead of one long one)
-__global__ void __launch_bounds__(RED_X * RED_Y) reduce_slices_kernel(const float* __restrict__ part,
-                                                                      int nchunks, size_t S,
-                                                                      float* __restrict__ out) {
-  __shared__ float red[RED_Y][RED_X];
-  const size_t o = (size_t)blockIdx.x * RED_X + threadIdx.x;
-  float s = 0.f;
-  if (o < S)
-    for (int c = threadIdx.y; c < nchunks; c += RED_Y) s += part[(size_t)c * S + o];
-  red[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && o < S) {
-    float tot = 0.f;
-#pragma unroll
-    for (int y = 0; y < RED_Y; ++y) tot += red[y][threadIdx.x];
-    out[o] = tot;
-  }
-}
-
 // --- forward -------------------------------------------------------------------
 
 template <int WR>
@@ -585,7 +540,7 @@ int adjoint_tc(const bf16* tab, int ld, const float* alpha, int n, int nv, const
     adjoint_singles_kernel<WR, Bf16Rows<WR>><<<grid, NT, 0, st>>>(
         Bf16Rows<WR>{tab, ld}, alpha, n, nv, make_rows(singles, nsingles), nsingles, chunk, part, S, S2);
   }
-  reduce_slices_kernel<<<(unsigned)((S + RED_X - 1) / RED_X), dim3(RED_X, RED_Y), 0, st>>>(part, nchunks, S, out);
+  launch_reduce_slices(part, nchunks, S, out, st);
   return (int)cudaGetLastError();
 }
 

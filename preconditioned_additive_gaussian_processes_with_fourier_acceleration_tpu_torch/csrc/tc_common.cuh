@@ -1,0 +1,66 @@
+// Pieces shared by the tensor-core NDFT adjoints of packed_ndft_tc.cu (bf16
+// tables) and packed_ndft_regen.cu (regenerated phases): asynchronous copies
+// into shared memory and the fixed-order sum of the per-chunk partial
+// slices (the split-K second pass).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; bytes < 16 zero-fills the rest of the destination
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int RED_X = 32, RED_Y = 16;  // outputs x slice groups per reduce block
+
+// out[o] = sum over the nchunks slices of part[c][o] in a fixed order: slice
+// group y adds slices y, y + RED_Y, ... and the groups are added in order
+// (RED_Y independent load streams per output instead of one long one)
+__global__ void __launch_bounds__(RED_X * RED_Y) reduce_slices_kernel(const float* __restrict__ part,
+                                                                      int nchunks, size_t S,
+                                                                      float* __restrict__ out) {
+  __shared__ float red[RED_Y][RED_X];
+  const size_t o = (size_t)blockIdx.x * RED_X + threadIdx.x;
+  float s = 0.f;
+  if (o < S)
+    for (int c = threadIdx.y; c < nchunks; c += RED_Y) s += part[(size_t)c * S + o];
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && o < S) {
+    float tot = 0.f;
+#pragma unroll
+    for (int y = 0; y < RED_Y; ++y) tot += red[y][threadIdx.x];
+    out[o] = tot;
+  }
+}
+
+void launch_reduce_slices(const float* part, int nchunks, size_t S, float* out, cudaStream_t st) {
+  reduce_slices_kernel<<<(unsigned)((S + RED_X - 1) / RED_X), dim3(RED_X, RED_Y), 0, st>>>(part, nchunks, S,
+                                                                                         out);
+}
+
+}  // namespace

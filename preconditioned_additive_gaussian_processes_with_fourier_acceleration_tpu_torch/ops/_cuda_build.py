@@ -6,8 +6,10 @@ Four shared libraries with a plain C interface, one per source:
   bf16 tables (the training path);
 - `packed_ndft`: csrc/packed_ndft.cu, the CUDA-core NDFT kernels (templates
   of csrc/packed_ndft.cuh) on a float32 table;
-- `packed_ndft_regen`: csrc/packed_ndft_regen.cu, the same templates on the
-  regenerating phase sources ("doubling", "direct");
+- `packed_ndft_regen`: csrc/packed_ndft_regen.cu, the phase-regenerating
+  kernels ("doubling", "direct"): the adjoint on the tensor cores (3xTF32;
+  its Nyquist columns and 1-D windows on the CUDA cores in the same
+  kernel), the forward on the templates;
 - `fused_pcg`: csrc/fused_pcg.cu, the cooperative CG and Lanczos kernels.
 
 Each is compiled at first use with
@@ -41,9 +43,9 @@ SOURCES = {"packed_ndft_tc": CSRC / "packed_ndft_tc.cu",
            "packed_ndft_regen": CSRC / "packed_ndft_regen.cu",
            "fused_pcg": CSRC / "fused_pcg.cu"}
 # the headers of csrc/ each source includes: part of its build key
-HEADERS = {"packed_ndft_tc": (CSRC / "packed_ndft.cuh",),
+HEADERS = {"packed_ndft_tc": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
            "packed_ndft": (CSRC / "packed_ndft.cuh",),
-           "packed_ndft_regen": (CSRC / "packed_ndft.cuh",),
+           "packed_ndft_regen": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
            "fused_pcg": ()}
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,7 +55,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _TILE = 64
 # aim for a few blocks per SM of an H100 (132 SMs) in the adjoint
 _TARGET_BLOCKS = 528
-# right-hand sides per block of the tensor-core adjoint: 32 tiles of 16 rows
+# rows (right-hand sides x 2P) per block of the tensor-core adjoints: 32 tiles of 16
 _TC_ROWS = 512
 # phase_gen codes of packed_ndft_regen.cu
 PHASE_GEN_CODES = {"doubling": 0, "direct": 1}
@@ -124,6 +126,14 @@ def _ndft_signatures(lib):
     lib.forward_launch.restype = I
 
 
+def _ndft_regen_signatures(lib):
+    """As _ndft_signatures; the adjoint also takes the tensor-core launch
+    configuration (nw, wk, mpw) before out, as tc_adjoint_launch does."""
+    _ndft_signatures(lib)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, I, I, I, P, P]
+
+
 def _ndft_tc_signatures(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.tc_adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, I, I, I, P, P]
@@ -146,7 +156,7 @@ def _fused_pcg_signatures(lib):
 
 
 _SIGNATURES = {"packed_ndft_tc": _ndft_tc_signatures, "packed_ndft": _ndft_signatures,
-               "packed_ndft_regen": _ndft_signatures, "fused_pcg": _fused_pcg_signatures}
+               "packed_ndft_regen": _ndft_regen_signatures, "fused_pcg": _fused_pcg_signatures}
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,22 +244,25 @@ def forward(Tp, G2, G1, pairs, singles):
 
 
 def adjoint_tc_split(WR: int, nv: int) -> tuple[int, int, int]:
-    """(nw, wk, mpw) of the tensor-core adjoint for nv right-hand sides: the
-    warps of a block, their split of a tile's four 16-point steps, and the
-    16-row M tiles per warp (nw / wk warps along M); the instances that
-    csrc/packed_ndft_tc.cu compiles."""
-    mtiles = min(nv, _TC_ROWS // WR) * WR // 16
+    """(nw, wk, mpw) of the tensor-core adjoints for nv right-hand sides: the
+    warps of a block, their split of a tile's k-steps, and the 16-row M
+    tiles per warp (nw / wk warps along M); the instances that
+    csrc/packed_ndft_tc.cu and csrc/packed_ndft_regen.cu compile.  A block
+    holds up to _TC_ROWS // WR right-hand sides, WR rows each, in
+    ceil(rows / 16) M tiles."""
+    mtiles = -(-min(nv, _TC_ROWS // WR) * WR // 16)
     for limit, split in ((2, (8, 4, 1)), (4, (8, 2, 1)), (8, (8, 1, 1)), (16, (8, 1, 2)), (24, (12, 1, 2))):
         if mtiles <= limit:
             return split
     return 8, 1, 4
 
 
-def adjoint_tc(Tp, alpha, pairs, singles):
-    """Launch the bf16-table tensor-core adjoint (csrc/packed_ndft_tc.cu):
+def _adjoint_tc(lib, fn, what, src, src_flag, alpha, WR, n, pairs, singles):
+    """One tensor-core adjoint launch (lib's function fn: tc_adjoint_launch or
+    the regenerating adjoint_launch): one block per (2-D window, chunk,
+    group of up to _TC_ROWS // WR right-hand sides), one per (1-D window,
+    chunk, rhs group of the CUDA-core template).  Returns
     ((nv, npairs, WR, WR), (nv, nsingles, WR))."""
-    lib = library("packed_ndft_tc")
-    _, WR, n = Tp.shape
     nv = alpha.shape[0]
     np_, ns = len(pairs), len(singles)
     nw, wk, mpw = adjoint_tc_split(WR, nv)
@@ -260,11 +273,18 @@ def adjoint_tc(Tp, alpha, pairs, singles):
     out = torch.empty(S, dtype=torch.float32, device=alpha.device)
     pr, sg = _ints(v for pair in pairs for v in pair), _ints(singles)
     with torch.cuda.device(alpha.device):
-        code = lib.tc_adjoint_launch(Tp.data_ptr(), Tp.stride(1), alpha.data_ptr(), WR, n, nv, pr, np_, sg,
-                                     ns, part.data_ptr(), nchunks, chunk, nw, wk, mpw, out.data_ptr(),
-                                     _stream(alpha))
-    _check(lib, code, "packed_adjoint")
+        code = getattr(lib, fn)(src.data_ptr(), src_flag, alpha.data_ptr(), WR, n, nv, pr, np_, sg, ns,
+                                part.data_ptr(), nchunks, chunk, nw, wk, mpw, out.data_ptr(), _stream(alpha))
+    _check(lib, code, what)
     return out[:S2].reshape(nv, np_, WR, WR), out[S2:].reshape(nv, ns, WR)
+
+
+def adjoint_tc(Tp, alpha, pairs, singles):
+    """Launch the bf16-table tensor-core adjoint (csrc/packed_ndft_tc.cu):
+    ((nv, npairs, WR, WR), (nv, nsingles, WR))."""
+    _, WR, n = Tp.shape
+    return _adjoint_tc(library("packed_ndft_tc"), "tc_adjoint_launch", "packed_adjoint", Tp, Tp.stride(1), alpha,
+                       WR, n, pairs, singles)
 
 
 # weight sets per pass of the tensor-core forward (FWD_SMAX in the source)
@@ -291,9 +311,11 @@ def forward_tc(Tp, G2, G1, pairs, singles):
 
 
 def adjoint_regen(xT, alpha, WR, pairs, singles, phase_gen):
-    """Launch the regenerating adjoint kernels on coordinates xT (Dtot, n)."""
-    return _adjoint(library("packed_ndft_regen"), "packed_adjoint_regen", xT,
-                    PHASE_GEN_CODES[phase_gen], alpha, WR, xT.shape[1], pairs, singles)
+    """Launch the regenerating adjoint on coordinates xT (Dtot, n)
+    (csrc/packed_ndft_regen.cu): the 2-D windows on the tensor cores
+    (3xTF32), the 1-D windows on the CUDA cores."""
+    return _adjoint_tc(library("packed_ndft_regen"), "adjoint_launch", "packed_adjoint_regen", xT,
+                       PHASE_GEN_CODES[phase_gen], alpha, WR, xT.shape[1], pairs, singles)
 
 
 def forward_regen(xT, G2, G1, WR, pairs, singles, phase_gen):

@@ -28,7 +28,9 @@ three bf16 terms that hold their float32 significand exactly, so the
 products are those of float32 arithmetic and the sums are float32.  A
 float32 table goes to the CUDA-core kernels of csrc/packed_ndft.cu.  alpha
 and the weights are float32.  The regenerating kernels take float32
-coordinates and run on the CUDA cores.
+coordinates; their adjoint runs on the tensor cores in 3xTF32 (each
+float32 operand split into two tf32 parts, three products), their forward
+on the CUDA cores (csrc/packed_ndft_regen.cu).
 
 `pack_phase_table` pads the table's storage along the points to a multiple
 of 64 and returns the view of its first n columns: the tensor-core kernels
@@ -294,7 +296,11 @@ def packed_adjoint_regen(xT, alpha, *, P: int, pairs: tuple, singles: tuple = ()
     Replaces the TPU kernel `_adjoint_kernel` (ops/pallas_ndft.py) in its
     "doubling" / "direct" modes.  xT: (Dtot, n) scaled window coordinates,
     P modes per row (the fused path keeps the Nyquist mode: P = N/2 + 1).
-    Same outputs as `packed_adjoint`.
+    Same outputs as `packed_adjoint`.  On CUDA tensors one launch of
+    `adjoint_regen_tc_kernel` (csrc/packed_ndft_regen.cu): the 2-D windows
+    on the tensor cores (3xTF32: about 3 * 2^-22 relative per product), their
+    Nyquist columns and the 1-D windows on the CUDA cores; on CPU tensors
+    the plain version runs.
     """
     _check_coords(xT, pairs, singles)
     if phase_gen not in PHASE_GENS:

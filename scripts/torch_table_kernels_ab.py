@@ -1,24 +1,36 @@
-"""Time the port's bf16-table NDFT kernels against an earlier build of them,
-and profile one gaussian loss step, on one NVIDIA GPU.
+"""Time the port's NDFT kernels against an earlier build of them, and
+profile one loss step, on one NVIDIA GPU.
 
     python3 scripts/torch_table_kernels_ab.py --old-csrc OLD/csrc
+    python3 scripts/torch_table_kernels_ab.py --kernels regen --old-csrc OLD/csrc
 
-OLD/csrc holds an earlier `packed_ndft.cu` (and its `packed_ndft.cuh`) whose
-C interface takes a contiguous table and a bf16 flag (the CUDA-core kernels
-the tensor-core ones replaced; unpack them from an earlier commit with
-`git archive`).  At the training shapes of chip_smoke.py (n = 2e5, d = 10,
-five 2-D windows, N = 32, bf16 table) it builds that source with nvcc into
+OLD/csrc is an earlier `csrc/` (unpack it from an earlier commit with
+`git archive`).  The script builds one of its sources with nvcc into
 `_chip_scratch/ab_build/`, checks the old kernels against the current ones,
-then times them in turns, old, new, new, old (medians of CUDA-event
-timings), at nv = 1, 10 (adjoint) and nsets = 1, 2, 10, 20 (forward), and
-prints the ratios old / new.  Without --old-csrc only the current kernels
-are timed.
+then times them in turns, old, new, new, old (medians of `cuda_ms`, the
+card's time), and prints the ratios old / new.  Without --old-csrc only the
+current kernels are timed.
 
-Then it profiles one loss-and-gradient step of GPProblem(gaussian, five 2-D
-windows, fastsum, nystrom, stream engine) at n = 2e5 under torch.profiler
-after a warm-up step: wall time, device-busy time (the union of the device
-kernels' intervals) and its share of the wall time, and the device time by
-kernel.  Prints one JSON line at the end.  Exits non-zero without CUDA.
+--kernels table (the default): OLD/csrc/packed_ndft.cu, whose C interface
+takes a contiguous table and a bf16 flag (the CUDA-core kernels the
+bf16-table tensor-core ones replaced), at the training shapes of
+chip_smoke.py (n = 2e5, d = 10, five 2-D windows, N = 32, bf16 table):
+adjoint nv = 1, 10, forward nsets = 1, 2, 10, 20.  Then one profiled
+loss-and-gradient step of GPProblem(gaussian, five 2-D windows, fastsum,
+nystrom, stream engine) at n = 2e5.
+
+--kernels regen: OLD/csrc/packed_ndft_regen.cu of the same C interface as
+the current one without the launch configuration (the CUDA-core
+regenerating adjoint of the parent of the tensor-core one), at
+chip_smoke.py's [kernels-regen] shapes (WINDOWS_FUSED, n = 2e5, 2P = 34,
+both phase sources): the adjoint at nv = 1, 10.  Then one profiled
+loss-and-gradient step of chip_smoke.py's [fused] problem
+(GPProblem(matern12, WINDOWS_FUSED, fastsum_fused=True)) at n = 2e5.
+
+The profile (torch.profiler, after a warm-up step): wall time, device-busy
+time (the union of the device kernels' intervals) and its share of the wall
+time, and the device time by kernel.  Prints one JSON line at the end.
+Exits non-zero without CUDA.
 """
 
 import argparse
@@ -40,18 +52,20 @@ NVS = (1, 10)
 NSETS = (1, 2, 10, 20)
 
 
-def build_old(csrc: Path) -> ctypes.CDLL:
+def build_old(csrc: Path, source: str) -> ctypes.CDLL:
+    """The earlier `source` of csrc, built and loaded; its adjoint_launch /
+    forward_launch take (phase source, its flag, ...) without a launch
+    configuration."""
     from nfft4gp_torch.ops import _cuda_build
 
-    out = ROOT / "_chip_scratch" / "ab_build" / "libpacked_ndft_old.so"
+    out = ROOT / "_chip_scratch" / "ab_build" / f"lib{Path(source).stem}_old.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_cuda_build._nvcc(), *_cuda_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(out),
-                    str(csrc / "packed_ndft.cu")], check=True)
+                    str(csrc / source)], check=True)
     lib = ctypes.CDLL(str(out))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, P, P]
-    lib.forward_launch.argtypes = [P, I, I, I, P, I, P, P, I, P, I, P, P]
-    lib.adjoint_launch.restype = lib.forward_launch.restype = I
+    _cuda_build._ndft_signatures(lib)
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -124,14 +138,57 @@ def ab(old_lib, X):
     return rows
 
 
-def profile_step(X, y):
+def ab_regen(old_lib, X):
+    """The regenerating adjoint, current against old, at [kernels-regen]'s
+    shapes; the old one chunked as its wrapper chunked it."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    lay = fs._packed_layout(cs._plan(X, cs.WINDOWS_FUSED))
+    P = fs._nmodes(cs.FASTSUM_N)
+    xT, pairs, singles = lay.xT, lay.pairs, lay.singles
+    gen = torch.Generator(device=X.device).manual_seed(3)
+    # the layout's windows, then its 2-D and its 1-D windows alone ("doubling")
+    cases = [(g, nv, "", pairs, singles) for g in pk.PHASE_GENS for nv in NVS]
+    cases += [("doubling", nv, f" {part} only", pr, sg) for nv in NVS
+              for part, pr, sg in (("2-D windows", pairs, ()), ("1-D windows", (), singles))]
+    rows = []
+    for phase_gen, nv, part, prs, sgs in cases:
+        alpha = torch.randn((nv, X.shape[0]), generator=gen, device=X.device)
+
+        def new(alpha=alpha, phase_gen=phase_gen, prs=prs, sgs=sgs):
+            return pk.packed_adjoint_regen(xT, alpha, P=P, pairs=prs, singles=sgs, phase_gen=phase_gen)
+
+        row = {"call": f"adjoint_regen {phase_gen} nv={nv}{part}"}
+        if old_lib:
+            def old(alpha=alpha, phase_gen=phase_gen, prs=prs, sgs=sgs):
+                return cb._adjoint(old_lib, "old packed_adjoint_regen", xT, cb.PHASE_GEN_CODES[phase_gen],
+                                   alpha, 2 * P, xT.shape[1], prs, sgs)
+
+            got = torch.cat([torch.stack(v, 1).reshape(-1) for v in new() if v])
+            want = torch.cat([v.reshape(-1) for v in old()])
+            row["rel_old_new"] = float(torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double()))
+            t = [cs.cuda_ms(old), cs.cuda_ms(new), cs.cuda_ms(new), cs.cuda_ms(old)]
+            row.update(old_ms=[t[0], t[3]], new_ms=[t[1], t[2]], ratio_old_over_new=(t[0] + t[3]) / (t[1] + t[2]))
+        else:
+            row["new_ms"] = [cs.cuda_ms(new)]
+        print(f"[ab] {json.dumps(row)}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def profile_step(X, y, kernels):
     from torch.profiler import ProfilerActivity, profile
 
     from nfft4gp_torch.models.problem import GPProblem
     from nfft4gp_torch.models.transforms import transform_inverse
 
-    prob = GPProblem(kernel="gaussian", windows=cs.WINDOWS, operator="fastsum", precond="nystrom",
-                     rank=50, maxits=10, nvecs=10, fastsum_N=cs.FASTSUM_N, fastsum_engine="stream")
+    if kernels == "regen":
+        prob = GPProblem(fastsum_fused=True, **cs.FUSED)
+    else:
+        prob = GPProblem(kernel="gaussian", windows=cs.WINDOWS, operator="fastsum", precond="nystrom",
+                         rank=50, maxits=10, nvecs=10, fastsum_N=cs.FASTSUM_N, fastsum_engine="stream")
     loss_fn = prob.make_loss(X, y)
     raw = transform_inverse("softplus", torch.tensor([1.0, 0.5, 0.1], device=X.device))
     loss_fn(raw)
@@ -153,9 +210,12 @@ def profile_step(X, y):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
-    out = {"loss": float(loss), "wall_ms": wall_ms, "device_busy_ms": busy / 1e3 if spans else None,
-           "busy_share": busy / 1e3 / wall_ms if spans else None, "device_kernels": len(spans),
-           "device_ms_by_kernel": top}
+    # the NDFT kernels of the port by name (csrc/), whether in the top or not
+    ndft = {k: v for k, v in by_kernel.items()
+            if any(s in k for s in ("adjoint", "forward_kernel", "forward_tc", "reduce_slices", "split_weights"))}
+    out = {"problem": kernels, "loss": float(loss), "wall_ms": wall_ms,
+           "device_busy_ms": busy / 1e3 if spans else None, "busy_share": busy / 1e3 / wall_ms if spans else None,
+           "device_kernels": len(spans), "device_ms_by_kernel": top, "ndft_kernels_ms": ndft}
     print(f"[profile] {json.dumps(out)}", flush=True)
     return out
 
@@ -163,16 +223,18 @@ def profile_step(X, y):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--old-csrc", type=Path, default=None)
+    ap.add_argument("--kernels", choices=("table", "regen"), default="table")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_table_kernels_ab: no CUDA device")
     import nfft4gp_torch  # noqa: F401  (switches TF32 off)
 
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi name, power.limit: {cs.nvidia_smi()}", flush=True)
-    old_lib = build_old(args.old_csrc.resolve()) if args.old_csrc else None
+    source = "packed_ndft_regen.cu" if args.kernels == "regen" else "packed_ndft.cu"
+    old_lib = build_old(args.old_csrc.resolve(), source) if args.old_csrc else None
     X, y = cs.make_data(cs.N_POINTS)
-    rows = ab(old_lib, X)
-    prof = profile_step(X, y)
+    rows = ab_regen(old_lib, X) if args.kernels == "regen" else ab(old_lib, X)
+    prof = profile_step(X, y, args.kernels)
     print(json.dumps({"ab": rows, "profile": prof}), flush=True)
 
 

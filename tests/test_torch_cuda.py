@@ -15,6 +15,12 @@ than one tile, weight-set counts that straddle the forward's set tiles,
 layouts with only 2-D or only 1-D windows, and the 32-pair / 64-single
 limits of one call.
 
+The regenerating adjoint (tensor cores, 3xTF32, csrc/packed_ndft_regen.cu)
+is held over 1, 3 and 32 pairs with and without 1-D windows, n = 1, 7, 63,
+64, 65, 2047, 20001, nv = 1 to 33 (every launch configuration and more
+right-hand sides than one 512-row block holds), coordinates at 0 and
++-0.5, with a bitwise-equal second launch.
+
 The tensor-core kernels of bf16 tables (csrc/packed_ndft_tc.cu) are held
 at their own edges: n = 1, 63, 64, 65 (one 64-point tile and its
 neighbours), 37, 4099 and 2e4; nv = 1, 2, 3, 10, 16, 20 (the k-split and
@@ -43,7 +49,8 @@ Tolerances:
   multiclass loss in float64: rtol 1e-10;
 - kernels: relative Frobenius error 1e-5 -- the same products summed in
   another order in float32, about sqrt(n) eps for n of a few thousand; the
-  regenerated phases differ from torch's cos/sin by about 1e-6;
+  regenerated phases differ from torch's cos/sin by about 1e-6; the 3xTF32
+  products of the regenerating adjoint by about 3 * 2^-22;
 - a whole loss step on the card against the same step on CPU tensors (plain
   versions), float32: for the stream engine loss rtol 1e-4, gradient rtol
   1e-3 / atol 1e-4 -- the kernels' float32 rounding carried through the
@@ -264,20 +271,45 @@ def _coords(dev, n, rows=5, seed=0):
     return torch.from_numpy(rng.uniform(-0.25, 0.25, size=(rows, n)).astype(np.float32)).to(dev), rng
 
 
-@pytest.mark.parametrize("layout", sorted(LAYOUTS))
-@pytest.mark.parametrize("n", [37, 4099])
+_WIDE = tuple((2 * w, 2 * w + 1) for w in range(32))
+REGEN_LAYOUTS = {
+    "one": (((0, 1),), ()),
+    "one+single": (((0, 1),), (64,)),
+    "pairs": (((0, 1), (2, 3), (1, 4)), ()),
+    "pairs+single": (((0, 1), (2, 3), (1, 4)), (65,)),
+    "wide": (_WIDE, ()),
+    "wide+singles": (_WIDE, (64, 65)),
+    "singles": ((), (0, 2, 4)),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(REGEN_LAYOUTS))
+@pytest.mark.parametrize("n", [1, 7, 63, 64, 65, 2047, 20001])
 @pytest.mark.parametrize("P", [9, 17])
 @pytest.mark.parametrize("phase_gen", pk.PHASE_GENS)
-@pytest.mark.parametrize("nv", [1, 9])
+@pytest.mark.parametrize("nv", [1, 2, 3, 4, 8, 10, 15, 16, 20, 33])
 def test_adjoint_regen_matches_plain(dev, layout, n, P, phase_gen, nv):
-    pairs, singles = LAYOUTS[layout]
-    xT, rng = _coords(dev, n)
+    """The tensor-core 2-D windows (3xTF32) and the CUDA-core 1-D windows:
+    1, 3 and 32 pairs with and without 1-D windows; n around the 64-point
+    tile; nv across the M-tile counts of the launch configurations (2, 4, 8,
+    16, 24, 32 tiles) and past the 512-row block (28 rhs at 2P = 18, 15 at
+    34); coordinates at 0 and +-0.5 among uniform ones in [-0.5, 0.5).  A
+    second launch is bitwise equal and both are counted."""
+    pairs, singles = REGEN_LAYOUTS[layout]
+    rng = np.random.default_rng(n + nv)
+    x = rng.uniform(-0.5, 0.5, size=(66, n)).astype(np.float32)
+    x[:, :3] = np.array([0.0, 0.5, -0.5], dtype=np.float32)[:min(3, n)]
+    xT = torch.from_numpy(x).to(dev)
     alpha = torch.from_numpy(rng.normal(size=(nv, n)).astype(np.float32)).to(dev)
-    A2, A1 = pk.packed_adjoint_regen(xT, alpha, P=P, pairs=pairs, singles=singles, phase_gen=phase_gen)
+    before = pk.packed_adjoint_regen.launches_by_shape.get(f"nv={nv}", 0)
+    runs = [pk.packed_adjoint_regen(xT, alpha, P=P, pairs=pairs, singles=singles, phase_gen=phase_gen)
+            for _ in range(2)]
     torch.cuda.synchronize()
+    assert pk.packed_adjoint_regen.launches_by_shape[f"nv={nv}"] == before + 2
+    got, again = (torch.cat([torch.stack(A2, 1).reshape(-1) if A2 else alpha.new_zeros(0),
+                             torch.stack(A1, 1).reshape(-1) if A1 else alpha.new_zeros(0)]) for A2, A1 in runs)
+    assert torch.equal(got, again)
     W2, W1 = pk.packed_adjoint_regen_plain(xT, alpha, P, pairs, singles, phase_gen)
-    got = torch.cat([torch.stack(A2, 1).reshape(-1) if A2 else alpha.new_zeros(0),
-                     torch.stack(A1, 1).reshape(-1) if A1 else alpha.new_zeros(0)])
     assert _rel(got, torch.cat([W2.reshape(-1), W1.reshape(-1)])) <= KERNEL_RTOL
 
 

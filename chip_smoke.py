@@ -20,9 +20,11 @@ Phases, one line each (any failure raises and exits non-zero):
   4. kernels-regen: the phase-regenerating kernels against their plain
      versions at the fused layout WINDOWS_FUSED (its 2-D and 1-D windows;
      N = 32, untrimmed 2P = 34), both phase sources ("doubling", "direct"),
-     nv = 1, 10 and nsets = 1, 2, 10, 20 (the adjoint on the tensor cores
-     in 3xTF32, csrc/packed_ndft_regen.cu); a second launch of each must be
-     bitwise equal to the first;
+     nv = 1, 10 and nsets = 1, 2, 10, 20 (both on the tensor cores in
+     3xTF32, csrc/packed_ndft_regen.cu: the adjoint's bound and the
+     forward's on 3 x their 2-D windows' flops at the TF32 peak or their
+     CUDA-core flops at the float32 peak, whichever takes longer); a second
+     launch of each must be bitwise equal to the first;
      in 3 and 4 the limit is a relative Frobenius error <= 1e-4 (two f32
      sums over 2e5 terms in different orders, about sqrt(n) eps); times
      from CUDA events around back-to-back calls queued behind a sleep
@@ -138,13 +140,14 @@ of a float32 phase table made outside the timed region (for the
 regenerating kernels the phases are made there too), for CG
 torch.linalg.solve; Lanczos has none.  Each kernel's bound is the larger of
 its operations over the peak of the unit that runs them and its bytes (each
-input read once, each output written once) over 3.35 TB/s: for the two
-bf16-table tensor-core kernels three times the flops (the three bf16 terms
-of the float32 operand) over the 989 TFLOP/s bf16 peak; for the
-regenerating adjoint three times its 2-D windows' flops (3xTF32) over the
-495 TFLOP/s dense TF32 peak plus its 1-D windows' flops over the 67
-TFLOP/s float32 peak; for the other four the flops over the float32 peak;
-the H100 SXM's published peaks at 700 W.  Each entry of the kernels JSON
+input read once, each output written once) over 3.35 TB/s.  The
+tensor-core kernels' 2-D window products count three times (the three bf16
+terms of the float32 operand over the 989 TFLOP/s bf16 peak for the table
+kernels, 3xTF32 over the 495 TFLOP/s dense TF32 peak for the regenerating
+ones); their CUDA-core flops (the 1-D windows, the forwards' epilogue)
+over the 67 TFLOP/s float32 peak run beside them, so the operations take
+the larger of the two times; the other four kernels' flops count over the
+float32 peak; the H100 SXM's published peaks at 700 W.  Each entry of the kernels JSON
 names the units its operations run on (`engine`).
 
 A `[done]` line gives the script's wall seconds from its start to the
@@ -190,7 +193,8 @@ HBM_PEAK = 3.35e12
 # operand; tf32: 3xTF32, big*big + big*small + small*big)
 PEAKS = {"f32": F32_PEAK, "bf16x3": BF16_PEAK / 3, "tf32x3": TF32_PEAK / 3}
 ENGINES = {"f32": "CUDA cores", "bf16x3": "tensor cores, mma.sync bf16, 3-term split of the float32 operand",
-           "tf32x3": "tensor cores, mma.sync m16n8k8 3xTF32; the Nyquist columns and 1-D windows on the CUDA cores"}
+           "tf32x3": "tensor cores, mma.sync m16n8k8 3xTF32; the Nyquist mode's columns (adjoint) or rows "
+                     "(forward), the forward's epilogue and the 1-D windows on the CUDA cores"}
 DENSE_NS = (2048, 4096)
 DENSE_MUS = (0.1, 0.01)
 PCG_MAXITS, PCG_TOL = 200, 1e-5
@@ -245,8 +249,9 @@ def _rel_err(got, want):
 
 def bound(flops, nbytes, unit="f32", f32_flops=0.0):
     """(ms, "operations" | "bytes"): the least time the card could take;
-    flops on `unit` (a key of PEAKS) plus f32_flops on the CUDA cores."""
-    t_ops = (flops / PEAKS[unit] + f32_flops / F32_PEAK) * 1e3
+    flops on `unit` (a key of PEAKS) and f32_flops on the CUDA cores, each
+    over its own peak: the two units run side by side, so the larger time."""
+    t_ops = max(flops / PEAKS[unit], f32_flops / F32_PEAK) * 1e3
     t_bytes = nbytes / HBM_PEAK * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -277,9 +282,10 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
     adj(alpha) / fwd(G2, G1) are the wrappers on one layout; adj_plain /
     fwd_plain the plain versions; T32 the float32 phases of the layout for
     the library yardstick; src_bytes the bytes of the kernels' phase source
-    (table or coordinates); units: the PEAKS keys of the adjoint's 2-D
-    windows and of the forward (the adjoint's 1-D windows run on the CUDA
-    cores); repeat: a second launch must be bitwise equal to the first.
+    (table or coordinates); units: the PEAKS keys of the adjoint's and of
+    the forward's 2-D window products (the adjoint's 1-D windows, the
+    forward's epilogue over a and its 1-D windows count on the CUDA cores);
+    repeat: a second launch must be bitwise equal to the first.
     Returns per-case dicts (kernel, mode, shape, rel, max_abs, ms, plain_ms,
     library_ms, bound_ms, bound_by, bitwise, engine)."""
     n, dev = X.shape[0], X.device
@@ -333,8 +339,8 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         pms = cuda_ms(lambda: fwd_plain(G2s, G1s)) if timed else None
         lms = cuda_ms(lambda: lib_fwd(G2s, G1s)) if timed else None
         weights = nsets * (npairs * W2 * W2 + nsingles * W2)
-        flops = 2.0 * nsets * n * (npairs * (W2 * W2 + W2) + nsingles * W2)
-        b_ms, b_by = bound(flops, src_bytes + 4 * (weights + nsets * n), units[1])
+        b_ms, b_by = bound(2.0 * nsets * n * npairs * W2 * W2, src_bytes + 4 * (weights + nsets * n), units[1],
+                           f32_flops=2.0 * nsets * n * (npairs + nsingles) * W2)
         cases.append(dict(kernel=names[1], shape=f"nsets={nsets}", rel=rel, max_abs=mx, lib_rel=lib_rel, ms=ms,
                           plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by, bitwise=bitwise,
                           engine=ENGINES[units[1]]))
@@ -387,9 +393,8 @@ def check_kernels(X, windows, nvs, nsets_list, timed=True, table_dtype=torch.bfl
 
 def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20)):
     """The regenerating kernels against their plain versions on the d <= 2
-    windows of WINDOWS_FUSED, untrimmed (2P = 34), both phase sources: the
-    adjoint on the tensor cores (3xTF32), the forward on the CUDA cores; a
-    second launch must be bitwise equal."""
+    windows of WINDOWS_FUSED, untrimmed (2P = 34), both phase sources, both
+    on the tensor cores (3xTF32); a second launch must be bitwise equal."""
     from nfft4gp_torch.ops import fastsum as fs
     from nfft4gp_torch.ops import packed_ndft as pk
 
@@ -407,7 +412,7 @@ def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20)):
             lambda G2, G1: pk.packed_forward_regen(xT, G2, G1, **kw),
             lambda G2s, G1s: pk.packed_forward_regen_plain(xT, G2s, G1s, P, pairs, singles, gen),
             lay, P, X, nvs, nsets_list, True, pk.phase_slab(xT, P, gen), xT.numel() * xT.element_size(),
-            units=("tf32x3", "f32"), repeat=True)
+            units=("tf32x3", "tf32x3"), repeat=True)
     return cases
 
 

@@ -14,19 +14,21 @@
 //                               when the point is not live and for a >= WR);
 //   stage_pair / stage_single   a tile of TP points into shared memory.
 // Instances: packed_ndft.cu streams them from a float32 table (every kernel
-// here); packed_ndft_regen.cu regenerates them from the raw coordinates (the
-// "doubling" and "direct" modes) for forward_kernel (its adjoint runs on the
-// tensor cores); packed_ndft_tc.cu uses adjoint_singles_kernel for the 1-D
-// windows of a bf16 table (its 2-D windows and its forward run on the
-// tensor cores).  Each .cu file is its own shared library with a plain C
-// interface; all are built side by side.
+// here); packed_ndft_tc.cu uses adjoint_singles_kernel for the 1-D windows
+// of a bf16 table (its 2-D windows and its forward run on the tensor
+// cores).  packed_ndft_regen.cu, which regenerates the phases from the raw
+// coordinates (the "doubling" and "direct" modes), takes only Rows,
+// make_rows and the tile size TP from here: both its kernels run on the
+// tensor cores.  Each .cu
+// file is its own shared library with a plain C interface; all are built
+// side by side.
 //
 // What bounds them on an H100 SXM: the contraction is 2 nv npairs WR^2 n
 // flops per pass (2e10 at n = 2e5, nv = 10, five windows of WR = 32), run as
 // f32 FMAs on the CUDA cores (67 TFLOP/s), so beyond nv ~ 1 the FMA rate and
 // shared-memory operand traffic bound them, not the bytes of the table or
-// the coordinates.  For bf16 tables and for the regenerated phases' adjoint
-// the tensor cores took over (packed_ndft_tc.cu, packed_ndft_regen.cu).
+// the coordinates.  For bf16 tables and for the regenerated phases the
+// tensor cores took over (packed_ndft_tc.cu, packed_ndft_regen.cu).
 //
 // Design:
 // - Blocks run in parallel in no order, so the TPU's accumulation across

@@ -8,7 +8,8 @@
 // p < P itself instead of reading a table.
 //   _adjoint_kernel -> adjoint_regen_tc_kernel (tensor cores, 3xTF32)
 //                      + reduce_slices_kernel (tc_common.cuh)
-//   _forward_kernel -> forward_kernel (packed_ndft.cuh, CUDA cores)
+//   _forward_kernel -> split_regen_weights_kernel (once per pass)
+//                      + forward_regen_tc_kernel (tensor cores, 3xTF32)
 //
 //   DIRECT    one sincospif(2 p x) per mode (exact argument: 2 p is an
 //             integer, so sin/cos(pi * 2 p x) never forms 2 pi p x);
@@ -63,8 +64,52 @@
 //   reduce_slices_kernel adds them in a fixed order: no atomics,
 //   bitwise-repeatable results.
 //
-// The forward keeps the CUDA-core template of packed_ndft.cuh (one point per
-// thread, phases in registers from RegenSrc).
+// The forward, y_s[i] = sum_w L0_w[:, i]^T G_s,w L1_w[:, i] + sum_k
+// Ls_k[:, i]^T g_s,k, as Z[i, (s, a)] = sum_b L1[b, i] G_s[a, b] on the
+// tensor cores and an epilogue that multiplies by L0[a, i] and sums over a.
+// - Numerics: 3xTF32 as in the adjoint, on L1 (split once per window as its
+//   phases are made) and G (split once per pass into fragment order by
+//   split_regen_weights_kernel).  A tensor-core sum runs over b only (at
+//   most 32 terms), so each set starts from fresh accumulators and nothing
+//   is carried across tiles; the rank-2 Nyquist update, the epilogue, the
+//   1-D windows and the sum over windows are float32 FMAs.
+// - What bounds it on an H100 SXM: 2 nsets npairs WR^2 n flops three times
+//   over on the TF32 tensor cores (495 TFLOP/s dense); beside them, not
+//   after them, the epilogue's 2 nsets npairs WR n and the 1-D windows'
+//   2 nsets nsingles WR n flops on the CUDA cores (67 TFLOP/s) take a tenth
+//   of that: at n = 2e5, WINDOWS_FUSED (three pairs, one single), WR = 34,
+//   0.17 ms at nsets = 20 and 0.0084 ms at nsets = 1.  The coordinates and
+//   y (6.4 MB at nsets = 20, 2 us) do not bound it.
+// - Design: one block per 256 points (16 warps, one 16-row M tile each)
+//   holds every weight set of the pass (up to 32; more sets run as further
+//   passes), so each point's phases are made once per window.  M is points;
+//   N is (set, a), 8-column tiles per set (WR = 34 -> 40, 18 -> 24: the pad
+//   columns' weights are zero); K is the first WR - 2 rows of L1, 8 per
+//   MMA.  The last two rows (the Nyquist mode) are a rank-2 CUDA-core update
+//   of the accumulators, as the adjoint keeps its last two columns off the
+//   tensor cores.  Per window, threads [0, 256) make the points' L0 and
+//   threads [256, 512) their L1 (split) into shared memory; each warp then
+//   loads its A fragments, L0 at its accumulator slots and the Nyquist rows
+//   into registers, where they serve every set.  The split weights of groups
+//   of up to 4 sets stream through two buffers by cp.async while the MMAs of
+//   the previous group run.  The epilogue sums over a in the thread and the
+//   quad, in a fixed order, and one lane per (set, point) adds it into a y
+//   tile in shared memory; the 1-D windows follow in the same launch on the
+//   CUDA cores (one point per thread), and y is written once.  No atomics: a
+//   second launch is bitwise equal.
+// - What holds it back on an NVIDIA H100 80GB HBM3 (700 W): the issue rate
+//   of mma.sync.  At nsets = 20 the kernel issues 45M HMMA.1688.F32.TF32,
+//   about 4 SM cycles each over its time at the 1.98 GHz boost clock, a
+//   quarter of the dense TF32 peak; builds of this file with parts of the
+//   set loop removed left the MMAs most of that time, and the rest of the
+//   loop (B loads, epilogue, shuffles, y-tile adds) overlapping them only in
+//   part, the weights' L2 traffic and the phase generation small shares.
+//   Flattening (set, a) over groups of 4 sets (no pad column, 15% fewer
+//   MMAs, L0 then read from shared memory in the epilogue) helped many sets
+//   and hurt few: no gain over a fused step, so the padded layout stays.
+//   Two M tiles per warp (one B load for both) were no better than one.
+//   Fewer instructions need other MMAs: wgmma, or m16n8k16 on a three-term
+//   fp16 split (half the HMMA count of 3xTF32, with the same 11-bit parts).
 
 #include "packed_ndft.cuh"
 #include "tc_common.cuh"
@@ -110,19 +155,6 @@ __device__ __forceinline__ void phases(float x, float (&o)[W]) {
   for (int a = WR; a < W; ++a) o[a] = 0.f;
 }
 
-template <int WR, int GEN>
-struct RegenSrc {
-  const float* x;  // (Dtot, n) coordinates
-  int n;
-
-  template <int W>
-  __device__ __forceinline__ void column(int j, int i, bool live, float (&out)[W]) const {
-    phases<WR, GEN>(live ? __ldg(x + (size_t)j * n + i) : 0.f, out);
-#pragma unroll
-    for (int a = 0; a < W; ++a) out[a] = live ? out[a] : 0.f;
-  }
-};
-
 // --- the adjoint on the tensor cores (3xTF32) -----------------------------------------
 
 constexpr int RG_ROWS = 512;         // M rows (rhs x WR) per block: 32 tiles of 16
@@ -134,28 +166,6 @@ constexpr int RG_LD1 = 2 * TP + 16;  // L1 row of (big, small) words: uint4 frag
 // -- sit side by side: one float2 (L0, alpha) or uint4 (L1's big and small
 // parts of both) load per fragment row.
 __device__ __forceinline__ int pos(int k) { return (k & ~7) | ((k & 3) << 1) | ((k >> 2) & 1); }
-
-// u rounded to tf32 (to nearest, ties away from zero: cvt.rna.tf32.f32's
-// value for a finite u, by an integer add and a mask -- the instruction
-// spends three where this spends two) as a float32 bit pattern whose low 13
-// bits are zero
-__device__ __forceinline__ uint32_t tf32_rna(float u) { return (__float_as_uint(u) + 0x1000u) & 0xffffe000u; }
-
-// u = big + small to about 2^-22 |u|: small = tf32(u - big), from the
-// rounded big (u - big is exact: both lie within a factor 2 of each other)
-__device__ __forceinline__ void split_tf32(float u, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(u);
-  small = tf32_rna(__fsub_rn(u, __uint_as_float(big)));
-}
-
-// D += A B, A 16x8 (row), B 8x8 (col), tf32 in, float32 accumulate
-__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // one tile buffer, points in pos() order: L0 (float32); L1 as (big, small)
 // tf32 parts per point, except its last two rows (the tensor cores take
@@ -459,6 +469,257 @@ int adjoint_regen(const float* x, const float* alpha, int n, int nv, const int* 
   return (int)cudaGetLastError();
 }
 
+
+// --- the forward on the tensor cores (3xTF32) -----------------------------------------
+
+constexpr int FR_NW = 16;        // warps a block, one 16-row M tile each
+constexpr int FR_R = FR_NW * 16;  // points a block
+constexpr int FR_SG = 4;          // weight sets per staged group, at most
+constexpr int FR_SMAX = 32;       // weight sets per pass, at most (the y tile in shared memory)
+
+template <int WR>
+struct RegenFwd {
+  static constexpr int KT = (WR - 2) / 8;   // 8-deep k-steps: b < WR - 2 on the tensor cores
+  static constexpr int NTN = (WR + 7) / 8;  // 8-column N tiles of one set: a < 8 NTN, pad columns zero
+  static constexpr int FRAG_WORDS = KT * NTN * 32 * 4;        // per (k-step, N tile, lane): b0, b1 big; b0, b1 small
+  static constexpr int SET_WORDS = FRAG_WORDS + NTN * 8 * 2;  // + (G[a][WR - 2], G[a][WR - 1]) as float32
+};
+
+// the phases of a block's FR_R points for one window, point-major columns:
+// L1's rows b < WR - 2 as (big, small) tf32 parts, its last two rows (the
+// Nyquist mode, off the tensor cores) and L0 as float32.  LD = FR_R + 4: the
+// fragment reads (rows t and t + 4 of four k columns, points g and g + 8)
+// hit distinct banks.
+template <int WR>
+struct RegenFwdPhases {
+  static constexpr int LD = FR_R + 4;
+  uint2 L1[WR - 2][LD];
+  float Ln[2][LD];
+  float L0[WR][LD];
+};
+
+// G2 (ns, npairs, WR, WR) float32 -> Gf[w][s]: SET_WORDS words per (window,
+// set), the B fragments of B[b][a] = G[a][b] (b < WR - 2) split into tf32
+// parts, then G's last two columns; pad columns a >= WR are zero
+template <int WR>
+__global__ void split_regen_weights_kernel(const float* __restrict__ G2, int npairs, int ns,
+                                           uint32_t* __restrict__ Gf) {
+  using F = RegenFwd<WR>;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)npairs * ns * F::SET_WORDS) return;
+  const int rem = (int)(idx % F::SET_WORDS);
+  const size_t ws = idx / F::SET_WORDS;
+  const int w = (int)(ws / ns), s = (int)(ws % ns);
+  const float* G = G2 + ((size_t)s * npairs + w) * WR * WR;
+  if (rem < F::FRAG_WORDS) {
+    const int e = rem & 3, lane = (rem >> 2) & 31, jk = rem >> 7;
+    const int j = jk % F::NTN, kk = jk / F::NTN;
+    const int a = j * 8 + (lane >> 2), b = kk * 8 + (lane & 3) + 4 * (e & 1);
+    uint32_t big, small;
+    split_tf32(a < WR ? G[a * WR + b] : 0.f, big, small);
+    Gf[idx] = e < 2 ? big : small;
+  } else {
+    const int r = rem - F::FRAG_WORDS, a = r >> 1;
+    Gf[idx] = __float_as_uint(a < WR ? G[a * WR + WR - 2 + (r & 1)] : 0.f);
+  }
+}
+
+// y_s[i] for the block's FR_R points and the pass's ns weight sets.
+// Z[i, (s, a)] = sum_b L1[b, i] G_s[a, b]: M = points (warp w owns the 16-row
+// tile w), N = (set, a) in NTN 8-column tiles per set, K = b.  Per window the
+// threads make the phases of the block's points into shared memory, then
+// each warp holds its A fragments (L1, split), L0 at its accumulator slots
+// and the two Nyquist rows in registers for every set.  The split weights
+// stream through two buffers by cp.async, groups of sg sets, the next group
+// (of this or the next window) landing while the MMAs of the current one
+// run.  Per set: KT k-steps of three MMAs per N tile into fresh accumulators
+// (a sum over b only), the rank-2 Nyquist update on the CUDA cores, then the
+// epilogue: times L0[a, i], summed over a in the thread and the quad, added
+// into the y tile by one lane per (set, point).  The 1-D windows follow on
+// the CUDA cores, one point per thread; y is written once.
+template <int WR, int GEN>
+__global__ void __launch_bounds__(FR_NW * 32, 1) forward_regen_tc_kernel(
+    const float* __restrict__ x, int n, Rows pairs, int npairs, const uint32_t* __restrict__ Gf,
+    Rows singles, int nsingles, const float* __restrict__ G1, int ns, int sg, float* __restrict__ y) {
+  using F = RegenFwd<WR>;
+  constexpr int KT = F::KT, NTN = F::NTN, NTH = FR_NW * 32, R = FR_R;
+  using Ph = RegenFwdPhases<WR>;
+  static_assert(WR % 8 == 2 && sizeof(Ph) % 16 == 0, "unsupported width");
+  extern __shared__ __align__(16) unsigned char smem[];
+  Ph& ph = *reinterpret_cast<Ph*>(smem);
+  uint32_t* gbuf = reinterpret_cast<uint32_t*>(smem + sizeof(Ph));                          // [2][sg * SET_WORDS]
+  float* sY = reinterpret_cast<float*>(smem + sizeof(Ph) + (size_t)2 * sg * F::SET_WORDS * 4);  // [ns][R]
+  const int i0 = blockIdx.x * R;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, mb = warp * 16;
+  const bool live = i0 + mb < n;
+  for (int idx = tid; idx < ns * R; idx += NTH) sY[idx] = 0.f;
+  __syncthreads();  // the y tile is zero before any thread adds to it
+
+  const int ngroups = (ns + sg - 1) / sg, steps = npairs * ngroups;
+  auto load_group = [&](int u) {  // step u = (window u / ngroups, set group u % ngroups)
+    const int w = u / ngroups, s0 = u % ngroups * sg, words = min(sg, ns - s0) * F::SET_WORDS;
+    const uint32_t* src = Gf + ((size_t)w * ns + s0) * F::SET_WORDS;
+    uint32_t* dst = gbuf + (u & 1) * sg * F::SET_WORDS;
+    for (int idx = tid; idx < words / 4; idx += NTH) cp_async16(dst + 4 * idx, src + 4 * idx, 16);
+  };
+  // the phases of the block's points (0 past n: finite, never written out):
+  // entry idx < R makes L0 of point idx, entry R + p L1 of point p
+  auto make_phases = [&](int ja, int jb) {
+    for (int idx = tid; idx < 2 * R; idx += NTH) {
+      const int p = idx % R, i = i0 + p;
+      float col[WR];
+      phases<WR, GEN>(i < n ? __ldg(x + (size_t)(idx < R ? ja : jb) * n + i) : 0.f, col);
+      if (idx < R) {
+#pragma unroll
+        for (int a = 0; a < WR; ++a) ph.L0[a][p] = col[a];
+      } else {
+#pragma unroll
+        for (int b = 0; b < WR - 2; ++b) {
+          uint2 v;
+          split_tf32(col[b], v.x, v.y);
+          ph.L1[b][p] = v;
+        }
+        ph.Ln[0][p] = col[WR - 2];
+        ph.Ln[1][p] = col[WR - 1];
+      }
+    }
+  };
+
+  // A fragments (rows g, g + 8 x columns t, t + 4 of each k-step), L0 at the
+  // accumulator slots (rows g, g + 8 x columns a, a + 1, a = 8 j + 2 t) and
+  // the Nyquist rows (WR - 2, WR - 1) at rows g, g + 8
+  uint32_t Ab[KT][4], As[KT][4];
+  float l0[NTN][4], ln[4];
+
+  if (steps > 0) load_group(0);
+  cp_commit();
+  for (int u = 0; u < steps; ++u) {
+    const int w = u / ngroups, gi = u % ngroups;
+    if (u + 1 < steps) load_group(u + 1);  // into the buffer step u - 1 read
+    cp_commit();
+    if (gi == 0) make_phases(pairs.v[2 * w], pairs.v[2 * w + 1]);
+    cp_wait<1>();
+    __syncthreads();  // group u landed; the window's phases are in place
+    if (gi == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        const uint2 v0 = ph.L1[kk * 8 + t][mb + g], v1 = ph.L1[kk * 8 + t][mb + g + 8];
+        const uint2 v2 = ph.L1[kk * 8 + t + 4][mb + g], v3 = ph.L1[kk * 8 + t + 4][mb + g + 8];
+        Ab[kk][0] = v0.x, As[kk][0] = v0.y;
+        Ab[kk][1] = v1.x, As[kk][1] = v1.y;
+        Ab[kk][2] = v2.x, As[kk][2] = v2.y;
+        Ab[kk][3] = v3.x, As[kk][3] = v3.y;
+      }
+#pragma unroll
+      for (int j = 0; j < NTN; ++j) {
+        const int a = j * 8 + 2 * t;  // WR is even: a < WR iff a + 1 < WR
+        l0[j][0] = a < WR ? ph.L0[a][mb + g] : 0.f;
+        l0[j][1] = a < WR ? ph.L0[a + 1][mb + g] : 0.f;
+        l0[j][2] = a < WR ? ph.L0[a][mb + g + 8] : 0.f;
+        l0[j][3] = a < WR ? ph.L0[a + 1][mb + g + 8] : 0.f;
+      }
+      ln[0] = ph.Ln[0][mb + g];
+      ln[1] = ph.Ln[1][mb + g];
+      ln[2] = ph.Ln[0][mb + g + 8];
+      ln[3] = ph.Ln[1][mb + g + 8];
+    }
+
+    const uint32_t* gb = gbuf + (u & 1) * sg * F::SET_WORDS;
+    const int s0 = gi * sg, cnt = live ? min(sg, ns - s0) : 0;
+#pragma unroll 1
+    for (int sl = 0; sl < cnt; ++sl) {
+      const uint32_t* gs = gb + sl * F::SET_WORDS;
+      float cz[NTN][4];
+#pragma unroll
+      for (int j = 0; j < NTN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cz[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint4 bf[NTN];  // B fragments of this k-step: (b0, b1) big, (b0, b1) small
+#pragma unroll
+        for (int j = 0; j < NTN; ++j) bf[j] = reinterpret_cast<const uint4*>(gs)[(kk * NTN + j) * 32 + lane];
+        // term-major: NTN independent accumulators between dependent MMAs
+#pragma unroll
+        for (int j = 0; j < NTN; ++j) mma1688(cz[j], As[kk], bf[j].x, bf[j].y);
+#pragma unroll
+        for (int j = 0; j < NTN; ++j) mma1688(cz[j], Ab[kk], bf[j].z, bf[j].w);
+#pragma unroll
+        for (int j = 0; j < NTN; ++j) mma1688(cz[j], Ab[kk], bf[j].x, bf[j].y);
+      }
+      // (G[a][WR - 2], G[a][WR - 1], G[a + 1][WR - 2], G[a + 1][WR - 1]) at a = 8 j + 2 t
+      const float4* gn = reinterpret_cast<const float4*>(gs + F::FRAG_WORDS);
+      float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NTN; ++j) {
+        const float4 v = gn[j * 4 + t];
+        const float c0 = fmaf(ln[1], v.y, fmaf(ln[0], v.x, cz[j][0]));
+        const float c1 = fmaf(ln[1], v.w, fmaf(ln[0], v.z, cz[j][1]));
+        const float c2 = fmaf(ln[3], v.y, fmaf(ln[2], v.x, cz[j][2]));
+        const float c3 = fmaf(ln[3], v.w, fmaf(ln[2], v.z, cz[j][3]));
+        p0 = fmaf(c1, l0[j][1], fmaf(c0, l0[j][0], p0));
+        p1 = fmaf(c3, l0[j][3], fmaf(c2, l0[j][2], p1));
+      }
+      // the quad's four in a fixed order
+      p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+      p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+      p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+      p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+      const int s = s0 + sl;
+      if (t == (s & 3)) {  // one lane per (set, point): no races across windows
+        sY[s * R + mb + g] += p0;
+        sY[s * R + mb + g + 8] += p1;
+      }
+    }
+    __syncthreads();  // every reader of buffer u & 1 (and, at gi == 0, of the phases) is done
+  }
+
+  // the 1-D windows on the CUDA cores: y_s[i] += sum_a Ls[a, i] g_s[a]
+  for (int k = 0; k < nsingles; ++k) {
+    const float* xs = x + (size_t)singles.v[k] * n;
+    for (int p = tid; p < R; p += NTH) {
+      const int i = i0 + p;
+      float col[WR];
+      phases<WR, GEN>(i < n ? __ldg(xs + i) : 0.f, col);
+      for (int s = 0; s < ns; ++s) {
+        const float* gv = G1 + ((size_t)s * nsingles + k) * WR;
+        float e0 = 0.f, e1 = 0.f;
+#pragma unroll
+        for (int a = 0; a < WR; a += 2) {
+          e0 = fmaf(col[a], __ldg(gv + a), e0);
+          e1 = fmaf(col[a + 1], __ldg(gv + a + 1), e1);
+        }
+        sY[s * R + p] += e0 + e1;
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < ns * R; idx += NTH) {
+    const int i = i0 + idx % R;
+    if (i < n) y[(size_t)(idx / R) * n + i] = sY[idx];
+  }
+}
+
+// one pass of ns <= FR_SMAX weight sets: split the weights, then the forward
+template <int WR, int GEN>
+int forward_regen(const float* x, int n, const int* pairs, int npairs, const float* G2, const int* singles,
+                  int nsingles, const float* G1, int ns, uint32_t* Gf, float* y, cudaStream_t st) {
+  if (ns < 1 || ns > FR_SMAX || n < 1) return (int)cudaErrorInvalidValue;
+  const int sg = ns < FR_SG ? ns : FR_SG;
+  if (npairs > 0) {
+    const size_t words = (size_t)npairs * ns * RegenFwd<WR>::SET_WORDS;
+    split_regen_weights_kernel<WR><<<(unsigned)((words + 255) / 256), 256, 0, st>>>(G2, npairs, ns, Gf);
+  }
+  auto kernel = forward_regen_tc_kernel<WR, GEN>;
+  const size_t smem = sizeof(RegenFwdPhases<WR>) + (size_t)2 * sg * RegenFwd<WR>::SET_WORDS * 4 + (size_t)ns * FR_R * 4;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(n + FR_R - 1) / FR_R, FR_NW * 32, smem, st>>>(x, n, make_rows(pairs, 2 * npairs), npairs, Gf,
+                                                          make_rows(singles, nsingles), nsingles, G1, ns, sg, y);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -483,25 +744,33 @@ int adjoint_launch(const float* x, int phase_gen, const float* alpha, int WR, in
   return (int)cudaErrorInvalidValue;
 }
 
-int forward_launch(const float* x, int phase_gen, int WR, int n, const int* pairs,
-                   int npairs, const float* G2, const int* singles, int nsingles,
-                   const float* G1, int nsets, float* y, void* stream) {
+// One pass of 1 <= ns <= forward_max_sets() weight sets.  Gf: scratch of
+// forward_scratch_words(WR, npairs, ns) uint32 words (the split weights).
+int forward_launch(const float* x, int phase_gen, int WR, int n, const int* pairs, int npairs,
+                   const float* G2, const int* singles, int nsingles, const float* G1, int ns, void* Gf,
+                   float* y, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NDFT_FWD(W, G) \
-  launch_forward<W>(RegenSrc<W, G>{x, n}, n, pairs, npairs, G2, singles, nsingles, G1, nsets, y, st)
+  uint32_t* W = static_cast<uint32_t*>(Gf);
+#define NDFT_FWD(WW, G) return forward_regen<WW, G>(x, n, pairs, npairs, G2, singles, nsingles, G1, ns, W, y, st)
   if (phase_gen == DOUBLING) {
     if (WR == 18) NDFT_FWD(18, DOUBLING);
-    else if (WR == 34) NDFT_FWD(34, DOUBLING);
-    else return (int)cudaErrorInvalidValue;
+    if (WR == 34) NDFT_FWD(34, DOUBLING);
   } else if (phase_gen == DIRECT) {
     if (WR == 18) NDFT_FWD(18, DIRECT);
-    else if (WR == 34) NDFT_FWD(34, DIRECT);
-    else return (int)cudaErrorInvalidValue;
-  } else {
-    return (int)cudaErrorInvalidValue;
+    if (WR == 34) NDFT_FWD(34, DIRECT);
   }
 #undef NDFT_FWD
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
+}
+
+// the most weight sets forward_launch takes in one pass
+int forward_max_sets() { return FR_SMAX; }
+
+// uint32 words of forward_launch's scratch for npairs windows and ns sets
+// (0 for a width the forward is not compiled for)
+long long forward_scratch_words(int WR, int npairs, int ns) {
+  const long long per = WR == 18 ? RegenFwd<18>::SET_WORDS : WR == 34 ? RegenFwd<34>::SET_WORDS : 0;
+  return per * npairs * ns;
 }
 
 const char* error_string(int code) {

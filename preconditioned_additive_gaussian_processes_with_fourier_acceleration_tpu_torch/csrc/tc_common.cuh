@@ -1,7 +1,9 @@
-// Pieces shared by the tensor-core NDFT adjoints of packed_ndft_tc.cu (bf16
+// Pieces shared by the tensor-core NDFT kernels of packed_ndft_tc.cu (bf16
 // tables) and packed_ndft_regen.cu (regenerated phases): asynchronous copies
-// into shared memory and the fixed-order sum of the per-chunk partial
-// slices (the split-K second pass).
+// into shared memory, the fixed-order sum of the per-chunk partial slices
+// (the split-K second pass of the adjoints), and the 3xTF32 primitives of
+// the regenerating adjoint and forward (tf32 rounding, the two-part split,
+// mma.sync.m16n8k8.tf32).
 
 #pragma once
 
@@ -56,6 +58,28 @@ __global__ void __launch_bounds__(RED_X * RED_Y) reduce_slices_kernel(const floa
     for (int y = 0; y < RED_Y; ++y) tot += red[y][threadIdx.x];
     out[o] = tot;
   }
+}
+
+// u rounded to tf32 (to nearest, ties away from zero: cvt.rna.tf32.f32's
+// value for a finite u, by an integer add and a mask -- the instruction
+// spends three where this spends two) as a float32 bit pattern whose low 13
+// bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float u) { return (__float_as_uint(u) + 0x1000u) & 0xffffe000u; }
+
+// u = big + small to about 2^-22 |u|: small = tf32(u - big), from the
+// rounded big (u - big is exact: both lie within a factor 2 of each other)
+__device__ __forceinline__ void split_tf32(float u, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(u);
+  small = tf32_rna(__fsub_rn(u, __uint_as_float(big)));
+}
+
+// D += A B, A 16x8 (row), B 8x8 (col), tf32 in, float32 accumulate
+__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 void launch_reduce_slices(const float* part, int nchunks, size_t S, float* out, cudaStream_t st) {

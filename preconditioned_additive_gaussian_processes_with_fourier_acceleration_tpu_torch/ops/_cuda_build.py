@@ -7,9 +7,9 @@ Four shared libraries with a plain C interface, one per source:
 - `packed_ndft`: csrc/packed_ndft.cu, the CUDA-core NDFT kernels (templates
   of csrc/packed_ndft.cuh) on a float32 table;
 - `packed_ndft_regen`: csrc/packed_ndft_regen.cu, the phase-regenerating
-  kernels ("doubling", "direct"): the adjoint on the tensor cores (3xTF32;
-  its Nyquist columns and 1-D windows on the CUDA cores in the same
-  kernel), the forward on the templates;
+  kernels ("doubling", "direct"), both on the tensor cores in 3xTF32 with
+  the Nyquist mode's two rows or columns and the 1-D windows on the CUDA
+  cores in the same kernel;
 - `fused_pcg`: csrc/fused_pcg.cu, the cooperative CG and Lanczos kernels.
 
 Each is compiled at first use with
@@ -128,10 +128,17 @@ def _ndft_signatures(lib):
 
 def _ndft_regen_signatures(lib):
     """As _ndft_signatures; the adjoint also takes the tensor-core launch
-    configuration (nw, wk, mpw) before out, as tc_adjoint_launch does."""
+    configuration (nw, wk, mpw) before out, as tc_adjoint_launch does, and
+    the forward (one pass) the split-weight scratch before y; the library
+    gives the forward's pass limit and scratch size."""
     _ndft_signatures(lib)
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, I, I, I, P, P]
+    lib.forward_launch.argtypes = [P, I, I, I, P, I, P, P, I, P, I, P, P, P]
+    lib.forward_max_sets.argtypes = []
+    lib.forward_max_sets.restype = I
+    lib.forward_scratch_words.argtypes = [I, I, I]
+    lib.forward_scratch_words.restype = ctypes.c_longlong
 
 
 def _ndft_tc_signatures(lib):
@@ -318,10 +325,31 @@ def adjoint_regen(xT, alpha, WR, pairs, singles, phase_gen):
                        PHASE_GEN_CODES[phase_gen], alpha, WR, xT.shape[1], pairs, singles)
 
 
+def forward_regen_split(nsets: int, max_sets: int) -> list:
+    """The passes [(s0, ns)] of the regenerating forward: consecutive runs
+    of at most max_sets weight sets (the library's forward_max_sets()), one
+    launch pair (weight split, forward) each."""
+    return [(s0, min(max_sets, nsets - s0)) for s0 in range(0, nsets, max_sets)]
+
+
 def forward_regen(xT, G2, G1, WR, pairs, singles, phase_gen):
-    """Launch the regenerating forward kernel: (nsets, n) float32."""
-    return _forward(library("packed_ndft_regen"), "packed_forward_regen", xT,
-                    PHASE_GEN_CODES[phase_gen], G2, G1, WR, xT.shape[1], pairs, singles)
+    """Launch the regenerating forward on coordinates xT (Dtot, n)
+    (csrc/packed_ndft_regen.cu), one launch pair per pass of
+    `forward_regen_split`: (nsets, n) float32."""
+    lib = library("packed_ndft_regen")
+    n, nsets = xT.shape[1], G2.shape[0]
+    passes = forward_regen_split(nsets, lib.forward_max_sets())
+    y = torch.empty((nsets, n), dtype=torch.float32, device=G2.device)
+    gf = torch.empty(max(1, lib.forward_scratch_words(WR, len(pairs), passes[0][1])), dtype=torch.int32,
+                     device=G2.device)
+    pr, sg = _ints(v for pair in pairs for v in pair), _ints(singles)
+    with torch.cuda.device(G2.device):
+        for s0, ns in passes:
+            code = lib.forward_launch(xT.data_ptr(), PHASE_GEN_CODES[phase_gen], WR, n, pr, len(pairs),
+                                      G2[s0:].data_ptr(), sg, len(singles), G1[s0:].data_ptr(), ns,
+                                      gf.data_ptr(), y[s0:].data_ptr(), _stream(G2))
+            _check(lib, code, "packed_forward_regen")
+    return y
 
 
 @functools.lru_cache(maxsize=None)

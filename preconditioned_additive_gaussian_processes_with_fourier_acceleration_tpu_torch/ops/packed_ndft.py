@@ -28,9 +28,10 @@ three bf16 terms that hold their float32 significand exactly, so the
 products are those of float32 arithmetic and the sums are float32.  A
 float32 table goes to the CUDA-core kernels of csrc/packed_ndft.cu.  alpha
 and the weights are float32.  The regenerating kernels take float32
-coordinates; their adjoint runs on the tensor cores in 3xTF32 (each
-float32 operand split into two tf32 parts, three products), their forward
-on the CUDA cores (csrc/packed_ndft_regen.cu).
+coordinates and run on the tensor cores in 3xTF32 (each float32 operand
+split into two tf32 parts, three products), the Nyquist mode's rows or
+columns and the 1-D windows on the CUDA cores in the same launch
+(csrc/packed_ndft_regen.cu).
 
 `pack_phase_table` pads the table's storage along the points to a multiple
 of 64 and returns the view of its first n columns: the tensor-core kernels
@@ -324,6 +325,11 @@ def packed_forward_regen(xT, G2_sets, G1_sets=(), *, P: int, pairs: tuple, singl
     Replaces the TPU kernel `_forward_kernel` (ops/pallas_ndft.py) in its
     "doubling" / "direct" modes.  xT: (Dtot, n); the weight stacks are
     (nsets, 2P, 2P) / (nsets, 2P) with 2P = 2 * P.  Returns nsets outputs.
+    On CUDA tensors, per pass of up to 32 sets, one weight split and one
+    `forward_regen_tc_kernel` launch (csrc/packed_ndft_regen.cu): the 2-D
+    windows on the tensor cores (3xTF32), their Nyquist rows, the epilogue
+    and the 1-D windows on the CUDA cores; on CPU tensors the plain
+    version runs.
     """
     _check_coords(xT, pairs, singles)
     if phase_gen not in PHASE_GENS:

@@ -19,13 +19,16 @@ adjoint nv = 1, 10, forward nsets = 1, 2, 10, 20.  Then one profiled
 loss-and-gradient step of GPProblem(gaussian, five 2-D windows, fastsum,
 nystrom, stream engine) at n = 2e5.
 
---kernels regen: OLD/csrc/packed_ndft_regen.cu of the same C interface as
-the current one without the launch configuration (the CUDA-core
-regenerating adjoint of the parent of the tensor-core one), at
+--kernels regen: OLD/csrc/packed_ndft_regen.cu whose adjoint takes the
+tensor-core launch configuration (as the current one does) and whose
+forward takes the float32-table forward's arguments (the CUDA-core
+regenerating forward that forward_regen_tc_kernel replaced), at
 chip_smoke.py's [kernels-regen] shapes (WINDOWS_FUSED, n = 2e5, 2P = 34,
-both phase sources): the adjoint at nv = 1, 10.  Then one profiled
-loss-and-gradient step of chip_smoke.py's [fused] problem
-(GPProblem(matern12, WINDOWS_FUSED, fastsum_fused=True)) at n = 2e5.
+both phase sources): the adjoint at nv = 1, 10 (the same kernel in both
+builds: its ratio shows the noise), the forward at nsets = 1, 2, 10, 20.
+Then one profiled loss-and-gradient step of chip_smoke.py's [fused]
+problem (GPProblem(matern12, WINDOWS_FUSED, fastsum_fused=True)) at
+n = 2e5, whose `ndft_kernels_ms` gives the forward's card time in it.
 
 The profile (torch.profiler, after a warm-up step): wall time, device-busy
 time (the union of the device kernels' intervals) and its share of the wall
@@ -52,10 +55,21 @@ NVS = (1, 10)
 NSETS = (1, 2, 10, 20)
 
 
+def _old_regen_signatures(lib):
+    """The earlier packed_ndft_regen.cu: adjoint_launch as the current one,
+    forward_launch as the float32-table library's."""
+    from nfft4gp_torch.ops import _cuda_build
+
+    _cuda_build._ndft_signatures(lib)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, I, I, I, P, P]
+
+
 def build_old(csrc: Path, source: str) -> ctypes.CDLL:
-    """The earlier `source` of csrc, built and loaded; its adjoint_launch /
-    forward_launch take (phase source, its flag, ...) without a launch
-    configuration."""
+    """The earlier `source` of csrc, built and loaded: packed_ndft.cu's
+    adjoint_launch / forward_launch take (phase source, its flag, ...)
+    without a launch configuration; packed_ndft_regen.cu's as
+    `_old_regen_signatures`."""
     from nfft4gp_torch.ops import _cuda_build
 
     out = ROOT / "_chip_scratch" / "ab_build" / f"lib{Path(source).stem}_old.so"
@@ -63,7 +77,7 @@ def build_old(csrc: Path, source: str) -> ctypes.CDLL:
     subprocess.run([_cuda_build._nvcc(), *_cuda_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(out),
                     str(csrc / source)], check=True)
     lib = ctypes.CDLL(str(out))
-    _cuda_build._ndft_signatures(lib)
+    (_old_regen_signatures if source == "packed_ndft_regen.cu" else _cuda_build._ndft_signatures)(lib)
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
@@ -138,43 +152,62 @@ def ab(old_lib, X):
     return rows
 
 
+def _ab_row(name, new, old, flat_new, flat_old):
+    """One A/B row: old against new, then times old, new, new, old."""
+    row = {"call": name}
+    if old is not None:
+        got, want = flat_new(new()), flat_old(old())
+        row["rel_old_new"] = float(torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double()))
+        t = [cs.cuda_ms(old), cs.cuda_ms(new), cs.cuda_ms(new), cs.cuda_ms(old)]
+        row.update(old_ms=[t[0], t[3]], new_ms=[t[1], t[2]], ratio_old_over_new=(t[0] + t[3]) / (t[1] + t[2]))
+    else:
+        row["new_ms"] = [cs.cuda_ms(new)]
+    print(f"[ab] {json.dumps(row)}", flush=True)
+    return row
+
+
 def ab_regen(old_lib, X):
-    """The regenerating adjoint, current against old, at [kernels-regen]'s
-    shapes; the old one chunked as its wrapper chunked it."""
+    """The regenerating adjoint and forward, current against old, at
+    [kernels-regen]'s shapes (random weights for the forward)."""
     from nfft4gp_torch.ops import _cuda_build as cb
     from nfft4gp_torch.ops import fastsum as fs
     from nfft4gp_torch.ops import packed_ndft as pk
 
     lay = fs._packed_layout(cs._plan(X, cs.WINDOWS_FUSED))
     P = fs._nmodes(cs.FASTSUM_N)
+    W2 = 2 * P
     xT, pairs, singles = lay.xT, lay.pairs, lay.singles
+    n = xT.shape[1]
     gen = torch.Generator(device=X.device).manual_seed(3)
-    # the layout's windows, then its 2-D and its 1-D windows alone ("doubling")
-    cases = [(g, nv, "", pairs, singles) for g in pk.PHASE_GENS for nv in NVS]
-    cases += [("doubling", nv, f" {part} only", pr, sg) for nv in NVS
-              for part, pr, sg in (("2-D windows", pairs, ()), ("1-D windows", (), singles))]
     rows = []
-    for phase_gen, nv, part, prs, sgs in cases:
-        alpha = torch.randn((nv, X.shape[0]), generator=gen, device=X.device)
+    for phase_gen in pk.PHASE_GENS:
+        code = cb.PHASE_GEN_CODES[phase_gen]
+        for nv in NVS:
+            alpha = torch.randn((nv, n), generator=gen, device=X.device)
 
-        def new(alpha=alpha, phase_gen=phase_gen, prs=prs, sgs=sgs):
-            return pk.packed_adjoint_regen(xT, alpha, P=P, pairs=prs, singles=sgs, phase_gen=phase_gen)
+            def new(alpha=alpha, phase_gen=phase_gen):
+                return pk.packed_adjoint_regen(xT, alpha, P=P, pairs=pairs, singles=singles, phase_gen=phase_gen)
 
-        row = {"call": f"adjoint_regen {phase_gen} nv={nv}{part}"}
-        if old_lib:
-            def old(alpha=alpha, phase_gen=phase_gen, prs=prs, sgs=sgs):
-                return cb._adjoint(old_lib, "old packed_adjoint_regen", xT, cb.PHASE_GEN_CODES[phase_gen],
-                                   alpha, 2 * P, xT.shape[1], prs, sgs)
+            def old(alpha=alpha, code=code):
+                return cb._adjoint_tc(old_lib, "adjoint_launch", "old packed_adjoint_regen", xT, code, alpha, W2,
+                                      n, pairs, singles)
 
-            got = torch.cat([torch.stack(v, 1).reshape(-1) for v in new() if v])
-            want = torch.cat([v.reshape(-1) for v in old()])
-            row["rel_old_new"] = float(torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double()))
-            t = [cs.cuda_ms(old), cs.cuda_ms(new), cs.cuda_ms(new), cs.cuda_ms(old)]
-            row.update(old_ms=[t[0], t[3]], new_ms=[t[1], t[2]], ratio_old_over_new=(t[0] + t[3]) / (t[1] + t[2]))
-        else:
-            row["new_ms"] = [cs.cuda_ms(new)]
-        print(f"[ab] {json.dumps(row)}", flush=True)
-        rows.append(row)
+            rows.append(_ab_row(f"adjoint_regen {phase_gen} nv={nv}", new, old if old_lib else None,
+                                lambda r: torch.cat([torch.stack(v, 1).reshape(-1) for v in r if v]),
+                                lambda r: torch.cat([v.reshape(-1) for v in r])))
+        for nsets in NSETS:
+            G2 = torch.randn((nsets, len(pairs), W2, W2), generator=gen, device=X.device)
+            G1 = torch.randn((nsets, len(singles), W2), generator=gen, device=X.device)
+
+            def new(G2=G2, G1=G1, phase_gen=phase_gen):
+                return pk.packed_forward_regen(xT, list(torch.unbind(G2, 1)), list(torch.unbind(G1, 1)), P=P,
+                                               pairs=pairs, singles=singles, phase_gen=phase_gen)
+
+            def old(G2=G2, G1=G1, code=code):
+                return cb._forward(old_lib, "old packed_forward_regen", xT, code, G2, G1, W2, n, pairs, singles)
+
+            rows.append(_ab_row(f"forward_regen {phase_gen} nsets={nsets}", new, old if old_lib else None,
+                                lambda r: torch.stack(r).reshape(-1), lambda r: r.reshape(-1)))
     return rows
 
 
@@ -212,7 +245,7 @@ def profile_step(X, y, kernels):
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
     # the NDFT kernels of the port by name (csrc/), whether in the top or not
     ndft = {k: v for k, v in by_kernel.items()
-            if any(s in k for s in ("adjoint", "forward_kernel", "forward_tc", "reduce_slices", "split_weights"))}
+            if any(s in k for s in ("adjoint", "forward", "reduce_slices", "split_"))}
     out = {"problem": kernels, "loss": float(loss), "wall_ms": wall_ms,
            "device_busy_ms": busy / 1e3 if spans else None, "busy_share": busy / 1e3 / wall_ms if spans else None,
            "device_kernels": len(spans), "device_ms_by_kernel": top, "ndft_kernels_ms": ndft}

@@ -19,7 +19,12 @@ The regenerating adjoint (tensor cores, 3xTF32, csrc/packed_ndft_regen.cu)
 is held over 1, 3 and 32 pairs with and without 1-D windows, n = 1, 7, 63,
 64, 65, 2047, 20001, nv = 1 to 33 (every launch configuration and more
 right-hand sides than one 512-row block holds), coordinates at 0 and
-+-0.5, with a bitwise-equal second launch.
++-0.5, with a bitwise-equal second launch.  The regenerating forward
+(tensor cores, 3xTF32, its 1-D windows in the same launch) is held at
+n = 1, 37, 256 (one 256-point block), 4099, nsets = 1, 2, 3, 7, 8, 10, 17,
+20 and 33 (set groups of 4, two passes of at most 32 sets), pairs and singles
+together and alone, and at the 32-pair / 64-single limits, with a
+bitwise-equal second launch.
 
 The tensor-core kernels of bf16 tables (csrc/packed_ndft_tc.cu) are held
 at their own edges: n = 1, 63, 64, 65 (one 64-point tile and its
@@ -314,13 +319,19 @@ def test_adjoint_regen_matches_plain(dev, layout, n, P, phase_gen, nv):
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
-@pytest.mark.parametrize("n", [37, 4099])
+@pytest.mark.parametrize("n", [1, 37, 256, 4099])
 @pytest.mark.parametrize("P", [9, 17])
 @pytest.mark.parametrize("phase_gen", pk.PHASE_GENS)
-@pytest.mark.parametrize("nsets", [1, 7, 8, 17])
+@pytest.mark.parametrize("nsets", [1, 2, 3, 7, 8, 10, 17, 20, 33])
 def test_forward_regen_matches_plain(dev, layout, n, P, phase_gen, nsets):
-    """nsets straddle the forward's set tiles (7 sets per block at 2P = 34,
-    16 at 2P = 18)."""
+    """The tensor-core forward (3xTF32) with its 1-D windows in the same
+    launch: pairs and singles together or alone; n below one 256-point
+    block, one block exactly and not a multiple of it; nsets within one
+    set group, across groups of 4 and past a pass's 32 sets (two passes).
+    A second launch is bitwise equal and both are counted.  The reference
+    is the plain version in float64 on the same float32 inputs: at n = 1
+    the float32 plain version's own phase rounding (2 pi p x formed in
+    float32) moves its one output by about 1e-5 relative."""
     pairs, singles = LAYOUTS[layout]
     xT, rng = _coords(dev, n)
 
@@ -329,19 +340,25 @@ def test_forward_regen_matches_plain(dev, layout, n, P, phase_gen, nsets):
 
     G2 = [weights(nsets, 2 * P, 2 * P) for _ in pairs]
     G1 = [weights(nsets, 2 * P) for _ in singles]
-    ys = pk.packed_forward_regen(xT, G2, G1, P=P, pairs=pairs, singles=singles, phase_gen=phase_gen)
+    before = pk.packed_forward_regen.launches_by_shape.get(f"nsets={nsets}", 0)
+    ys, again = (torch.stack(pk.packed_forward_regen(xT, G2, G1, P=P, pairs=pairs, singles=singles,
+                                                     phase_gen=phase_gen)) for _ in range(2))
     torch.cuda.synchronize()
-    want = pk.packed_forward_regen_plain(xT, torch.stack(G2, 1) if pairs else None,
-                                         torch.stack(G1, 1) if singles else None, P, pairs, singles,
+    assert pk.packed_forward_regen.launches_by_shape[f"nsets={nsets}"] == before + 2
+    assert torch.equal(ys, again)
+    want = pk.packed_forward_regen_plain(xT.double(), torch.stack(G2, 1).double() if pairs else None,
+                                         torch.stack(G1, 1).double() if singles else None, P, pairs, singles,
                                          phase_gen)
-    assert len(ys) == nsets
-    assert _rel(torch.stack(ys), want) <= KERNEL_RTOL
+    assert tuple(ys.shape) == (nsets, n)
+    assert _rel(ys, want) <= KERNEL_RTOL
 
 
+@pytest.mark.parametrize("nsets", [1, 2, 3, 10, 20, 33])
 @pytest.mark.parametrize("kind", ["pairs", "singles"])
-def test_regen_window_limits(dev, kind):
-    """32 pairs / 64 singles in one call run; one more raises before any
-    launch."""
+def test_regen_window_limits(dev, kind, nsets):
+    """32 pairs / 64 singles in one call run, the forward at every set
+    count; one window more, 2P = 32 or float64 coordinates raise before
+    any launch, and the launch counts stay as they were."""
     n, P = 300, 17
     xT, rng = _coords(dev, n, rows=64)
     if kind == "pairs":
@@ -356,21 +373,30 @@ def test_regen_window_limits(dev, kind):
     W2, W1 = pk.packed_adjoint_regen_plain(xT, alpha, P, kw["pairs"], kw.get("singles", ()))
     got = torch.stack(A2, 1) if A2 else torch.stack(A1, 1)
     assert _rel(got, W2 if A2 else W1) <= KERNEL_RTOL
-    G = [torch.ones((2, 2 * P, 2 * P) if A2 else (2, 2 * P), device=dev) for _ in full]
+    G = [torch.from_numpy(rng.normal(size=(nsets, 2 * P, 2 * P) if A2 else (nsets, 2 * P)).astype(np.float32))
+         .to(dev) for _ in full]
     ys = pk.packed_forward_regen(xT, G if A2 else (), () if A2 else G, P=P, **kw)
     torch.cuda.synchronize()
     want = pk.packed_forward_regen_plain(xT, torch.stack(G, 1) if A2 else None,
                                          None if A2 else torch.stack(G, 1), P, kw["pairs"],
                                          kw.get("singles", ()))
     assert _rel(torch.stack(ys), want) <= KERNEL_RTOL
-    before = pk.packed_adjoint_regen.launches
+    before = (pk.packed_adjoint_regen.launches, pk.packed_forward_regen.launches)
+    Gover = [G[0]] * 33 if A2 else [G[0]] * 65
     with pytest.raises(ValueError):
         pk.packed_adjoint_regen(xT, alpha, P=P, **over)
+    with pytest.raises(ValueError):
+        pk.packed_forward_regen(xT, Gover if A2 else (), () if A2 else Gover, P=P, **over)
     with pytest.raises(ValueError):                        # 2P = 32: not a regenerating width
         pk.packed_adjoint_regen(xT, alpha, P=16, **kw)
+    G32 = [g[..., :32, :32] if A2 else g[..., :32] for g in G]
+    with pytest.raises(ValueError):
+        pk.packed_forward_regen(xT, G32 if A2 else (), () if A2 else G32, P=16, **kw)
     with pytest.raises(ValueError):                        # float64 coordinates
         pk.packed_adjoint_regen(xT.double(), alpha, P=P, **kw)
-    assert pk.packed_adjoint_regen.launches == before
+    with pytest.raises(ValueError):
+        pk.packed_forward_regen(xT.double(), G if A2 else (), () if A2 else G, P=P, **kw)
+    assert (pk.packed_adjoint_regen.launches, pk.packed_forward_regen.launches) == before
 
 
 def test_loss_step_on_card_matches_cpu(dev):

@@ -20,6 +20,14 @@ sources, and hold it:
   three-term error (tf32 keeps 11 bits: about 2^-11 per product), so the
   comparison above can see a missing term.
 The launch configuration's cover of every M tile is checked too.
+
+The forward, `forward_regen_tc_kernel`, computes Z[i, (s, a)] = sum_b
+L1[b, i] G_s[a, b] for b < 2P - 2 in the same 3xTF32 (L1 and G split), the
+last two rows b (the Nyquist mode) as float32 FMAs, then y_s[i] =
+sum_w sum_a L0[a, i] Z[i, (s, a)] plus the 1-D windows on the CUDA cores.
+Its emulation is held to the same three limits against the float64 forward
+of the same float32 phases and weights and the JAX package's regenerating
+`packed_forward`; its passes must cover every weight set.
 """
 
 import jax.numpy as jnp
@@ -136,3 +144,73 @@ def test_launch_configuration_covers_every_m_tile(WR):
         rows = min(nv, 512 // WR) * WR
         assert rows <= 512 and (nw // wk) * mpw >= -(-rows // 16)
         assert nw * 32 > 2 * 64 and 8 % wk == 0 and nw % wk == 0
+
+
+NSETS = 5
+
+
+def _forward_emulated(L, G2, G1, terms):
+    """y (nsets, n) in float64 from the forward kernel's split operands:
+    terms 3 (3xTF32) or 1 (big * big) on b < 2P - 2, the last two b and the
+    1-D windows exact."""
+    WR = L.shape[1]
+    y = torch.zeros((G2.shape[0], L.shape[2]), dtype=torch.float64)
+    for w, (ja, jb) in enumerate(PAIRS):
+        Lb, Ls = split_tf32(L[jb, :WR - 2])
+        Gb, Gs = split_tf32(G2[:, w, :, :WR - 2].contiguous())
+        prods = [(Gb, Lb)] if terms == 1 else [(Gs, Lb), (Gb, Ls), (Gb, Lb)]
+        Z = sum(g.double() @ l.double() for g, l in prods)           # (nsets, WR, n)
+        Z = Z + G2[:, w, :, WR - 2:].double() @ L[jb, WR - 2:].double()
+        y += (L[ja].double()[None] * Z).sum(1)
+    for k, j in enumerate(SINGLES):
+        y += G1[:, k].double() @ L[j].double()
+    return y
+
+
+@pytest.mark.parametrize("P", [9, 17])
+@pytest.mark.parametrize("phase_gen", ["doubling", "direct"])
+def test_3xtf32_forward(P, phase_gen):
+    xT, _ = _inputs(211 + P)
+    rng = np.random.default_rng(7 + P)
+    G2 = rng.normal(size=(NSETS, len(PAIRS), 2 * P, 2 * P)).astype(np.float32)
+    G1 = rng.normal(size=(NSETS, len(SINGLES), 2 * P)).astype(np.float32)
+    L = tpn.phase_slab(torch.from_numpy(xT), P, phase_gen).float()
+    g2, g1 = torch.from_numpy(G2), torch.from_numpy(G1)
+    exact = tpn.packed_forward_plain(L.double(), g2.double(), g1.double(), PAIRS, SINGLES)
+    three = _forward_emulated(L, g2, g1, 3)
+    rel3 = _rel(three, exact)
+    assert rel3 <= RTOL
+
+    jy = jpn.packed_forward(jnp.asarray(xT), [jnp.asarray(G2[:, w]) for w in range(len(PAIRS))],
+                            [jnp.asarray(G1[:, k]) for k in range(len(SINGLES))], P=P, pairs=PAIRS,
+                            singles=SINGLES, block=128, interpret=True, phase_gen=phase_gen)
+    jax_out = torch.from_numpy(np.stack([np.asarray(v) for v in jy])).double()
+    assert _rel(three, jax_out) <= RTOL
+
+    one = _forward_emulated(L, g2, g1, 1)
+    assert _rel(one, exact) >= 100 * rel3
+
+
+@pytest.mark.parametrize("WR", [18, 34])
+def test_forward_launch_configuration_covers_every_set_and_point_tile(WR):
+    """`forward_regen_split`: the passes cover every weight set once, in
+    order, at most max_sets each, for pass limits below, at and above the
+    library's 32; and the plain forward run pass by pass, each pass on the
+    slices of the weight stacks that the launcher hands the library (the
+    leading sets), equals the forward of every set at once.  The point
+    tiles are the library's 256-point blocks, held on the card at n = 1,
+    37, 256 and 4099 (tests/test_torch_cuda.py)."""
+    for max_sets in (1, 3, 4, 32, 40):
+        for nsets in list(range(1, 70)) + [200]:
+            passes = _cuda_build.forward_regen_split(nsets, max_sets)
+            assert [s for s0, ns in passes for s in range(s0, s0 + ns)] == list(range(nsets))
+            assert all(1 <= ns <= max_sets for _, ns in passes)
+    nsets, rng = 7, np.random.default_rng(WR)
+    xT = torch.from_numpy(_inputs(WR)[0]).float()
+    G2 = torch.from_numpy(rng.normal(size=(nsets, len(PAIRS), WR, WR)).astype(np.float32))
+    G1 = torch.from_numpy(rng.normal(size=(nsets, len(SINGLES), WR)).astype(np.float32))
+    whole = tpn.packed_forward_regen_plain(xT, G2, G1, WR // 2, PAIRS, SINGLES)
+    parts = torch.cat([tpn.packed_forward_regen_plain(xT, G2[s0:s0 + ns], G1[s0:s0 + ns], WR // 2, PAIRS, SINGLES)
+                       for s0, ns in _cuda_build.forward_regen_split(nsets, 3)])
+    assert parts.shape == whole.shape == (nsets, N)
+    assert _rel(parts, whole) <= 1e-6

@@ -4,7 +4,9 @@
 
 Phases, one line each (any failure raises and exits non-zero):
   1. device: torch's device name and nvidia-smi's name and power limit;
-  2. build: compiles the four kernel libraries of csrc/ with nvcc (sm_90a),
+  2. build: compiles the five kernel libraries of csrc/ with nvcc (sm_90a),
+     prints ptxas's registers, spills and shared memory of the wide pair
+     (none may spill),
      one nvcc per source, all at once, if needed, and checks grid.sync()
      with a tiny cooperative kernel over every resident block;
   3. kernels: the bf16-table kernels (the tensor-core adjoint and forward
@@ -25,7 +27,21 @@ Phases, one line each (any failure raises and exits non-zero):
      forward's on 3 x their 2-D windows' flops at the TF32 peak or their
      CUDA-core flops at the float32 peak, whichever takes longer); a second
      launch of each must be bitwise equal to the first;
-     in 3 and 4 the limit is a relative Frobenius error <= 1e-4 (two f32
+  4b. kernels-wide: the wide pair (csrc/packed_ndft_wide.cu, CUDA-core
+     float32 tile GEMMs, every even 2P from 2 to 1026; the regenerating
+     sources write their phases into a float32 slab first) against its
+     plain versions through the wrappers at n = 1e5: at the window [0, 1]
+     ([afn-pcg-256]'s shape) float32 and bf16 tables at 2P = 64, 128, 256
+     (nv = 1, 10; nsets = 1, 2, 20), a 1-D window beside it at 2P = 128,
+     both regenerating sources at 2P = 130, 258 (against the plain versions
+     in float64: a float32 plain version's own phases at p ~ 128 err by
+     more than the kernel); at WINDOWS ([wide-train]'s shape) the bf16
+     table at 2P = 128 and both regenerating sources at 2P = 130 (nv = 1,
+     10; nsets = 1, 2, 10, 20); and at 2P = 32 the wide pair beside the
+     narrow kernels on the same inputs; a second launch of each must be
+     bitwise equal, and no narrow kernel may serve a wide width; bound: the
+     flops over the float32 peak;
+     in 3, 4 and 4b the limit is a relative Frobenius error <= 1e-4 (two f32
      sums over 2e5 terms in different orders, about sqrt(n) eps); times
      from CUDA events around back-to-back calls queued behind a sleep
      kernel (`cuda_ms`: the card's time, not the host's time to issue);
@@ -126,6 +142,23 @@ Phases, one line each (any failure raises and exits non-zero):
      preconditioner, Nystrom (200 landmarks), AFN (maxrank 200, lfil 16);
      iterations, final relres, set-up and solve seconds; AFN must converge,
      and the float32-table kernels' launches of its solve are read;
+ 17b. afn-pcg-256: AFN_PCG.md section 3's row at its full size through
+     scripts/torch_afn_pcg_bench.py's functions: n = 1e5, d = 2, matern12,
+     (f, l, mu) = (1, 0.1, 0.01), N = 256 (float32 tables at 2P = 256 on the
+     wide kernels), the radius near-field of nf_lfil 128, psd_clip, a
+     solve-only plan, compensated FGMRES reductions, replace_every 25, PCG
+     to 1e-2 in at most 400 iterations with none, Nystrom (rank 200) and AFN
+     (rank 200, lfil 16); iterations, relres, set-up, solve and
+     per-iteration seconds, the table and near-field bytes, one matvec and
+     one AFN solve on the card, the wide kernels' launches by shape (the
+     narrow table kernels' must be 0); AFN must converge; the JAX
+     package's 13 iterations (AFN_PCG_1e5_m12_f32.json) printed beside;
+ 17c. wide-train: GPProblem(matern12, WINDOWS, fastsum_N=128) at n = 1e5,
+     2 Adam steps on the stream engine (bf16 tables, 2P = 128, radius
+     near-field) and 2 with fastsum_fused=True (2P = 130); losses finite,
+     the wide kernels launched (by shape); at n = 5e3 and (1, 0.5, 1) both
+     engines' losses and gradients on the card against their plain
+     versions on CPU float64 (limits of 8 and 12);
  18. fsai: GPProblem(gaussian, WINDOWS, precond="fsai", lfil=16) on the
      stream engine at n = 2e5, 2 Adam steps; losses finite;
  19. cli: the port's CLI as a subprocess on the card (--precond afn
@@ -146,9 +179,12 @@ terms of the float32 operand over the 989 TFLOP/s bf16 peak for the table
 kernels, 3xTF32 over the 495 TFLOP/s dense TF32 peak for the regenerating
 ones); their CUDA-core flops (the 1-D windows, the forwards' epilogue)
 over the 67 TFLOP/s float32 peak run beside them, so the operations take
-the larger of the two times; the other four kernels' flops count over the
+the larger of the two times; the other six kernels' flops count over the
 float32 peak; the H100 SXM's published peaks at 700 W.  Each entry of the kernels JSON
-names the units its operations run on (`engine`).
+names the units its operations run on (`engine`); the wide pair's entries
+are its float32-table cases at [afn-pcg-256]'s shape (2P = 256, nv =
+nsets = 1) with that solve's launches, its launches by shape in
+[wide-train] and its times at [wide-train]'s shapes in [kernels-wide].
 
 A `[done]` line gives the script's wall seconds from its start to the
 summary, and each phase's.  The line before the last is a JSON summary of the kernels; the
@@ -179,7 +215,8 @@ FASTSUM_N = 32
 KERNEL_RTOL = 1e-4
 PKG = "preconditioned_additive_gaussian_processes_with_fourier_acceleration_tpu"
 SOURCES = {"table": f"{PKG}_torch/csrc/packed_ndft_tc.cu", "table_f32": f"{PKG}_torch/csrc/packed_ndft.cu",
-           "regen": f"{PKG}_torch/csrc/packed_ndft_regen.cu", "fused": f"{PKG}_torch/csrc/fused_pcg.cu"}
+           "regen": f"{PKG}_torch/csrc/packed_ndft_regen.cu", "wide": f"{PKG}_torch/csrc/packed_ndft_wide.cu",
+           "fused": f"{PKG}_torch/csrc/fused_pcg.cu"}
 TPU_KERNELS = {"adjoint": f"{PKG}/ops/pallas_ndft.py:189", "forward": f"{PKG}/ops/pallas_ndft.py:361",
                "pcg": f"{PKG}/solvers/pallas_pcg.py:36", "lanczos": f"{PKG}/solvers/pallas_pcg.py:174"}
 # H100 SXM published peaks at its 700 W limit: float32 outside the tensor
@@ -276,7 +313,7 @@ def library_calls(T, pairs, singles):
 
 
 def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets_list, timed, T32, src_bytes,
-               units=("f32", "f32"), repeat=False):
+               units=("f32", "f32"), repeat=False, label=None, adj_ref=None, fwd_ref=None):
     """One adjoint kernel and one forward kernel against their plain versions.
 
     adj(alpha) / fwd(G2, G1) are the wrappers on one layout; adj_plain /
@@ -285,7 +322,10 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
     (table or coordinates); units: the PEAKS keys of the adjoint's and of
     the forward's 2-D window products (the adjoint's 1-D windows, the
     forward's epilogue over a and its 1-D windows count on the CUDA cores);
-    repeat: a second launch must be bitwise equal to the first.
+    repeat: a second launch must be bitwise equal to the first; label: the
+    printed phase tag; adj_ref / fwd_ref: the references of the error when
+    they are not the plain versions (the regenerating kernels' plain
+    versions in float64).
     Returns per-case dicts (kernel, mode, shape, rel, max_abs, ms, plain_ms,
     library_ms, bound_ms, bound_by, bitwise, engine)."""
     n, dev = X.shape[0], X.device
@@ -300,7 +340,7 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         again = adj(alpha) if repeat else got
         torch.cuda.synchronize()
         bitwise = all(torch.equal(u, v) for gs, hs in zip(got, again) for u, v in zip(gs, hs))
-        want = adj_plain(alpha)
+        want = (adj_ref or adj_plain)(alpha)
         want_flat = [w for w in want if w.numel()]
         rel, mx = _rel_err([torch.stack(g, dim=1) for g in got if g], want_flat)
         lib_rel, _ = _rel_err([w for w in lib_adj(alpha) if w.numel()], want_flat)
@@ -332,7 +372,7 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
         G2s = torch.stack(G2, 1) if G2 else None
         G1s = torch.stack(G1, 1) if G1 else None
-        want = fwd_plain(G2s, G1s)
+        want = (fwd_ref or fwd_plain)(G2s, G1s)
         rel, mx = _rel_err(got, [want])
         lib_rel, _ = _rel_err([lib_fwd(G2s, G1s)], [want])
         ms = cuda_ms(lambda: fwd(G2, G1)) if timed else None
@@ -346,8 +386,8 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
                           engine=ENGINES[units[1]]))
 
     for c in cases:
-        c["mode"] = tag.split(" ")[0]
-        print(f"[{'kernels-regen' if names[0].endswith('regen') else 'kernels'}] {tag} {c['kernel']} "
+        c["mode"], c["tag"] = tag.split(" ")[0], tag
+        print(f"[{label or ('kernels-regen' if names[0].endswith('regen') else 'kernels')}] {tag} {c['kernel']} "
               f"{c['shape']}: rel_err={c['rel']:.3e} max_abs_err={c['max_abs']:.3e} ms={c['ms']} "
               f"plain_ms={c['plain_ms']} library_ms={c['library_ms']} (einsum rel_err={c['lib_rel']:.1e}) "
               f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})"
@@ -363,12 +403,12 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
     return cases
 
 
-def _plan(X, windows):
+def _plan(X, windows, N=FASTSUM_N):
     from nfft4gp_torch.ops import fastsum as fs
     from nfft4gp_torch.ops.kernels import KernelParams, make_windows
 
     params = KernelParams.make(1.0, 0.5, 0.1, dtype=torch.float32, device=X.device)
-    return fs.additive_fastsum_build("gaussian", params, X, make_windows(windows), N=FASTSUM_N)
+    return fs.additive_fastsum_build("gaussian", params, X, make_windows(windows), N=N)
 
 
 def check_kernels(X, windows, nvs, nsets_list, timed=True, table_dtype=torch.bfloat16):
@@ -416,6 +456,120 @@ def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20)):
     return cases
 
 
+WIDE_TABLE_WIDTHS = (64, 128, 256)
+WIDE_REGEN_WIDTHS = (130, 258)
+# fastsum_N of [wide-train]: 2P = 128 on its bf16 tables, 130 regenerating
+WIDE_TRAIN_N = 128
+N_WIDE_TRAIN = 100_000
+
+
+def check_wide_kernels(X):
+    """[kernels-wide]: the wide pair (csrc/packed_ndft_wide.cu, CUDA-core
+    float32 tile GEMMs; the regenerating sources through a float32 phase
+    slab) against its plain versions, through the wrappers at widths only
+    it serves.  At [afn-pcg-256]'s shape (the first N_AFN_PCG points, the
+    window [0, 1]): float32 and bf16 tables at 2P = 64, 128, 256 (nv = 1,
+    10; nsets = 1, 2, 20), a 1-D window beside it (2P = 128, untimed), both
+    regenerating sources at 2P = 130, 258 against the plain versions in
+    float64 (nv = 1, 10; nsets = 1, 2, 20).  At [wide-train]'s shape (the
+    first N_WIDE_TRAIN points, the five 2-D windows of WINDOWS): the bf16
+    table at 2P = 128 and both regenerating sources at 2P = 130, nv = 1, 10
+    and nsets = 1, 2, 10, 20, the launch mix of its Adam steps.  And at
+    2P = 32 the wide pair (its private entry) beside the narrow kernels on
+    the same inputs.  A second launch of each is bitwise equal; no narrow
+    kernel launches at the wide widths.  Returns the case dicts."""
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    names = ("packed_adjoint_wide", "packed_forward_wide")
+    narrow = (pk.packed_adjoint, pk.packed_forward, pk.packed_adjoint_regen, pk.packed_forward_regen)
+    narrow_before = [fn.launches for fn in narrow]
+    Xa = X[:N_AFN_PCG, :3].contiguous()
+    Xt = X[:N_WIDE_TRAIN]
+    cases = []
+
+    def tables(Xw, windows, W2, dtype, nvs, nsets, timed=True):
+        pn = fs.packed_ndft_plan(_plan(Xw, windows, N=W2), table_dtype=dtype)
+        Tp, pairs, singles = pn.Tp, pn.pairs, pn.singles
+        tag = f"table-{'bf16' if dtype == torch.bfloat16 else 'f32'}@2P={W2} windows={windows} n={Xw.shape[0]}"
+        return check_pair(
+            tag, names,
+            lambda a: pk.packed_adjoint(Tp, a, pairs=pairs, singles=singles),
+            lambda a: pk.packed_adjoint_plain(Tp, a, pairs, singles),
+            lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles),
+            lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles),
+            pn, pn.P, Xw, nvs, nsets, timed, Tp.float(), Tp.numel() * Tp.element_size(), repeat=True,
+            label="kernels-wide")
+
+    def regen(Xw, windows, W2, gen, nvs, nsets):
+        lay = fs._packed_layout(_plan(Xw, windows, N=W2 - 2))
+        P = fs._nmodes(W2 - 2)
+        xT, pairs, singles = lay.xT, lay.pairs, lay.singles
+        kw = dict(P=P, pairs=pairs, singles=singles, phase_gen=gen)
+        return check_pair(
+            f"{gen}@2P={W2} windows={windows} n={Xw.shape[0]}", names,
+            lambda a: pk.packed_adjoint_regen(xT, a, **kw),
+            lambda a: pk.packed_adjoint_regen_plain(xT, a, P, pairs, singles, gen),
+            lambda G2, G1: pk.packed_forward_regen(xT, G2, G1, **kw),
+            lambda G2s, G1s: pk.packed_forward_regen_plain(xT, G2s, G1s, P, pairs, singles, gen),
+            lay, P, Xw, nvs, nsets, True, pk.phase_slab(xT, P, gen), xT.numel() * xT.element_size(),
+            repeat=True, label="kernels-wide",
+            adj_ref=lambda a: pk.packed_adjoint_regen_plain(xT.double(), a.double(), P, pairs, singles, gen),
+            fwd_ref=lambda G2s, G1s: pk.packed_forward_regen_plain(
+                xT.double(), G2s.double(), None if G1s is None else G1s.double(), P, pairs, singles, gen))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for W2 in WIDE_TABLE_WIDTHS:
+            cases += tables(Xa, [[0, 1]], W2, dtype, (1, 10), (1, 2, 20))
+    cases += tables(Xa, [[0, 1], [2]], 128, torch.float32, (1, 10), (1, 20), timed=False)
+    for W2 in WIDE_REGEN_WIDTHS:
+        for gen in pk.PHASE_GENS:
+            cases += regen(Xa, [[0, 1]], W2, gen, (1, 10), (1, 2, 20))
+    # [wide-train]'s shapes
+    cases += tables(Xt, WINDOWS, WIDE_TRAIN_N, torch.bfloat16, (1, 10), (1, 2, 10, 20))
+    for gen in pk.PHASE_GENS:
+        cases += regen(Xt, WINDOWS, WIDE_TRAIN_N + 2, gen, (1, 10), (1, 2, 10, 20))
+    if [fn.launches for fn in narrow] != narrow_before:
+        raise AssertionError("kernels-wide: a narrow kernel served a wide width")
+    # 2P = 32: the wide pair and the narrow kernels on the same inputs
+    for dtype in (torch.float32, torch.bfloat16):
+        pn = fs.packed_ndft_plan(_plan(Xa, [[0, 1]], N=32), table_dtype=dtype)
+        Tp, pairs = pn.Tp, pn.pairs
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        wide = check_pair(
+            f"table-{kind}@2P=32 windows=[[0, 1]] n={Xa.shape[0]}", names,
+            lambda a: pk._adjoint_outputs(*pk._adjoint_wide(Tp, a, pairs, ()), True, len(pairs), 0),
+            lambda a: pk.packed_adjoint_plain(Tp, a, pairs, ()),
+            lambda G2, G1: list(torch.unbind(pk._forward_wide(
+                Tp, *pk._dense_stacks(torch.stack(G2, 1), None, 32, Tp.device), pairs, ()))),
+            lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, ()),
+            pn, pn.P, Xa, (1, 10), (1, 20), True, Tp.float(), Tp.numel() * Tp.element_size(), repeat=True,
+            label="kernels-wide")
+        narrow_cases = check_pair(
+            f"table-{kind}@2P=32 (narrow) n={Xa.shape[0]}",
+            ("packed_adjoint", "packed_forward"),
+            lambda a: pk.packed_adjoint(Tp, a, pairs=pairs),
+            lambda a: pk.packed_adjoint_plain(Tp, a, pairs, ()),
+            lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs),
+            lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, ()),
+            pn, pn.P, Xa, (1, 10), (1, 20), True, Tp.float(), Tp.numel() * Tp.element_size(), repeat=True,
+            label="kernels-wide")
+        print(f"[kernels-wide] 2P=32 {dtype}: wide / narrow ms = "
+              f"{[(w['shape'], w['ms'], v['ms']) for w, v in zip(wide, narrow_cases)]}", flush=True)
+        cases += wide
+    return cases
+
+
+def _launches():
+    """The NDFT wrappers' launch counts, and by shape."""
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    counts = {fn.__name__: fn.launches for fn in pk.KERNEL_WRAPPERS}
+    counts["by_shape"] = {fn.__name__: dict(sorted(fn.launches_by_shape.items())) for fn in pk.KERNEL_WRAPPERS
+                          if fn.launches}
+    return counts
+
+
 def timed_fit(prob, X, y, counted, steps=3, **fit_kw):
     """`steps` Adam steps of prob.fit (with fit_kw) with the given kernels'
     launch counts set to 0 just before and read just after.  Every loss and
@@ -434,9 +588,7 @@ def timed_fit(prob, X, y, counted, steps=3, **fit_kw):
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     prob.fit(X, y, adam_maxits=steps, callback=tick, **fit_kw)
-    counts = {fn.__name__: fn.launches for fn in pk.KERNEL_WRAPPERS}
-    counts["by_shape"] = {fn.__name__: dict(sorted(fn.launches_by_shape.items())) for fn in pk.KERNEL_WRAPPERS
-                          if fn.launches}
+    counts = _launches()
     losses = prob.loss_history_
     if len(losses) != steps or not all(np.isfinite(losses)) or not all(grads_ok):
         raise AssertionError(f"losses or gradients not finite: {losses}, gradients finite {grads_ok}")
@@ -929,9 +1081,7 @@ def check_afn_pcg(X, y):
         res, s_solve = _timed(lambda: pcg(mv, y, precond=None if pre is None else pre.solve, tol=1e-2,
                                           maxits=400))
         if name == "afn":
-            counts = {fn.__name__: fn.launches for fn in pk.KERNEL_WRAPPERS}
-            counts["by_shape"] = {fn.__name__: dict(fn.launches_by_shape) for fn in pk.KERNEL_WRAPPERS
-                                  if fn.launches}
+            counts = _launches()
             counts["iterations"] = res.niter
         rows[name] = dict(niter=res.niter, relres=float(res.relres), setup_s=round(s_setup, 3),
                           solve_s=round(s_solve, 3))
@@ -945,6 +1095,132 @@ def check_afn_pcg(X, y):
     if min(counts["packed_adjoint"], counts["packed_forward"]) <= 0:
         raise AssertionError(f"afn-pcg: a float32-table kernel was not launched: {counts}")
     return counts
+
+
+AFN_PCG_256_ARGV = ["--n", "100000", "--d", "2", "--kernel", "matern12", "--l", "0.1", "--mu", "0.01", "--N", "256",
+                    "--nf-lfil", "128", "--rank", "200", "--lfil", "16", "--tol", "1e-2", "--maxits", "400", "--comp",
+                    "--replace-every", "25", "--engine", "stream", "--precs", "none,nystrom,afn", "--solvers", "pcg"]
+# AFN_PCG_1e5_m12_f32.json (the JAX package's run of the same configuration)
+JAX_AFN_PCG_256_ITERS = 13
+
+
+def _bench_module():
+    """scripts/torch_afn_pcg_bench.py, the port of scripts/afn_pcg_bench.py."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_afn_pcg_bench.py")
+    spec = importlib.util.spec_from_file_location("torch_afn_pcg_bench", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_afn_pcg_256(dev):
+    """[afn-pcg-256]: AFN_PCG.md section 3's row at its full size through
+    scripts/torch_afn_pcg_bench.py's functions (its data from
+    np.random.default_rng(0), its operator recipe: float32 tables at
+    2P = 256 on the wide kernels, the radius near-field of nf_lfil 128,
+    psd_clip, a solve-only plan): PCG to 1e-2 with none, Nystrom and AFN,
+    each solve run twice and the second timed (as the script does), the
+    launches counted over the second.  AFN-PCG must converge within 400
+    iterations, the wide kernels launched and no narrow float32-table
+    kernel.  Also the parts of one AFN iteration on the card.  Returns the
+    launch counts of the AFN solve and its iterations."""
+    from nfft4gp_torch.ops import packed_ndft as pk
+    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
+
+    bench = _bench_module()
+    args = bench.parse_args(AFN_PCG_256_ARGV)
+    torch.cuda.reset_peak_memory_stats()
+    X, b, dtype = bench.make_problem(args, dev)
+    params = KernelParams.make(1.0, args.l, args.mu, dtype=dtype, device=dev)
+    windows = make_windows(bench.windows_of(args.d))
+    (mv, info), s_op = _timed(lambda: bench.build_operator(args, X, params, windows, log=lambda m: print(
+        f"[afn-pcg-256] {m}", flush=True)))
+    rows, counts, afn_pre = {}, None, None
+    for name, setup_s, pre, plan in bench.preconditioners(args, X, params, windows, args.precs.split(",")):
+        bench.solve(args, mv, b, pre, "pcg")
+        pk.reset_launch_counts()
+        res, s_solve = _timed(lambda: bench.solve(args, mv, b, pre, "pcg"))
+        rec = bench.record(res, s_solve, setup_s, "pcg")
+        rows[name] = {k: rec[k] for k in ("iters", "relres", "converged", "setup_s", "solve_s", "s_per_iter",
+                                          "time_to_tol")}
+        if plan is not None:
+            rows[name].update(k=plan.k, use_ran=plan.use_ran)
+        if name == "afn":
+            counts, afn_pre = _launches(), pre
+            counts["iterations"] = res.niter
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the parts of one AFN iteration
+    parts = dict(matvec_ms=cuda_ms(lambda: mv(b)), afn_solve_ms=cuda_ms(lambda: afn_pre.solve(b)))
+    print(f"[afn-pcg-256] n={args.n} d=2 matern12 windows={bench.windows_of(args.d)} (f, l, mu) = (1, {args.l}, "
+          f"{args.mu}) N={args.N} (2P = {2 * info['P']}, float32 table {info['table_bytes']} bytes), radius "
+          f"near-field nf_lfil {args.nf_lfil} ({info['nf']}, {info['nf_bytes']} bytes, K values only), psd_clip, "
+          f"tol {args.tol}, maxits {args.maxits}, compensated FGMRES reductions, replace_every "
+          f"{args.replace_every}: operator set-up {s_op:.2f} s; {rows}; one AFN iteration's parts on the card "
+          f"{parts}; peak_GiB={peak:.2f}; launches of the AFN solve={counts} | JAX package, same configuration "
+          f"(AFN_PCG_1e5_m12_f32.json, for comparison only): AFN-PCG {JAX_AFN_PCG_256_ITERS} iterations",
+          flush=True)
+    if not (rows["afn"]["converged"] and rows["afn"]["iters"] <= 400 and rows["afn"]["relres"] <= 1e-2):
+        raise AssertionError(f"afn-pcg-256: AFN-PCG did not reach 1e-2 in 400 iterations: {rows['afn']}")
+    if min(counts["packed_adjoint_wide"], counts["packed_forward_wide"]) <= 0:
+        raise AssertionError(f"afn-pcg-256: a wide kernel was not launched: {counts}")
+    if counts["packed_adjoint"] or counts["packed_forward"]:
+        raise AssertionError(f"afn-pcg-256: a narrow table kernel was launched: {counts}")
+    return counts
+
+
+N_WIDE_AGREE = 5_000
+WIDE_TRAIN = dict(kernel="matern12", windows=WINDOWS, operator="fastsum", precond="nystrom", rank=50, maxits=10,
+                  nvecs=10, fastsum_N=WIDE_TRAIN_N)
+
+
+def check_wide_train(X, y):
+    """[wide-train]: GPProblem(matern12, WINDOWS, fastsum_N=128) at
+    n = N_WIDE_TRAIN, 2 Adam steps on the stream engine (its default on the
+    card: bf16 tables, 2P = 128, radius near-field) and 2 with
+    fastsum_fused=True (regenerating, 2P = 130, KNN near-field), every loss
+    finite and the wide kernels launched; then at n = N_WIDE_AGREE and
+    (f, l, mu) = (1, 0.5, 1) both engines' losses and gradients on the card
+    (the stream engine with float32 tables) against their plain versions
+    on CPU float64 with the same probes and landmarks (the fused engine
+    also with the card's KNN patterns): the limits of [agree-stream-m12]
+    and [agree-fused].  Returns {engine: launch counts}."""
+    from nfft4gp_torch.models.problem import GPProblem
+    from nfft4gp_torch.models.transforms import transform_inverse
+
+    Xn, yn = X[:N_WIDE_TRAIN], y[:N_WIDE_TRAIN]
+    out = {}
+    for engine, kw in (("stream", {}), ("fused", dict(fastsum_fused=True))):
+        prob = GPProblem(**WIDE_TRAIN, **kw)
+        losses, steps, counts = timed_fit(prob, Xn, yn, ("packed_adjoint_wide", "packed_forward_wide"), steps=2)
+        nf = ("radius" if prob.nf_stencils_ is not None and all(g is not None for g in prob.nf_stencils_)
+              else "knn")
+        print(f"[wide-train] n={Xn.shape[0]} windows={WINDOWS} matern12 fastsum_N=128 engine={engine} "
+              f"near-field={nf} losses={losses} s_per_step={steps.tolist()} (the first includes the set-up) "
+              f"launches={counts}", flush=True)
+        out[engine] = counts
+
+    Xa, ya = X[:N_WIDE_AGREE], y[:N_WIDE_AGREE]
+    Xh, yh = Xa.cpu().double(), ya.cpu().double()
+    raw = transform_inverse("softplus", torch.tensor([1.0, 0.5, 1.0], dtype=torch.float64))
+    for engine, kw in (("stream", dict(fastsum_engine="stream", fastsum_table_dtype="float32")),
+                       ("fused", dict(fastsum_fused=True))):
+        card = GPProblem(**WIDE_TRAIN, **kw)
+        loss_c, grad_c = card.make_loss(Xa, ya)(raw.float().to(Xa.device))
+        pats = None if card.nf_patterns_ is None else tuple(
+            None if p is None else (p[0].cpu(), p[1].cpu(), p[2]) for p in card.nf_patterns_)
+        host = GPProblem(**WIDE_TRAIN, **kw)
+        loss_h, grad_h = host.make_loss(Xh, yh, nf_patterns=pats)(raw)
+        gap = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+        print(f"[wide-train] agree n={Xa.shape[0]} (f, l, mu) = (1, 0.5, 1) engine={engine}: card loss="
+              f"{float(loss_c):.8e} grad={grad_c.tolist()} | CPU float64 (plain versions) loss={float(loss_h):.8e} "
+              f"grad={grad_h.tolist()} rel_loss_gap={gap:.3e} (limits: loss 1e-3, gradient 1e-2 / 1e-3)",
+              flush=True)
+        np.testing.assert_allclose(float(loss_c), float(loss_h), rtol=1e-3)
+        np.testing.assert_allclose(grad_c.cpu().numpy(), grad_h.numpy(), rtol=1e-2, atol=1e-3)
+    return out
 
 
 def check_fsai(X, y):
@@ -1039,6 +1315,11 @@ def main():
         _cuda_build.library(lib)
     print(f"[build] {', '.join(p.parent.name for p in paths.values())} compiled in {secs:.1f} s "
           "(one nvcc per source, in parallel)", flush=True)
+    wide_ptxas = _cuda_build.ptxas_report("packed_ndft_wide")
+    print(f"[build] ptxas, csrc/packed_ndft_wide.cu (template argument of the GEMMs: 0 float32 table, 1 bf16 "
+          f"table; of the phase slab: 0 doubling, 1 direct): {wide_ptxas}", flush=True)
+    if any(r["spill_bytes"] for r in wide_ptxas if r["kernel"].startswith("wide_")):
+        raise AssertionError(f"a wide kernel spills registers: {wide_ptxas}")
     blocks, total = _cuda_build.grid_sync_probe(torch.device("cuda:0"))
     print(f"[build] grid.sync() over {blocks} resident blocks: sum {total} "
           f"(expected {blocks * (blocks + 1) // 2})", flush=True)
@@ -1055,6 +1336,8 @@ def main():
                         table_dtype=torch.float32)
     regen = check_regen_kernels(X)
     mark("kernels")
+    wide = check_wide_kernels(X)
+    mark("kernels-wide")
 
     prob = GPProblem(kernel="gaussian", windows=WINDOWS, operator="fastsum", precond="nystrom",
                      rank=50, maxits=10, nvecs=10, fastsum_N=FASTSUM_N)
@@ -1101,6 +1384,10 @@ def main():
     mark("agree-afn")
     pcounts = check_afn_pcg(X, y)
     mark("afn-pcg")
+    wcounts = check_afn_pcg_256(X.device)
+    mark("afn-pcg-256")
+    tcounts = check_wide_train(X, y)
+    mark("wide-train")
     check_fsai(X, y)
     mark("fsai")
     check_cli(X, y)
@@ -1112,6 +1399,8 @@ def main():
                _summary("packed_forward", "table_f32", "table-f32", f32, "nsets=1", pcounts),
                _summary("packed_adjoint_regen", "regen", "doubling", regen, "nv=10", fcounts),
                _summary("packed_forward_regen", "regen", "doubling", regen, "nsets=20", fcounts),
+               _summary("packed_adjoint_wide", "wide", "table-f32@2P=256", wide, "nv=1", wcounts),
+               _summary("packed_forward_wide", "wide", "table-f32@2P=256", wide, "nsets=1", wcounts),
                _summary("fused_pcg_dense", "fused", "dense", dense, f"n={DENSE_NS[0]} mu={DENSE_MUS[0]}", dcounts),
                _summary("fused_lanczos_dense", "fused", "dense", dense, f"n={DENSE_NS[1]} mu={DENSE_MUS[0]}",
                         dcounts)]
@@ -1122,6 +1411,12 @@ def main():
         k["launches_by_shape_afn"] = acounts["by_shape"][k["name"]]
     for k in summary[2:4]:
         k["pcg_iterations"] = pcounts["iterations"]
+    for k in summary[6:8]:
+        k["pcg_iterations"] = wcounts["iterations"]
+        for engine, counts in tcounts.items():
+            k[f"launches_by_shape_wide_train_{engine}"] = counts["by_shape"][k["name"]]
+        k["ms_by_shape_wide_train"] = {f"{c['mode']} {c['shape']}": c["ms"] for c in wide
+                                       if c["kernel"] == k["name"] and f"windows={WINDOWS}" in c["tag"]}
     print(f"[done] wall seconds from the start of chip_smoke.py to its summary: "
           f"{time.perf_counter() - _T0:.1f}; seconds by phase (the first from the script's start): {phase_s}",
           flush=True)

@@ -1,6 +1,6 @@
 """Build, load and launch the CUDA kernels of csrc/.
 
-Four shared libraries with a plain C interface, one per source:
+Five shared libraries with a plain C interface, one per source:
 
 - `packed_ndft_tc`: csrc/packed_ndft_tc.cu, the tensor-core NDFT kernels for
   bf16 tables (the training path);
@@ -10,14 +10,21 @@ Four shared libraries with a plain C interface, one per source:
   kernels ("doubling", "direct"), both on the tensor cores in 3xTF32 with
   the Nyquist mode's two rows or columns and the 1-D windows on the CUDA
   cores in the same kernel;
+- `packed_ndft_wide`: csrc/packed_ndft_wide.cu, the CUDA-core NDFT kernels
+  for every even width 2P from 2 to 1026 on float32 and bf16 tables, and
+  the kernel that writes the phases of "doubling" and "direct" into a
+  float32 slab for them: the widths the three narrow libraries are not
+  built for;
 - `fused_pcg`: csrc/fused_pcg.cu, the cooperative CG and Lanczos kernels.
 
 Each is compiled at first use with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC -Xptxas -v
 
 into `_build/<name>-<hash of source, headers and flags>/lib<name>.so` inside
-the package (the directory is git-ignored) and loaded with ctypes.  `build()`
+the package (the directory is git-ignored) and loaded with ctypes; ptxas's
+report (registers, spills, shared memory per kernel) is kept beside it
+(`ptxas_report`).  `build()`
 starts one nvcc per missing library, all at once, and waits for them.  The
 hash key means a changed source builds anew and an unchanged one loads at
 once.  Nothing here runs at import time: the CPU tests import the package
@@ -28,6 +35,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,15 +49,17 @@ CSRC = _PKG / "csrc"
 SOURCES = {"packed_ndft_tc": CSRC / "packed_ndft_tc.cu",
            "packed_ndft": CSRC / "packed_ndft.cu",
            "packed_ndft_regen": CSRC / "packed_ndft_regen.cu",
+           "packed_ndft_wide": CSRC / "packed_ndft_wide.cu",
            "fused_pcg": CSRC / "fused_pcg.cu"}
 # the headers of csrc/ each source includes: part of its build key
 HEADERS = {"packed_ndft_tc": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
            "packed_ndft": (CSRC / "packed_ndft.cuh",),
            "packed_ndft_regen": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
+           "packed_ndft_wide": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
            "fused_pcg": ()}
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # points per tile of the adjoint kernels (TP in the header); chunks are whole tiles
 _TILE = 64
@@ -59,6 +69,12 @@ _TARGET_BLOCKS = 528
 _TC_ROWS = 512
 # phase_gen codes of packed_ndft_regen.cu
 PHASE_GEN_CODES = {"doubling": 0, "direct": 1}
+# table kinds of packed_ndft_wide.cu's GEMMs (WideKind)
+WIDE_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+# the wide adjoint's blocks: about eight 256-thread blocks per SM of an H100
+_WIDE_TARGET_BLOCKS = 1056
+# output tile of the wide adjoint (ABM = ABN in the source)
+_WIDE_TILE = 64
 
 
 def _nvcc() -> str:
@@ -102,6 +118,7 @@ def build() -> tuple[dict, float]:
             if proc.returncode != 0:
                 errors.append(f"nvcc {SOURCES[name].name} failed ({proc.returncode}):\n{err}")
             else:
+                (todo[name].parent / "ptxas.txt").write_text(err)
                 os.replace(tmp, todo[name])
         if errors:
             raise RuntimeError("\n".join(errors))
@@ -113,6 +130,26 @@ def build() -> tuple[dict, float]:
             if os.path.exists(tmp):
                 os.remove(tmp)
     return paths, time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Per kernel of a built library, from ptxas's report: {kernel (its
+    name and template arguments, from the mangled symbol), registers,
+    spill_bytes (stores + loads), smem (static bytes)}."""
+    rows, kernel = [], None
+    for line in (library_path(name).parent / "ptxas.txt").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)((?:IL[ij]\d+E)*)", m.group(1))
+            kernel = k.group(1) + ("<" + ",".join(re.findall(r"IL[ij](\d+)E", k.group(2))) + ">" if k.group(2) else "")
+            rows.append(dict(kernel=kernel, registers=None, spill_bytes=0, smem=0))
+        elif kernel and "spill stores" in line:
+            rows[-1]["spill_bytes"] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+        elif kernel and "Used" in line:
+            rows[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["smem"] = int(smem.group(1)) if smem else 0
+    return rows
 
 
 def _ndft_signatures(lib):
@@ -162,8 +199,21 @@ def _fused_pcg_signatures(lib):
         fn.restype = I
 
 
+def _ndft_wide_signatures(lib):
+    """wide_adjoint_launch / wide_forward_launch: the table's kind
+    (WIDE_KINDS), its pointer and row stride first; wide_phases_launch."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.wide_phases_launch.argtypes = [I, P, I, I, I, I, P, P]
+    lib.wide_phases_launch.restype = I
+    lib.wide_adjoint_launch.argtypes = [I, P, I, P, I, I, I, P, I, P, I, P, I, I, P, P]
+    lib.wide_forward_launch.argtypes = [I, P, I, I, I, P, I, P, P, I, P, I, P, P]
+    lib.wide_adjoint_launch.restype = I
+    lib.wide_forward_launch.restype = I
+
+
 _SIGNATURES = {"packed_ndft_tc": _ndft_tc_signatures, "packed_ndft": _ndft_signatures,
-               "packed_ndft_regen": _ndft_regen_signatures, "fused_pcg": _fused_pcg_signatures}
+               "packed_ndft_regen": _ndft_regen_signatures, "packed_ndft_wide": _ndft_wide_signatures,
+               "fused_pcg": _fused_pcg_signatures}
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,12 +250,12 @@ def rhs_per_block(WR: int) -> int:
     return min(8, 256 // tiles)
 
 
-def _chunks(n, per_chunk):
-    """(nchunks, chunk): whole 64-point tiles per chunk, at most
-    _TARGET_BLOCKS blocks for `per_chunk` blocks per chunk (four per SM of
-    an H100, so no wave of blocks runs nearly empty)."""
+def _chunks(n, per_chunk, target=_TARGET_BLOCKS):
+    """(nchunks, chunk): whole 64-point tiles per chunk, at most `target`
+    blocks for `per_chunk` blocks per chunk (four per SM of an H100 by
+    default, so no wave of blocks runs nearly empty)."""
     ntiles = -(-n // _TILE)
-    nchunks = max(1, min(ntiles, _TARGET_BLOCKS // max(per_chunk, 1)))
+    nchunks = max(1, min(ntiles, target // max(per_chunk, 1)))
     chunk = -(-ntiles // nchunks) * _TILE
     return -(-n // chunk), chunk
 
@@ -349,6 +399,66 @@ def forward_regen(xT, G2, G1, WR, pairs, singles, phase_gen):
                                       G2[s0:].data_ptr(), sg, len(singles), G1[s0:].data_ptr(), ns,
                                       gf.data_ptr(), y[s0:].data_ptr(), _stream(G2))
             _check(lib, code, "packed_forward_regen")
+    return y
+
+
+def wide_chunks(WR: int, nv: int, n: int, npairs: int, nsingles: int) -> tuple[int, int]:
+    """(nchunks, chunk) of the wide adjoint: its blocks per chunk are the
+    64 x 64 output tiles of every window (nv WR rows per 2-D window, nv per
+    1-D window, WR columns)."""
+    cols = -(-WR // _WIDE_TILE)
+    per_chunk = cols * (npairs * -(-nv * WR // _WIDE_TILE) + nsingles * -(-nv // _WIDE_TILE))
+    return _chunks(n, per_chunk, _WIDE_TARGET_BLOCKS)
+
+
+def phases_wide(xT, P: int, phase_gen: str):
+    """The phases of the coordinate rows xT (Dtot, n) float32 as the wide
+    kernels' float32 table: (Dtot, 2P, n), regenerated by `phase_gen`'s
+    formula (csrc/packed_ndft_wide.cu wide_phases_kernel)."""
+    lib = library("packed_ndft_wide")
+    Dtot, n = xT.shape
+    slab = torch.empty((Dtot, 2 * P, n), dtype=torch.float32, device=xT.device)
+    with torch.cuda.device(xT.device):
+        code = lib.wide_phases_launch(PHASE_GEN_CODES[phase_gen], xT.data_ptr(), xT.stride(0), Dtot, P, n,
+                                      slab.data_ptr(), _stream(xT))
+    _check(lib, code, "wide phases")
+    return slab
+
+
+def adjoint_wide(Tp, alpha, pairs, singles):
+    """Launch the wide adjoint (csrc/packed_ndft_wide.cu) on a float32 or
+    bf16 table (Dtot, WR, n): ((nv, npairs, WR, WR), (nv, nsingles, WR))."""
+    lib = library("packed_ndft_wide")
+    _, WR, n = Tp.shape
+    nv = alpha.shape[0]
+    np_, ns = len(pairs), len(singles)
+    nchunks, chunk = wide_chunks(WR, nv, n, np_, ns)
+    S2 = nv * np_ * WR * WR
+    S = S2 + nv * ns * WR
+    part = torch.empty((nchunks, S), dtype=torch.float32, device=alpha.device)
+    out = torch.empty(S, dtype=torch.float32, device=alpha.device)
+    pr, sg = _ints(v for pair in pairs for v in pair), _ints(singles)
+    with torch.cuda.device(alpha.device):
+        code = lib.wide_adjoint_launch(WIDE_KINDS[Tp.dtype], Tp.data_ptr(), Tp.stride(1), alpha.data_ptr(), WR, n,
+                                       nv, pr, np_, sg, ns, part.data_ptr(), nchunks, chunk, out.data_ptr(),
+                                       _stream(alpha))
+    _check(lib, code, "wide adjoint")
+    return out[:S2].reshape(nv, np_, WR, WR), out[S2:].reshape(nv, ns, WR)
+
+
+def forward_wide(Tp, G2, G1, pairs, singles):
+    """Launch the wide forward (csrc/packed_ndft_wide.cu) on a float32 or
+    bf16 table (Dtot, WR, n): (nsets, n) float32."""
+    lib = library("packed_ndft_wide")
+    _, WR, n = Tp.shape
+    nsets = G2.shape[0]
+    y = torch.empty((nsets, n), dtype=torch.float32, device=G2.device)
+    pr, sg = _ints(v for pair in pairs for v in pair), _ints(singles)
+    with torch.cuda.device(G2.device):
+        code = lib.wide_forward_launch(WIDE_KINDS[Tp.dtype], Tp.data_ptr(), Tp.stride(1), WR, n, pr, len(pairs),
+                                       G2.data_ptr(), sg, len(singles), G1.data_ptr(), nsets, y.data_ptr(),
+                                       _stream(G2))
+    _check(lib, code, "wide forward")
     return y
 
 

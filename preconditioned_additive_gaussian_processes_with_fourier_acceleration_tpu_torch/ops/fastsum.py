@@ -486,28 +486,30 @@ class NfStencilEntry(NamedTuple):
 
     idx: torch.Tensor
     A_k: torch.Tensor
-    A_l: torch.Tensor
+    A_l: Optional[torch.Tensor]      # None in a solve-only plan
 
 
 def _nf_direct_values(sten: NfStencilDirect, kind: str, params: KernelParams, scale, b,
-                      db_l) -> NfStencilEntry:
+                      db_l, require_grad: bool = True) -> NfStencilEntry:
     """The exact kernel minus the trigonometric polynomial of the untrimmed
     coefficients b (and db_l), tapered by (1 - r/rho)^2, on the in-radius
     pairs (ref fastsum.py _nf_direct_values); the phase tables are built in
-    chunks of pairs, which bounds the transient memory."""
+    chunks of pairs, which bounds the transient memory.  require_grad=False
+    (a solve-only plan) skips the dk/dl values: A_l is None."""
     n, width = sten.idx.shape
     rows, cols = sten.pos // width, sten.idx.reshape(-1)[sten.pos]
     D = sten.x[rows] - sten.x[cols]
     r2s = torch.sum(D * D, dim=1)
     phi, dphi_l = BASE_KERNELS[kind](r2s / (scale * scale), params.l)
-    tps = trigpoly_eval_multi_chunked([b, db_l], D)
+    sets = [b, db_l] if require_grad else [b]
+    tps = trigpoly_eval_multi_chunked(sets, D)
     w = torch.square(torch.clamp(1.0 - torch.sqrt(r2s) / sten.rho, min=0.0))
     vals = []
     for src, tp in zip((phi, dphi_l), tps):
         v = torch.zeros(n * width, dtype=D.dtype, device=D.device)
         v[sten.pos] = (src - tp) * w
         vals.append(v.reshape(n, width))
-    return NfStencilEntry(idx=sten.idx, A_k=vals[0], A_l=vals[1])
+    return NfStencilEntry(idx=sten.idx, A_k=vals[0], A_l=vals[1] if require_grad else None)
 
 
 def _nf_trip_apply_batch(nf_sym: bool, trip, Xb, which: str):
@@ -515,6 +517,8 @@ def _nf_trip_apply_batch(nf_sym: bool, trip, Xb, which: str):
     rows (nv, n), one row gather for all: a radius stencil entry (symmetric
     ELL) or a KNN (idx, val, dval)."""
     if isinstance(trip, NfStencilEntry):
+        if which != "k" and trip.A_l is None:
+            raise ValueError("a solve-only plan (nf_require_grad=False) holds no dK/dl near-field")
         return ell_matvec_batch(trip.idx, trip.A_k if which == "k" else trip.A_l, Xb)
     idx, val, dval = trip
     return nearfield_apply_batch(nf_sym, idx, val if which == "k" else dval, Xb)
@@ -522,8 +526,8 @@ def _nf_trip_apply_batch(nf_sym: bool, trip, Xb, which: str):
 
 # --- coefficients ----------------------------------------------------------------
 
-def fastsum_coeffs(kind: str, params: KernelParams, geom: FastsumGeometry, *, oversample: int = 2,
-                   nearfield_lfil: Optional[int] = None, nf_pattern=None) -> FastsumPlan:
+def fastsum_coeffs(kind: str, params: KernelParams, geom: FastsumGeometry, *, psd_clip: bool = False,
+                   oversample: int = 2, nearfield_lfil: Optional[int] = None, nf_pattern=None) -> FastsumPlan:
     """Sample the scaled kernel on the (oversample*N)^d torus grid, FFT, and
     keep the central N modes per dim (fastsum's anti-aliasing grid,
     nfft_interface.c:18-27).
@@ -531,6 +535,11 @@ def fastsum_coeffs(kind: str, params: KernelParams, geom: FastsumGeometry, *, ov
     nearfield_lfil: None = auto (_resolve_nf_lfil);
     nf_pattern: a precomputed (idx, mask) or (idx, mask, sym) pattern for
     the near-field.
+    psd_clip: clip the kernel's coefficients to >= 0 after the FFT (the
+    true spectra are positive; negative ones are truncation and aliasing
+    artifacts), which projects the Fourier operator onto the PSD cone for
+    PCG; derivative coefficients are never clipped (ref fastsum.py
+    fastsum_coeffs).
     """
     N, d = geom.N, geom.d
     Nos = int(oversample) * N
@@ -543,6 +552,8 @@ def fastsum_coeffs(kind: str, params: KernelParams, geom: FastsumGeometry, *, ov
         return _central_modes(bs, N, d)
 
     b = coeffs(k_samp)
+    if psd_clip:
+        b = torch.clamp(b, min=0.0)
     db_l = coeffs(dk_dl_samp)
     nf_idx = nf_val = nf_dval = None
     nf_sym = False
@@ -557,11 +568,11 @@ def fastsum_coeffs(kind: str, params: KernelParams, geom: FastsumGeometry, *, ov
                        nf_idx=nf_idx, nf_val=nf_val, nf_dval=nf_dval, nf_sym=nf_sym)
 
 
-def fastsum_build(kind: str, params: KernelParams, X, N: int = 32, *, table_dtype=None,
-                  oversample: int = 2,
+def fastsum_build(kind: str, params: KernelParams, X, N: int = 32, *, psd_clip: bool = False,
+                  table_dtype=None, oversample: int = 2,
                   nearfield_lfil: Optional[int] = None) -> FastsumPlan:
     return fastsum_coeffs(kind, params, fastsum_geometry(X, N, table_dtype=table_dtype),
-                          oversample=oversample, nearfield_lfil=nearfield_lfil)
+                          psd_clip=psd_clip, oversample=oversample, nearfield_lfil=nearfield_lfil)
 
 
 # --- folded apply ------------------------------------------------------------
@@ -741,19 +752,20 @@ class AdditiveFastsumPlan(NamedTuple):
 
 
 def additive_fastsum_coeffs(kind: str, params: KernelParams,
-                            geom: AdditiveFastsumGeometry, *, oversample: int = 2, nearfield_lfil: Optional[int] = None,
-                            nf_patterns=None) -> AdditiveFastsumPlan:
+                            geom: AdditiveFastsumGeometry, *, psd_clip: bool = False, oversample: int = 2,
+                            nearfield_lfil: Optional[int] = None, nf_patterns=None) -> AdditiveFastsumPlan:
     """nf_patterns: optional per-group patterns (additive_nearfield_patterns,
-    optionally symmetrized), reused across loss evaluations."""
+    optionally symmetrized), reused across loss evaluations; psd_clip as in
+    fastsum_coeffs, per window."""
     groups = []
     for gi, (dw, order, geos) in enumerate(geom.groups):
         pat = nf_patterns[gi] if nf_patterns is not None else None
         if pat is None:
-            plans = [fastsum_coeffs(kind, params, g, oversample=oversample,
+            plans = [fastsum_coeffs(kind, params, g, psd_clip=psd_clip, oversample=oversample,
                                     nearfield_lfil=nearfield_lfil) for g in geos]
         else:
             sym = bool(pat[2]) if len(pat) == 3 else False
-            plans = [fastsum_coeffs(kind, params, g, oversample=oversample,
+            plans = [fastsum_coeffs(kind, params, g, psd_clip=psd_clip, oversample=oversample,
                                     nearfield_lfil=nearfield_lfil,
                                     nf_pattern=(pat[0][k], pat[1][k], sym))
                      for k, g in enumerate(geos)]
@@ -761,12 +773,12 @@ def additive_fastsum_coeffs(kind: str, params: KernelParams,
     return AdditiveFastsumPlan(n_windows=geom.n_windows, groups=tuple(groups), params=params)
 
 
-def additive_fastsum_build(kind, params, X, windows, N: int = 32, *, table_dtype=None,
-                           oversample: int = 2,
+def additive_fastsum_build(kind, params, X, windows, N: int = 32, *, psd_clip: bool = False,
+                           table_dtype=None, oversample: int = 2,
                            nearfield_lfil: Optional[int] = None):
     return additive_fastsum_coeffs(
         kind, params, additive_fastsum_geometry(X, windows, N, table_dtype=table_dtype),
-        oversample=oversample, nearfield_lfil=nearfield_lfil,
+        psd_clip=psd_clip, oversample=oversample, nearfield_lfil=nearfield_lfil,
     )
 
 
@@ -831,12 +843,13 @@ class PackedLayout(NamedTuple):
     rest: tuple                  # d = 3 groups, applied on the table path
 
 
-def _packed_layout(plan: AdditiveFastsumPlan, nf_stencils=None) -> PackedLayout:
+def _packed_layout(plan: AdditiveFastsumPlan, nf_stencils=None, nf_require_grad: bool = True) -> PackedLayout:
     """Flatten the d <= 2 windows into the packed layout (ref fastsum.py
     _packed_layout); the near-field entries list the 2-D windows, then the
     1-D ones.  nf_stencils (additive_nearfield_stencil_direct): a window
     with a stencil takes its radius near-field in place of a KNN triple
-    (ref packed_ndft_plan)."""
+    (ref packed_ndft_plan), with its dK/dl values only if
+    nf_require_grad."""
     syms = {pl.nf_sym for _, _, plans in plan.groups for pl in plans if pl.nf_val is not None}
     if len(syms) > 1:
         raise ValueError("mixed near-field pattern forms across window groups "
@@ -850,7 +863,8 @@ def _packed_layout(plan: AdditiveFastsumPlan, nf_stencils=None) -> PackedLayout:
         stens = nf_stencils[gi] if nf_stencils is not None else None
         for k, pl in enumerate(plans):
             if stens is not None:
-                trip = _nf_direct_values(stens[k], pl.kind, plan.params, pl.geom.scale, pl.b, pl.db_l)
+                trip = _nf_direct_values(stens[k], pl.kind, plan.params, pl.geom.scale, pl.b, pl.db_l,
+                                         nf_require_grad)
             else:
                 trip = None if pl.nf_val is None else (pl.nf_idx, pl.nf_val, pl.nf_dval)
             if dw == 2:
@@ -932,10 +946,13 @@ class PackedNDFT:
     params: KernelParams
 
 
-def packed_ndft_plan(plan: AdditiveFastsumPlan, *, table_dtype=None, nf_stencils=None) -> PackedNDFT:
+def packed_ndft_plan(plan: AdditiveFastsumPlan, *, table_dtype=None, nf_stencils=None,
+                     nf_require_grad: bool = True) -> PackedNDFT:
     """nf_stencils: the radius near-field of additive_nearfield_stencil_direct,
-    its values (K and dK/dl) evaluated here for the plan's hyperparameters."""
-    lay = _packed_layout(plan, nf_stencils)
+    its values (K and dK/dl) evaluated here for the plan's hyperparameters;
+    nf_require_grad=False skips the dK/dl values for a solve-only plan (its
+    K matvec is unchanged, its gradient matvec raises)."""
+    lay = _packed_layout(plan, nf_stencils, nf_require_grad)
     first = plan.groups[0][2][0]
     P = first.N // 2
     return PackedNDFT(

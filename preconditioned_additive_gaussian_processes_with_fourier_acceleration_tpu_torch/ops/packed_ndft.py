@@ -17,10 +17,19 @@ Two phase sources, as in the JAX package:
   `packed_adjoint_regen` / `packed_forward_regen`.
 
 Each of the four has a plain torch version beside it.  The wrapper follows
-one rule: a CPU tensor goes to the plain version; a CUDA tensor launches the
-hand-written kernel (csrc/, built at first use by ops/_cuda_build.py) and
-raises if the launch fails.  Each wrapper counts its kernel launches in its
-`launches` attribute, and by shape in `launches_by_shape`.
+one rule: a CPU tensor goes to the plain version, at every width; a CUDA
+tensor launches the hand-written kernel (csrc/, built at first use by
+ops/_cuda_build.py) and raises if the launch fails.  Each wrapper counts its
+kernel launches in its `launches` attribute, and by shape in
+`launches_by_shape`.
+
+Widths on CUDA tensors: the narrow kernels below serve 2P in KERNEL_WIDTHS
+(tables) and REGEN_KERNEL_WIDTHS (regenerating); every other even 2P from 2
+to WIDE_MAX goes, with the same phase source, to the wide pair of
+csrc/packed_ndft_wide.cu (CUDA-core float32 tile GEMMs on the table; the
+regenerating sources first write their phases into a float32 slab, at most
+SLAB_BYTES at a time), whose launches WIDE_ADJOINT / WIDE_FORWARD count (by
+"2P=.. nv=.." / "2P=.. nsets=.."); wider raises.
 
 A bf16 table (the training path's) goes to the tensor-core kernels of
 csrc/packed_ndft_tc.cu: alpha * L0 and the combined weights are split into
@@ -59,6 +68,11 @@ TWO_PI = 6.283185307179586
 KERNEL_WIDTHS = (16, 32)
 REGEN_KERNEL_WIDTHS = (18, 34)
 PHASE_GENS = ("doubling", "direct")
+# the widest 2P of the wide kernels (csrc/packed_ndft_wide.cu)
+WIDE_MAX = 1026
+# the most bytes a regenerating call's phase slab takes on the wide kernels;
+# more points run in ranges of whole TABLE_PAD tiles
+SLAB_BYTES = 1 << 30
 _MAX_PAIRS = 32
 _MAX_SINGLES = 64
 # points per padded table row: pack_phase_table rounds its storage up to it
@@ -184,8 +198,20 @@ def _check_coords(xT, pairs, singles):
     _check_rows(xT.shape[0], pairs, singles)
 
 
+def _route(width, narrow):
+    """"narrow" for a width the narrow kernels are built for, "wide" for
+    another even 2P up to WIDE_MAX; raises for the rest."""
+    if width in narrow:
+        return "narrow"
+    if width % 2 == 0 and 2 <= width <= WIDE_MAX:
+        return "wide"
+    raise ValueError(f"the CUDA kernels take 2P in {narrow} (narrow kernels) or an even 2P from 2 to "
+                     f"{WIDE_MAX} (wide kernels), got {width}")
+
+
 def _check_cuda(src, others, pairs, singles, src_dtypes, width, widths, table=False):
-    """Shape/dtype rules of the CUDA kernels beyond those of the plain path."""
+    """Shape/dtype rules of the CUDA kernels beyond those of the plain path;
+    returns the route (`_route`) of the width."""
     for t in others:
         if t.device != src.device:
             raise ValueError(f"tensors on {t.device} and {src.device}")
@@ -194,10 +220,10 @@ def _check_cuda(src, others, pairs, singles, src_dtypes, width, widths, table=Fa
     if src.dtype not in src_dtypes or not (table or src.is_contiguous()):
         raise ValueError(f"the CUDA kernels take {src_dtypes} tables or contiguous coordinates, "
                          f"got {src.dtype}")
-    if width not in widths:
-        raise ValueError(f"the CUDA kernels are built for 2P in {widths}, got {width}")
+    route = _route(width, widths)
     if len(pairs) > _MAX_PAIRS or len(singles) > _MAX_SINGLES:
         raise ValueError(f"at most {_MAX_PAIRS} 2-D and {_MAX_SINGLES} 1-D windows per call")
+    return route
 
 
 def _alpha_rows(alpha, n):
@@ -250,13 +276,15 @@ def packed_adjoint(Tp, alpha, *, pairs: tuple, singles: tuple = ()):
     if a2d.device.type == "cpu" and Tp.device.type == "cpu":
         A2, A1 = packed_adjoint_plain(Tp, a2d, pairs, singles)
     elif a2d.is_cuda and Tp.is_cuda:
-        _check_cuda(Tp, [a2d], pairs, singles, (torch.bfloat16, torch.float32), Tp.shape[1],
-                    KERNEL_WIDTHS, table=True)
-        if Tp.dtype == torch.bfloat16:
+        route = _check_cuda(Tp, [a2d], pairs, singles, _TABLE_DTYPES, Tp.shape[1], KERNEL_WIDTHS, table=True)
+        if route == "wide":
+            A2, A1 = _adjoint_wide(Tp, a2d, pairs, singles)
+        elif Tp.dtype == torch.bfloat16:
             A2, A1 = _cuda_build.adjoint_tc(_tc_table(Tp), a2d, pairs, singles)
+            _count(packed_adjoint, f"nv={a2d.shape[0]}")
         else:
             A2, A1 = _cuda_build.adjoint(Tp, a2d, pairs, singles)
-        _count(packed_adjoint, f"nv={a2d.shape[0]}")
+            _count(packed_adjoint, f"nv={a2d.shape[0]}")
     else:
         raise ValueError(f"table on {Tp.device}, alpha on {a2d.device}")
     return _adjoint_outputs(A2, A1, alpha.ndim == 2, len(pairs), len(singles))
@@ -278,13 +306,15 @@ def packed_forward(Tp, G2_sets, G1_sets=(), *, pairs: tuple, singles: tuple = ()
         y = packed_forward_plain(Tp, G2, G1, pairs, singles)
     elif ref.is_cuda and Tp.is_cuda:
         G2c, G1c = _dense_stacks(G2, G1, W2, Tp.device)
-        _check_cuda(Tp, [G2c, G1c], pairs, singles, (torch.bfloat16, torch.float32), W2,
-                    KERNEL_WIDTHS, table=True)
-        if Tp.dtype == torch.bfloat16:
+        route = _check_cuda(Tp, [G2c, G1c], pairs, singles, _TABLE_DTYPES, W2, KERNEL_WIDTHS, table=True)
+        if route == "wide":
+            y = _forward_wide(Tp, G2c, G1c, pairs, singles)
+        elif Tp.dtype == torch.bfloat16:
             y = _cuda_build.forward_tc(_tc_table(Tp), G2c, G1c, pairs, singles)
+            _count(packed_forward, f"nsets={G2c.shape[0]}")
         else:
             y = _cuda_build.forward(Tp, G2c, G1c, pairs, singles)
-        _count(packed_forward, f"nsets={G2c.shape[0]}")
+            _count(packed_forward, f"nsets={G2c.shape[0]}")
     else:
         raise ValueError(f"table on {Tp.device}, weights on {ref.device}")
     return list(torch.unbind(y))
@@ -297,11 +327,12 @@ def packed_adjoint_regen(xT, alpha, *, P: int, pairs: tuple, singles: tuple = ()
     Replaces the TPU kernel `_adjoint_kernel` (ops/pallas_ndft.py) in its
     "doubling" / "direct" modes.  xT: (Dtot, n) scaled window coordinates,
     P modes per row (the fused path keeps the Nyquist mode: P = N/2 + 1).
-    Same outputs as `packed_adjoint`.  On CUDA tensors one launch of
-    `adjoint_regen_tc_kernel` (csrc/packed_ndft_regen.cu): the 2-D windows
-    on the tensor cores (3xTF32: about 3 * 2^-22 relative per product), their
-    Nyquist columns and the 1-D windows on the CUDA cores; on CPU tensors
-    the plain version runs.
+    Same outputs as `packed_adjoint`.  On CUDA tensors at 2P in
+    REGEN_KERNEL_WIDTHS one launch of `adjoint_regen_tc_kernel`
+    (csrc/packed_ndft_regen.cu): the 2-D windows on the tensor cores (3xTF32:
+    about 3 * 2^-22 relative per product), their Nyquist columns and the 1-D
+    windows on the CUDA cores; at the other widths the wide pair; on CPU
+    tensors the plain version runs.
     """
     _check_coords(xT, pairs, singles)
     if phase_gen not in PHASE_GENS:
@@ -310,9 +341,11 @@ def packed_adjoint_regen(xT, alpha, *, P: int, pairs: tuple, singles: tuple = ()
     if a2d.device.type == "cpu" and xT.device.type == "cpu":
         A2, A1 = packed_adjoint_regen_plain(xT, a2d, P, pairs, singles, phase_gen)
     elif a2d.is_cuda and xT.is_cuda:
-        _check_cuda(xT, [a2d], pairs, singles, (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS)
-        A2, A1 = _cuda_build.adjoint_regen(xT, a2d, 2 * P, pairs, singles, phase_gen)
-        _count(packed_adjoint_regen, f"nv={a2d.shape[0]}")
+        if _check_cuda(xT, [a2d], pairs, singles, (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS) == "wide":
+            A2, A1 = _adjoint_wide(xT, a2d, pairs, singles, P, phase_gen)
+        else:
+            A2, A1 = _cuda_build.adjoint_regen(xT, a2d, 2 * P, pairs, singles, phase_gen)
+            _count(packed_adjoint_regen, f"nv={a2d.shape[0]}")
     else:
         raise ValueError(f"coordinates on {xT.device}, alpha on {a2d.device}")
     return _adjoint_outputs(A2, A1, alpha.ndim == 2, len(pairs), len(singles))
@@ -325,10 +358,11 @@ def packed_forward_regen(xT, G2_sets, G1_sets=(), *, P: int, pairs: tuple, singl
     Replaces the TPU kernel `_forward_kernel` (ops/pallas_ndft.py) in its
     "doubling" / "direct" modes.  xT: (Dtot, n); the weight stacks are
     (nsets, 2P, 2P) / (nsets, 2P) with 2P = 2 * P.  Returns nsets outputs.
-    On CUDA tensors, per pass of up to 32 sets, one weight split and one
-    `forward_regen_tc_kernel` launch (csrc/packed_ndft_regen.cu): the 2-D
-    windows on the tensor cores (3xTF32), their Nyquist rows, the epilogue
-    and the 1-D windows on the CUDA cores; on CPU tensors the plain
+    On CUDA tensors at 2P in REGEN_KERNEL_WIDTHS, per pass of up to 32 sets,
+    one weight split and one `forward_regen_tc_kernel` launch
+    (csrc/packed_ndft_regen.cu): the 2-D windows on the tensor cores
+    (3xTF32), their Nyquist rows, the epilogue and the 1-D windows on the
+    CUDA cores; at the other widths the wide pair; on CPU tensors the plain
     version runs.
     """
     _check_coords(xT, pairs, singles)
@@ -340,15 +374,75 @@ def packed_forward_regen(xT, G2_sets, G1_sets=(), *, P: int, pairs: tuple, singl
         y = packed_forward_regen_plain(xT, G2, G1, P, pairs, singles, phase_gen)
     elif ref.is_cuda and xT.is_cuda:
         G2c, G1c = _dense_stacks(G2, G1, 2 * P, xT.device)
-        _check_cuda(xT, [G2c, G1c], pairs, singles, (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS)
-        y = _cuda_build.forward_regen(xT, G2c, G1c, 2 * P, pairs, singles, phase_gen)
-        _count(packed_forward_regen, f"nsets={G2c.shape[0]}")
+        if _check_cuda(xT, [G2c, G1c], pairs, singles, (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS) == "wide":
+            y = _forward_wide(xT, G2c, G1c, pairs, singles, P, phase_gen)
+        else:
+            y = _cuda_build.forward_regen(xT, G2c, G1c, 2 * P, pairs, singles, phase_gen)
+            _count(packed_forward_regen, f"nsets={G2c.shape[0]}")
     else:
         raise ValueError(f"coordinates on {xT.device}, weights on {ref.device}")
     return list(torch.unbind(y))
 
 
-KERNEL_WRAPPERS = (packed_adjoint, packed_forward, packed_adjoint_regen, packed_forward_regen)
+# --- the wide pair: every even 2P up to WIDE_MAX, every phase source -----------------
+
+_TABLE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+class LaunchCounter:
+    """The launch counts of a kernel that several wrappers launch, kept as
+    a wrapper keeps its own (`launches`, `launches_by_shape`)."""
+
+    def __init__(self, name):
+        self.__name__ = name
+
+
+WIDE_ADJOINT = LaunchCounter("packed_adjoint_wide")
+WIDE_FORWARD = LaunchCounter("packed_forward_wide")
+
+
+def _point_ranges(src, W2):
+    """[(i0, i1)]: the point ranges whose phase slab (Dtot, W2, i1 - i0)
+    float32 stays within SLAB_BYTES."""
+    Dtot, n = src.shape
+    step = max(TABLE_PAD, SLAB_BYTES // (4 * Dtot * W2) // TABLE_PAD * TABLE_PAD)
+    return [(i0, min(n, i0 + step)) for i0 in range(0, n, step)]
+
+
+def _adjoint_wide(src, a2d, pairs, singles, P=None, phase_gen=None):
+    """The wide adjoint on a table src (phase_gen None), or on the phases
+    of coordinates src regenerated by phase_gen (P modes), range by range,
+    the ranges' outputs summed in order."""
+    if phase_gen is None:
+        A2, A1 = _cuda_build.adjoint_wide(src, a2d, pairs, singles)
+        _count(WIDE_ADJOINT, f"2P={src.shape[1]} nv={a2d.shape[0]}")
+        return A2, A1
+    ranges = _point_ranges(src, 2 * P)
+    for k, (i0, i1) in enumerate(ranges):
+        alpha = a2d if len(ranges) == 1 else a2d[:, i0:i1].contiguous()
+        R2, R1 = _adjoint_wide(_cuda_build.phases_wide(src[:, i0:i1], P, phase_gen), alpha, pairs, singles)
+        A2, A1 = (R2, R1) if k == 0 else (A2 + R2, A1 + R1)
+    return A2, A1
+
+
+def _forward_wide(src, G2c, G1c, pairs, singles, P=None, phase_gen=None):
+    """The wide forward on a table src (phase_gen None), or on regenerated
+    phases range by range as `_adjoint_wide`."""
+    if phase_gen is None:
+        y = _cuda_build.forward_wide(src, G2c, G1c, pairs, singles)
+        _count(WIDE_FORWARD, f"2P={src.shape[1]} nsets={G2c.shape[0]}")
+        return y
+    ranges = _point_ranges(src, 2 * P)
+    if len(ranges) == 1:
+        return _forward_wide(_cuda_build.phases_wide(src, P, phase_gen), G2c, G1c, pairs, singles)
+    y = torch.empty((G2c.shape[0], src.shape[1]), dtype=torch.float32, device=src.device)
+    for i0, i1 in ranges:
+        y[:, i0:i1] = _forward_wide(_cuda_build.phases_wide(src[:, i0:i1], P, phase_gen), G2c, G1c, pairs, singles)
+    return y
+
+
+KERNEL_WRAPPERS = (packed_adjoint, packed_forward, packed_adjoint_regen, packed_forward_regen,
+                   WIDE_ADJOINT, WIDE_FORWARD)
 
 
 def _count(fn, shape):

@@ -3,6 +3,7 @@ profile one loss step, on one NVIDIA GPU.
 
     python3 scripts/torch_table_kernels_ab.py --old-csrc OLD/csrc
     python3 scripts/torch_table_kernels_ab.py --kernels regen --old-csrc OLD/csrc
+    python3 scripts/torch_table_kernels_ab.py --kernels wide --old-csrc OLD/csrc
 
 OLD/csrc is an earlier `csrc/` (unpack it from an earlier commit with
 `git archive`).  The script builds one of its sources with nvcc into
@@ -29,6 +30,18 @@ builds: its ratio shows the noise), the forward at nsets = 1, 2, 10, 20.
 Then one profiled loss-and-gradient step of chip_smoke.py's [fused]
 problem (GPProblem(matern12, WINDOWS_FUSED, fastsum_fused=True)) at
 n = 2e5, whose `ndft_kernels_ms` gives the forward's card time in it.
+
+--kernels wide: an earlier OLD/csrc/packed_ndft_wide.cu against the
+current wide pair (one phase slab per call, then the float32-table
+GEMMs): one whose GEMMs regenerate the phases of "doubling" and "direct"
+inside every tile (source kinds 2 and 3, the coordinates as their source),
+or one with a phase slab of its own (wide_phases_launch), at chip_smoke.py's
+[wide-train] shapes (the first N_WIDE_TRAIN = 1e5 points, WINDOWS, 2P =
+130, both phase sources): the adjoint at nv = 1, 10, the forward at
+nsets = 1, 2, 10, 20; the bf16 table at 2P = 128; and the float32 table
+at [afn-pcg-256]'s shape (the window [0, 1], 2P = 256, nv = nsets = 1).  Then one profiled
+loss-and-gradient step of [wide-train]'s problem at n = 1e5 on the stream
+engine and one on the fused engine, with the wide kernels' device time.
 
 The profile (torch.profiler, after a warm-up step): wall time, device-busy
 time (the union of the device kernels' intervals) and its share of the wall
@@ -65,6 +78,20 @@ def _old_regen_signatures(lib):
     lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, I, I, I, P, P]
 
 
+def _old_wide_signatures(lib):
+    """An earlier packed_ndft_wide.cu: wide_adjoint_launch /
+    wide_forward_launch as the current ones; wide_phases_launch where it
+    has one."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    if hasattr(lib, "wide_phases_launch"):
+        lib.wide_phases_launch.argtypes = [I, P, I, I, I, I, P, P]
+        lib.wide_phases_launch.restype = I
+    lib.wide_adjoint_launch.argtypes = [I, P, I, P, I, I, I, P, I, P, I, P, I, I, P, P]
+    lib.wide_forward_launch.argtypes = [I, P, I, I, I, P, I, P, P, I, P, I, P, P]
+    lib.wide_adjoint_launch.restype = I
+    lib.wide_forward_launch.restype = I
+
+
 def build_old(csrc: Path, source: str) -> ctypes.CDLL:
     """The earlier `source` of csrc, built and loaded: packed_ndft.cu's
     adjoint_launch / forward_launch take (phase source, its flag, ...)
@@ -77,7 +104,8 @@ def build_old(csrc: Path, source: str) -> ctypes.CDLL:
     subprocess.run([_cuda_build._nvcc(), *_cuda_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(out),
                     str(csrc / source)], check=True)
     lib = ctypes.CDLL(str(out))
-    (_old_regen_signatures if source == "packed_ndft_regen.cu" else _cuda_build._ndft_signatures)(lib)
+    {"packed_ndft_regen.cu": _old_regen_signatures, "packed_ndft_wide.cu": _old_wide_signatures}.get(
+        source, _cuda_build._ndft_signatures)(lib)
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
@@ -211,6 +239,110 @@ def ab_regen(old_lib, X):
     return rows
 
 
+# the earliest wide library's source kinds: 0 float32 table, 1 bf16 table,
+# 2 doubling, 3 direct (coordinates as the source)
+OLD_WIDE_KINDS = {"table_f32": 0, "table_bf16": 1, "doubling": 2, "direct": 3}
+
+
+def old_wide_calls(lib, src, kind, WR, pairs):
+    """The earlier wide kernels' adjoint(alpha) -> (nv, npairs, WR, WR) and
+    forward(G2) -> (nsets, n) on a table (Dtot, WR, n) or coordinates
+    (Dtot, n), chunked as their wrapper chunked them; a library with a
+    phase slab writes it each call and runs its float32-table GEMMs on it."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    n = src.shape[-1]
+    stride = src.stride(1) if src.ndim == 3 else src.stride(0)
+    pr, sg = cb._ints(v for p in pairs for v in p), cb._ints(())
+    slab = hasattr(lib, "wide_phases_launch") and src.ndim == 2
+
+    def source():
+        """(kind code, pointer, row stride) of one call's phase source."""
+        if not slab:
+            return OLD_WIDE_KINDS[kind], src, stride
+        ph = torch.empty((src.shape[0], WR, n), device=src.device)
+        code = lib.wide_phases_launch(cb.PHASE_GEN_CODES[kind], src.data_ptr(), stride, src.shape[0], WR // 2, n,
+                                      ph.data_ptr(), cb._stream(src))
+        assert code == 0, code
+        return 0, ph, n
+
+    def adj(alpha):
+        nv = alpha.shape[0]
+        nchunks, chunk = cb.wide_chunks(WR, nv, n, len(pairs), 0)
+        S = nv * len(pairs) * WR * WR
+        part = torch.empty((nchunks, S), device=alpha.device)
+        out = torch.empty(S, device=alpha.device)
+        k, ph, st = source()
+        code = lib.wide_adjoint_launch(k, ph.data_ptr(), st, alpha.data_ptr(), WR, n, nv, pr, len(pairs), sg, 0,
+                                       part.data_ptr(), nchunks, chunk, out.data_ptr(), cb._stream(alpha))
+        assert code == 0, code
+        return out.reshape(nv, len(pairs), WR, WR)
+
+    def fwd(G2):
+        y = torch.empty((G2.shape[0], n), device=G2.device)
+        g1 = torch.zeros(1, device=G2.device)
+        k, ph, st = source()
+        code = lib.wide_forward_launch(k, ph.data_ptr(), st, WR, n, pr, len(pairs), G2.data_ptr(), sg, 0,
+                                       g1.data_ptr(), G2.shape[0], y.data_ptr(), cb._stream(G2))
+        assert code == 0, code
+        return y
+
+    return adj, fwd
+
+
+def ab_wide(old_lib, X):
+    """The wide adjoint and forward, current against old, at [wide-train]'s
+    shapes (random weights for the forward)."""
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    Xw = X[:cs.N_WIDE_TRAIN]
+    N = cs.WIDE_TRAIN_N
+    pn = fs.packed_ndft_plan(cs._plan(Xw, cs.WINDOWS, N=N), table_dtype=torch.bfloat16)
+    lay = fs._packed_layout(cs._plan(Xw, cs.WINDOWS, N=N))
+    P = fs._nmodes(N)
+    gen = torch.Generator(device=X.device).manual_seed(3)
+    rows = []
+    pa = fs.packed_ndft_plan(cs._plan(Xw[:, :2].contiguous(), [[0, 1]], N=256), table_dtype=torch.float32)
+    old_adj, old_fwd = old_wide_calls(old_lib, pa.Tp, "table_f32", 256, pa.pairs) if old_lib else (None, None)
+    alpha = torch.randn((1, Xw.shape[0]), generator=gen, device=X.device)
+    G2 = torch.randn((1, 1, 256, 256), generator=gen, device=X.device)
+    rows.append(_ab_row("adjoint table_f32@2P=256 nv=1", lambda: pk.packed_adjoint(pa.Tp, alpha, pairs=pa.pairs),
+                        (lambda: old_adj(alpha)) if old_lib else None,
+                        lambda r: torch.stack(r[0], 1).reshape(-1), lambda r: r.reshape(-1)))
+    rows.append(_ab_row("forward table_f32@2P=256 nsets=1",
+                        lambda: pk.packed_forward(pa.Tp, list(torch.unbind(G2, 1)), pairs=pa.pairs),
+                        (lambda: old_fwd(G2)) if old_lib else None,
+                        lambda r: torch.stack(r).reshape(-1), lambda r: r.reshape(-1)))
+    for kind in ("table_bf16", *pk.PHASE_GENS):
+        src = pn.Tp if kind == "table_bf16" else lay.xT
+        pairs = pn.pairs if kind == "table_bf16" else lay.pairs
+        W2 = src.shape[1] if kind == "table_bf16" else 2 * P
+        old_adj, old_fwd = old_wide_calls(old_lib, src, kind, W2, pairs) if old_lib else (None, None)
+        for nv in NVS:
+            alpha = torch.randn((nv, Xw.shape[0]), generator=gen, device=X.device)
+            if kind == "table_bf16":
+                new = (lambda a: lambda: pk.packed_adjoint(src, a, pairs=pairs))(alpha)
+            else:
+                new = (lambda a, g: lambda: pk.packed_adjoint_regen(src, a, P=P, pairs=pairs, phase_gen=g))(alpha,
+                                                                                                            kind)
+            old = (lambda a: lambda: old_adj(a))(alpha) if old_lib else None
+            rows.append(_ab_row(f"adjoint {kind}@2P={W2} nv={nv}", new, old,
+                                lambda r: torch.stack(r[0], 1).reshape(-1), lambda r: r.reshape(-1)))
+        for nsets in NSETS:
+            G2 = torch.randn((nsets, len(pairs), W2, W2), generator=gen, device=X.device)
+            G2s = list(torch.unbind(G2, 1))
+            if kind == "table_bf16":
+                new = (lambda g: lambda: pk.packed_forward(src, g, pairs=pairs))(G2s)
+            else:
+                new = (lambda g, k: lambda: pk.packed_forward_regen(src, g, P=P, pairs=pairs, phase_gen=k))(G2s,
+                                                                                                           kind)
+            old = (lambda g: lambda: old_fwd(g))(G2) if old_lib else None
+            rows.append(_ab_row(f"forward {kind}@2P={W2} nsets={nsets}", new, old,
+                                lambda r: torch.stack(r).reshape(-1), lambda r: r.reshape(-1)))
+    return rows
+
+
 def profile_step(X, y, kernels):
     from torch.profiler import ProfilerActivity, profile
 
@@ -219,6 +351,9 @@ def profile_step(X, y, kernels):
 
     if kernels == "regen":
         prob = GPProblem(fastsum_fused=True, **cs.FUSED)
+    elif kernels in ("wide-stream", "wide-fused"):
+        X, y = X[:cs.N_WIDE_TRAIN], y[:cs.N_WIDE_TRAIN]
+        prob = GPProblem(**cs.WIDE_TRAIN, **({"fastsum_fused": True} if kernels == "wide-fused" else {}))
     else:
         prob = GPProblem(kernel="gaussian", windows=cs.WINDOWS, operator="fastsum", precond="nystrom",
                          rank=50, maxits=10, nvecs=10, fastsum_N=cs.FASTSUM_N, fastsum_engine="stream")
@@ -245,10 +380,13 @@ def profile_step(X, y, kernels):
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
     # the NDFT kernels of the port by name (csrc/), whether in the top or not
     ndft = {k: v for k, v in by_kernel.items()
-            if any(s in k for s in ("adjoint", "forward", "reduce_slices", "split_"))}
+            if any(s in k for s in ("adjoint", "forward", "reduce_slices", "split_", "phases"))}
+    wide = {k: v for k, v in ndft.items() if "wide" in k}
     out = {"problem": kernels, "loss": float(loss), "wall_ms": wall_ms,
            "device_busy_ms": busy / 1e3 if spans else None, "busy_share": busy / 1e3 / wall_ms if spans else None,
-           "device_kernels": len(spans), "device_ms_by_kernel": top, "ndft_kernels_ms": ndft}
+           "device_kernels": len(spans), "device_ms_by_kernel": top, "ndft_kernels_ms": ndft,
+           "wide_kernels_ms": sum(wide.values()),
+           "wide_share_of_wall": sum(wide.values()) / wall_ms}
     print(f"[profile] {json.dumps(out)}", flush=True)
     return out
 
@@ -256,18 +394,21 @@ def profile_step(X, y, kernels):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--old-csrc", type=Path, default=None)
-    ap.add_argument("--kernels", choices=("table", "regen"), default="table")
+    ap.add_argument("--kernels", choices=("table", "regen", "wide"), default="table")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_table_kernels_ab: no CUDA device")
     import nfft4gp_torch  # noqa: F401  (switches TF32 off)
 
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi name, power.limit: {cs.nvidia_smi()}", flush=True)
-    source = "packed_ndft_regen.cu" if args.kernels == "regen" else "packed_ndft.cu"
+    source = {"regen": "packed_ndft_regen.cu", "wide": "packed_ndft_wide.cu"}.get(args.kernels, "packed_ndft.cu")
     old_lib = build_old(args.old_csrc.resolve(), source) if args.old_csrc else None
     X, y = cs.make_data(cs.N_POINTS)
-    rows = ab_regen(old_lib, X) if args.kernels == "regen" else ab(old_lib, X)
-    prof = profile_step(X, y, args.kernels)
+    rows = {"regen": ab_regen, "wide": ab_wide}.get(args.kernels, ab)(old_lib, X)
+    if args.kernels == "wide":
+        prof = [profile_step(X, y, "wide-stream"), profile_step(X, y, "wide-fused")]
+    else:
+        prof = profile_step(X, y, args.kernels)
     print(json.dumps({"ab": rows, "profile": prof}), flush=True)
 
 

@@ -36,6 +36,19 @@ passes of at most 32 sets); 2P = 16 and 32, with and without 1-D windows; a
 table view of padded storage whose pad holds NaN; and a second launch
 bitwise equal to the first.
 
+The wide pair (csrc/packed_ndft_wide.cu: every even 2P from 2 to 1026 the
+narrow kernels are not built for) is held at 2P = 2, 8, 48, 64, 130, 256,
+258, 600, 1026 (below, at and past its 64-wide tiles, the regenerating
+widths 8k + 2, the limit), every phase source (float32 and bf16 tables,
+"doubling", "direct"), only 2-D, only 1-D and both window kinds, nv = 1,
+3, 10, 17 and nsets = 1, 2, 20, 33 (two 32-set blocks) at n = 997, ragged
+n = 1 to 20001, a bf16 table with unpadded rows, a bitwise-equal second
+launch; the regenerating sources' phase slab cut into point ranges; the
+wrappers' routes by width and the refusal at 2P = 1028; and
+[afn-pcg-256]'s shape.  Its regenerating sources are held against the
+plain versions in float64 with 1e-4: a float32 coordinate's phase
+2 pi p x errs by about p |x| 2^-22 (3e-5 at p = 512).
+
 The cooperative dense Krylov kernels (solvers/fused_pcg.py, csrc/fused_pcg.cu)
 are held against their plain versions at n = 1, 31, 33, 1000 (not a
 multiple of a warp or a panel) and at the n <= 16384 limit, nv = 1 to the
@@ -259,9 +272,13 @@ def test_wrappers_count_and_refuse(dev):
     pk.packed_forward(Tp, G2, pairs=((0, 1),))
     assert (pk.packed_adjoint.launches, pk.packed_forward.launches) == (before[0] + 1, before[1] + 1)
 
-    wide, _ = _table(dev, 300, 24, torch.bfloat16)          # 2P = 48: not compiled
+    wide, _ = _table(dev, 300, 24, torch.bfloat16)          # 2P = 48: the wide pair, counted there
+    wide_before = pk.WIDE_ADJOINT.launches_by_shape.get("2P=48 nv=2", 0)
+    pk.packed_adjoint(wide, alpha, pairs=((0, 1),))
+    assert pk.WIDE_ADJOINT.launches_by_shape["2P=48 nv=2"] == wide_before + 1
+    too_wide, _ = _table(dev, 300, 514, torch.bfloat16)     # 2P = 1028: no kernel
     with pytest.raises(ValueError):
-        pk.packed_adjoint(wide, alpha, pairs=((0, 1),))
+        pk.packed_adjoint(too_wide, alpha, pairs=((0, 1),))
     with pytest.raises(ValueError):                          # float64 alpha
         pk.packed_adjoint(Tp, alpha.double(), pairs=((0, 1),))
     with pytest.raises(ValueError):                          # alpha on the CPU
@@ -357,7 +374,7 @@ def test_forward_regen_matches_plain(dev, layout, n, P, phase_gen, nsets):
 @pytest.mark.parametrize("kind", ["pairs", "singles"])
 def test_regen_window_limits(dev, kind, nsets):
     """32 pairs / 64 singles in one call run, the forward at every set
-    count; one window more, 2P = 32 or float64 coordinates raise before
+    count; one window more, 2P = 1028 or float64 coordinates raise before
     any launch, and the launch counts stay as they were."""
     n, P = 300, 17
     xT, rng = _coords(dev, n, rows=64)
@@ -387,11 +404,11 @@ def test_regen_window_limits(dev, kind, nsets):
         pk.packed_adjoint_regen(xT, alpha, P=P, **over)
     with pytest.raises(ValueError):
         pk.packed_forward_regen(xT, Gover if A2 else (), () if A2 else Gover, P=P, **over)
-    with pytest.raises(ValueError):                        # 2P = 32: not a regenerating width
-        pk.packed_adjoint_regen(xT, alpha, P=16, **kw)
-    G32 = [g[..., :32, :32] if A2 else g[..., :32] for g in G]
+    with pytest.raises(ValueError):                        # 2P = 1028: wider than the wide kernels
+        pk.packed_adjoint_regen(xT, alpha, P=514, **kw)
+    G1028 = [torch.zeros((1, 1028, 1028) if A2 else (1, 1028), device=dev)] * len(G)
     with pytest.raises(ValueError):
-        pk.packed_forward_regen(xT, G32 if A2 else (), () if A2 else G32, P=16, **kw)
+        pk.packed_forward_regen(xT, G1028 if A2 else (), () if A2 else G1028, P=514, **kw)
     with pytest.raises(ValueError):                        # float64 coordinates
         pk.packed_adjoint_regen(xT.double(), alpha, P=P, **kw)
     with pytest.raises(ValueError):
@@ -824,3 +841,218 @@ def test_f32_table_kernels_at_afn_pcg_shape(dev):
     assert torch.equal(y, pk.packed_forward(Tp, G2, pairs=pairs, singles=singles)[0])
     want = pk.packed_forward_plain(Tp, torch.stack(G2, 1), None, pairs, singles)[0]
     assert _rel(y, want) <= 1e-4
+
+
+# --- the wide pair (csrc/packed_ndft_wide.cu): every even 2P up to 1026 -------------------
+
+WIDE_WIDTHS = [2, 8, 48, 64, 130, 256, 258, 600, 1026]
+WIDE_SOURCES = ["f32", "bf16", "doubling", "direct"]
+# the regenerating sources against float64: a float32 coordinate's phase
+# 2 pi p x is off by about p |x| 2^-22 (3e-5 at p = 512), in the kernel's
+# phases and in those of a float32 plain version alike
+WIDE_RTOL = {"f32": KERNEL_RTOL, "bf16": KERNEL_RTOL, "doubling": 1e-4, "direct": 1e-4}
+
+
+def _wide_src(dev, n, W2, source, seed=0):
+    """(phase source, P, "table" or the phase_gen, rng): a float32 or bf16
+    table of pack_phase_table, or float32 coordinates."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(-0.25, 0.25, size=(5, n)).astype(np.float32)).to(dev)
+    P = W2 // 2
+    if source in ("f32", "bf16"):
+        return pk.pack_phase_table(x, P, table_dtype=torch.float32 if source == "f32" else torch.bfloat16), P, \
+            "table", rng
+    return x, P, source, rng
+
+
+def _wide_adjoint(src, alpha, pairs, singles, source, P):
+    """The wrapper of the source at a width only the wide pair serves."""
+    if source == "table":
+        return pk.packed_adjoint(src, alpha, pairs=pairs, singles=singles)
+    return pk.packed_adjoint_regen(src, alpha, P=P, pairs=pairs, singles=singles, phase_gen=source)
+
+
+def _wide_forward(src, G2, G1, pairs, singles, source, P):
+    if source == "table":
+        return pk.packed_forward(src, G2, G1, pairs=pairs, singles=singles)
+    return pk.packed_forward_regen(src, G2, G1, P=P, pairs=pairs, singles=singles, phase_gen=source)
+
+
+def _wide_adjoint_want(src, alpha, P, pairs, singles, source):
+    if source == "table":
+        return pk.packed_adjoint_plain(src, alpha, pairs, singles)
+    return pk.packed_adjoint_regen_plain(src.double(), alpha.double(), P, pairs, singles, source)
+
+
+def _wide_forward_want(src, G2, G1, P, pairs, singles, source):
+    G2s = torch.stack(G2, 1) if pairs else None
+    G1s = torch.stack(G1, 1) if singles else None
+    if source == "table":
+        return pk.packed_forward_plain(src, G2s, G1s, pairs, singles)
+    return pk.packed_forward_regen_plain(src.double(), None if G2s is None else G2s.double(),
+                                         None if G1s is None else G1s.double(), P, pairs, singles, source)
+
+
+def _flat(A2, A1, like):
+    return torch.cat([torch.stack(A2, 1).reshape(-1) if A2 else like.new_zeros(0),
+                      torch.stack(A1, 1).reshape(-1) if A1 else like.new_zeros(0)])
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("W2", WIDE_WIDTHS)
+@pytest.mark.parametrize("source", WIDE_SOURCES)
+@pytest.mark.parametrize("nv", [1, 3, 10, 17])
+def test_wide_adjoint_matches_plain(dev, layout, W2, source, nv):
+    """The wide adjoint at every width class (below, between, at and above
+    the 64 x 64 output tile; 2P = 8k + 2 regenerating widths; the 1026
+    limit), every phase source, only 2-D, only 1-D and both window kinds,
+    nv across the flattened M tiles, n = 997 (no multiple of the 32-point
+    step or a chunk); a second launch bitwise equal, both counted."""
+    pairs, singles = LAYOUTS[layout]
+    n = 997
+    src, P, name, rng = _wide_src(dev, n, W2, source)
+    alpha = torch.from_numpy(rng.normal(size=(nv, n)).astype(np.float32)).to(dev)
+    key = f"2P={W2} nv={nv}"
+    before = pk.WIDE_ADJOINT.launches_by_shape.get(key, 0)
+    runs = [_wide_adjoint(src, alpha, pairs, singles, name, P) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert pk.WIDE_ADJOINT.launches_by_shape[key] == before + 2
+    got, again = (_flat(A2, A1, alpha) for A2, A1 in runs)
+    assert torch.equal(got, again)
+    W2w, W1w = _wide_adjoint_want(src, alpha, P, pairs, singles, name)
+    assert _rel(got, torch.cat([W2w.reshape(-1), W1w.reshape(-1)])) <= WIDE_RTOL[source]
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("W2", WIDE_WIDTHS)
+@pytest.mark.parametrize("source", WIDE_SOURCES)
+@pytest.mark.parametrize("nsets", [1, 2, 20, 33])
+def test_wide_forward_matches_plain(dev, layout, W2, source, nsets):
+    """The wide forward as the adjoint above, nsets within one 32-set block
+    and past it (two set blocks at 33); a second launch bitwise equal."""
+    pairs, singles = LAYOUTS[layout]
+    n = 997
+    src, P, name, rng = _wide_src(dev, n, W2, source)
+
+    def weights(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    G2 = [weights(nsets, W2, W2) for _ in pairs]
+    G1 = [weights(nsets, W2) for _ in singles]
+    key = f"2P={W2} nsets={nsets}"
+    before = pk.WIDE_FORWARD.launches_by_shape.get(key, 0)
+    ys, again = (torch.stack(_wide_forward(src, G2, G1, pairs, singles, name, P)) for _ in range(2))
+    torch.cuda.synchronize()
+    assert pk.WIDE_FORWARD.launches_by_shape[key] == before + 2
+    assert torch.equal(ys, again) and tuple(ys.shape) == (nsets, n)
+    assert _rel(ys, _wide_forward_want(src, G2, G1, P, pairs, singles, name)) <= WIDE_RTOL[source]
+
+
+@pytest.mark.parametrize("n", [1, 31, 129, 4099, 20001])
+@pytest.mark.parametrize("W2", [130, 256])
+@pytest.mark.parametrize("source", WIDE_SOURCES)
+def test_wide_ragged_n(dev, n, W2, source):
+    """Ragged point counts (one point, below one 32-point step, one past a
+    128-point forward block, several adjoint chunks), mixed windows."""
+    pairs, singles = LAYOUTS["mixed"]
+    src, P, name, rng = _wide_src(dev, n, W2, source, seed=n)
+    alpha = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)).to(dev)
+    A2, A1 = _wide_adjoint(src, alpha, pairs, singles, name, P)
+    W2w, W1w = _wide_adjoint_want(src, alpha, P, pairs, singles, name)
+    assert _rel(_flat(A2, A1, alpha), torch.cat([W2w.reshape(-1), W1w.reshape(-1)])) <= WIDE_RTOL[source]
+    G2 = [torch.from_numpy(rng.normal(size=(3, W2, W2)).astype(np.float32)).to(dev) for _ in pairs]
+    G1 = [torch.from_numpy(rng.normal(size=(3, W2)).astype(np.float32)).to(dev) for _ in singles]
+    ys = torch.stack(_wide_forward(src, G2, G1, pairs, singles, name, P))
+    assert _rel(ys, _wide_forward_want(src, G2, G1, P, pairs, singles, name)) <= WIDE_RTOL[source]
+
+
+@pytest.mark.parametrize("W2", [64, 130])
+def test_wide_bf16_table_unpadded_stride(dev, W2):
+    """A contiguous bf16 table whose row stride is n (no 64-point padding,
+    rows off 16-byte boundaries): the wide kernels read it in place."""
+    n = 997
+    Tp, P, _, rng = _wide_src(dev, n, W2, "bf16")
+    Tp = Tp.contiguous()
+    assert Tp.stride(1) == n
+    pairs, singles = LAYOUTS["mixed"]
+    alpha = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)).to(dev)
+    A2, A1 = pk.packed_adjoint(Tp, alpha, pairs=pairs, singles=singles)
+    W2w, W1w = pk.packed_adjoint_plain(Tp, alpha, pairs, singles)
+    assert _rel(_flat(A2, A1, alpha), torch.cat([W2w.reshape(-1), W1w.reshape(-1)])) <= KERNEL_RTOL
+    G2 = [torch.from_numpy(rng.normal(size=(2, W2, W2)).astype(np.float32)).to(dev) for _ in pairs]
+    G1 = [torch.from_numpy(rng.normal(size=(2, W2)).astype(np.float32)).to(dev) for _ in singles]
+    ys = torch.stack(pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles))
+    assert _rel(ys, pk.packed_forward_plain(Tp, torch.stack(G2, 1), torch.stack(G1, 1), pairs, singles)) \
+        <= KERNEL_RTOL
+
+
+@pytest.mark.parametrize("source", ["doubling", "direct"])
+def test_wide_regen_point_ranges(dev, monkeypatch, source):
+    """A phase slab larger than SLAB_BYTES runs in point ranges (here four
+    of 5 x 130 x 256 float32, the last ragged): the adjoint's ranges summed
+    in order and the forward's written side by side equal the plain
+    versions, one launch counted per range, a second call bitwise equal."""
+    n, W2 = 997, 130
+    src, P, _, rng = _wide_src(dev, n, W2, source)
+    monkeypatch.setattr(pk, "SLAB_BYTES", 5 * W2 * 256 * 4)
+    assert pk._point_ranges(src, W2) == [(0, 256), (256, 512), (512, 768), (768, 997)]
+    pairs, singles = LAYOUTS["mixed"]
+    alpha = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)).to(dev)
+    pk.reset_launch_counts()
+    runs = [_flat(*_wide_adjoint(src, alpha, pairs, singles, source, P), alpha) for _ in range(2)]
+    W2w, W1w = _wide_adjoint_want(src, alpha, P, pairs, singles, source)
+    assert torch.equal(runs[0], runs[1])
+    assert _rel(runs[0], torch.cat([W2w.reshape(-1), W1w.reshape(-1)])) <= WIDE_RTOL[source]
+    G2 = [torch.from_numpy(rng.normal(size=(2, W2, W2)).astype(np.float32)).to(dev) for _ in pairs]
+    G1 = [torch.from_numpy(rng.normal(size=(2, W2)).astype(np.float32)).to(dev) for _ in singles]
+    ys = torch.stack(_wide_forward(src, G2, G1, pairs, singles, source, P))
+    assert _rel(ys, _wide_forward_want(src, G2, G1, P, pairs, singles, source)) <= WIDE_RTOL[source]
+    assert pk.WIDE_ADJOINT.launches_by_shape == {"2P=130 nv=3": 8}
+    assert pk.WIDE_FORWARD.launches_by_shape == {"2P=130 nsets=2": 4}
+
+
+def test_wide_routes_and_refusals(dev):
+    """The wrappers send the narrow kernels' widths to them and every other
+    even width to the wide pair (counted there only); 2P = 1028 and
+    float64 operands at a wide width raise before any launch."""
+    pairs = ((0, 1),)
+    x, _ = _coords(dev, 300)
+    alpha = torch.ones((2, 300), device=dev)
+    pk.reset_launch_counts()
+    pk.packed_adjoint(pk.pack_phase_table(x, 16), alpha, pairs=pairs)            # narrow f32
+    pk.packed_adjoint(pk.pack_phase_table(x, 32), alpha, pairs=pairs)            # wide f32
+    pk.packed_adjoint_regen(x, alpha, P=17, pairs=pairs)                          # narrow regen
+    pk.packed_adjoint_regen(x, alpha, P=16, pairs=pairs)                          # wide regen (2P = 32)
+    pk.packed_forward_regen(x, [torch.ones((1, 130, 130), device=dev)], P=65, pairs=pairs)
+    torch.cuda.synchronize()
+    assert (pk.packed_adjoint.launches, pk.packed_adjoint_regen.launches) == (1, 1)
+    assert pk.WIDE_ADJOINT.launches_by_shape == {"2P=64 nv=2": 1, "2P=32 nv=2": 1}
+    assert pk.WIDE_FORWARD.launches_by_shape == {"2P=130 nsets=1": 1}
+    with pytest.raises(ValueError):
+        pk.packed_adjoint(pk.pack_phase_table(x, 514), alpha, pairs=pairs)
+    with pytest.raises(ValueError):
+        pk.packed_adjoint_regen(x, alpha, P=514, pairs=pairs)
+    with pytest.raises(ValueError):
+        pk.packed_adjoint_regen(x, alpha, P=514, pairs=pairs, phase_gen="direct")
+    with pytest.raises(ValueError):                                              # float64 alpha
+        pk.packed_adjoint_regen(x, alpha.double(), P=65, pairs=pairs)
+    with pytest.raises(ValueError):                                              # float64 table
+        pk.packed_adjoint(pk.pack_phase_table(x.double(), 32), alpha, pairs=pairs)
+    assert pk.WIDE_ADJOINT.launches == 2 and pk.WIDE_FORWARD.launches == 1
+
+
+def test_wide_kernels_at_afn_pcg_256_shape(dev):
+    """The wide pair at chip_smoke's [afn-pcg-256] shape (n = 1e5, one 2-D
+    window, a float32 table at 2P = 256, nv = nsets = 1): relative
+    Frobenius 1e-4 (sqrt(n) eps for 1e5-term sums), bitwise repeats."""
+    n = 100_000
+    Tp, P, _, rng = _wide_src(dev, n, 256, "f32")
+    pairs = ((0, 1),)
+    alpha = torch.from_numpy(rng.normal(size=(1, n)).astype(np.float32)).to(dev)
+    A2 = pk.packed_adjoint(Tp, alpha, pairs=pairs)[0][0]
+    assert torch.equal(A2, pk.packed_adjoint(Tp, alpha, pairs=pairs)[0][0])
+    assert _rel(A2, pk.packed_adjoint_plain(Tp, alpha, pairs, ())[0][:, 0]) <= 1e-4
+    G2 = [torch.from_numpy(rng.normal(size=(1, 256, 256)).astype(np.float32)).to(dev)]
+    y = pk.packed_forward(Tp, G2, pairs=pairs)[0]
+    assert torch.equal(y, pk.packed_forward(Tp, G2, pairs=pairs)[0])
+    assert _rel(y, pk.packed_forward_plain(Tp, torch.stack(G2, 1), None, pairs, ())[0]) <= 1e-4

@@ -6,7 +6,7 @@ Phases, one line each (any failure raises and exits non-zero):
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: compiles the five kernel libraries of csrc/ with nvcc (sm_90a),
      prints ptxas's registers, spills and shared memory of the wide pair
-     (none may spill),
+     (none may spill) and its notes on the wgmma adjoint,
      one nvcc per source, all at once, if needed, and checks grid.sync()
      with a tiny cooperative kernel over every resident block;
   3. kernels: the bf16-table kernels (the tensor-core adjoint and forward
@@ -27,9 +27,11 @@ Phases, one line each (any failure raises and exits non-zero):
      forward's on 3 x their 2-D windows' flops at the TF32 peak or their
      CUDA-core flops at the float32 peak, whichever takes longer); a second
      launch of each must be bitwise equal to the first;
-  4b. kernels-wide: the wide pair (csrc/packed_ndft_wide.cu, CUDA-core
-     float32 tile GEMMs, every even 2P from 2 to 1026; the regenerating
-     sources write their phases into a float32 slab first) against its
+  4b. kernels-wide: the wide pair (csrc/packed_ndft_wide.cu, every even 2P
+     the narrow kernels lack: the adjoint's 2-D windows on wgmma in 3xTF32,
+     two products on a bf16 table; its 1-D windows and the forward on the
+     CUDA cores; the regenerating sources write their phases into a float32
+     slab first) against its
      plain versions through the wrappers at n = 1e5: at the window [0, 1]
      ([afn-pcg-256]'s shape) float32 and bf16 tables at 2P = 64, 128, 256
      (nv = 1, 10; nsets = 1, 2, 20), a 1-D window beside it at 2P = 128,
@@ -40,7 +42,12 @@ Phases, one line each (any failure raises and exits non-zero):
      10; nsets = 1, 2, 10, 20); and at 2P = 32 the wide pair beside the
      narrow kernels on the same inputs; a second launch of each must be
      bitwise equal, and no narrow kernel may serve a wide width; bound: the
-     flops over the float32 peak;
+     adjoint's 2-D products 3 x (bf16 tables 2 x) at the TF32 peak beside
+     its 1-D windows' flops at the float32 peak, the forward's flops at the
+     float32 peak, or the bytes; then one line with the adjoint at the four
+     shapes of its bounds table ([afn-pcg-256]'s float32 table at 2P = 256,
+     [wide-train]'s bf16 table at 128 and doubling slab at 130; nv = 1, 10):
+     time, plain, library, bound with its unit, share;
      in 3, 4 and 4b the limit is a relative Frobenius error <= 1e-4 (two f32
      sums over 2e5 terms in different orders, about sqrt(n) eps); times
      from CUDA events around back-to-back calls queued behind a sleep
@@ -153,6 +160,16 @@ Phases, one line each (any failure raises and exits non-zero):
      one AFN solve on the card, the wide kernels' launches by shape (the
      narrow table kernels' must be 0); AFN must converge; the JAX
      package's 13 iterations (AFN_PCG_1e5_m12_f32.json) printed beside;
+ 17b'. many-windows: more windows than one launch takes, at n = 2e4 through
+     GPProblem on the card: d = 66 as 33 2-D windows (gaussian, stream
+     engine, bf16 tables at 2P = 32) and d = 65 as 65 1-D windows
+     (matern12, fused engine, 2P = 34), one loss and gradient each against
+     the torch table engine on the card (limits of 6 and 8); before each,
+     its kernel wrappers at its shapes (the bf16-table pair at 33 pairs,
+     the regenerating pair at 65 singles; nv = 1, 10, nsets = 1, 2, 10, 20)
+     against their plain versions (1e-4; the regenerating ones in float64),
+     a second call bitwise equal; every kernel wrapper launches twice a
+     call (two window groups);
  17c. wide-train: GPProblem(matern12, WINDOWS, fastsum_N=128) at n = 1e5,
      2 Adam steps on the stream engine (bf16 tables, 2P = 128, radius
      near-field) and 2 with fastsum_fused=True (2P = 130); losses finite,
@@ -177,14 +194,17 @@ input read once, each output written once) over 3.35 TB/s.  The
 tensor-core kernels' 2-D window products count three times (the three bf16
 terms of the float32 operand over the 989 TFLOP/s bf16 peak for the table
 kernels, 3xTF32 over the 495 TFLOP/s dense TF32 peak for the regenerating
-ones); their CUDA-core flops (the 1-D windows, the forwards' epilogue)
-over the 67 TFLOP/s float32 peak run beside them, so the operations take
-the larger of the two times; the other six kernels' flops count over the
-float32 peak; the H100 SXM's published peaks at 700 W.  Each entry of the kernels JSON
-names the units its operations run on (`engine`); the wide pair's entries
-are its float32-table cases at [afn-pcg-256]'s shape (2P = 256, nv =
-nsets = 1) with that solve's launches, its launches by shape in
-[wide-train] and its times at [wide-train]'s shapes in [kernels-wide].
+ones and the wide adjoint; twice for the wide adjoint on a bf16 table,
+whose values are exact in tf32); their CUDA-core flops (the 1-D windows,
+the forwards' epilogue) over the 67 TFLOP/s float32 peak run beside them,
+so the operations take the larger of the two times; the other kernels'
+flops count over the float32 peak; the H100 SXM's published peaks at 700
+W.  Each entry of the kernels JSON names the units its operations run on
+(`engine`); the wide pair's entries are its float32-table cases at
+[afn-pcg-256]'s shape (2P = 256, nv = nsets = 1) with that solve's
+launches, its launches by shape in [wide-train] and its times at
+[wide-train]'s shapes in [kernels-wide]; the narrow bf16-table and
+regenerating pairs' also carry their launches in [many-windows].
 
 A `[done]` line gives the script's wall seconds from its start to the
 summary, and each phase's.  The line before the last is a JSON summary of the kernels; the
@@ -228,10 +248,15 @@ HBM_PEAK = 3.35e12
 # the units a kernel's operations run on, and their rate: the CUDA cores, or
 # three passes on the tensor cores (bf16: the three-term split of a float32
 # operand; tf32: 3xTF32, big*big + big*small + small*big)
-PEAKS = {"f32": F32_PEAK, "bf16x3": BF16_PEAK / 3, "tf32x3": TF32_PEAK / 3}
+PEAKS = {"f32": F32_PEAK, "bf16x3": BF16_PEAK / 3, "tf32x3": TF32_PEAK / 3,
+         "wgmma_tf32x3": TF32_PEAK / 3, "wgmma_tf32x2": TF32_PEAK / 2}
 ENGINES = {"f32": "CUDA cores", "bf16x3": "tensor cores, mma.sync bf16, 3-term split of the float32 operand",
            "tf32x3": "tensor cores, mma.sync m16n8k8 3xTF32; the Nyquist mode's columns (adjoint) or rows "
-                     "(forward), the forward's epilogue and the 1-D windows on the CUDA cores"}
+                     "(forward), the forward's epilogue and the 1-D windows on the CUDA cores",
+           "wgmma_tf32x3": "tensor cores, wgmma m64nNk8 3xTF32 fed by TMA (2-D windows); the 1-D windows on the "
+                           "CUDA cores",
+           "wgmma_tf32x2": "tensor cores, wgmma m64nNk8 TF32, two products (a bf16 table is exact in tf32; 2-D "
+                           "windows); the 1-D windows on the CUDA cores"}
 DENSE_NS = (2048, 4096)
 DENSE_MUS = (0.1, 0.01)
 PCG_MAXITS, PCG_TOL = 200, 1e-5
@@ -461,6 +486,12 @@ WIDE_REGEN_WIDTHS = (130, 258)
 # fastsum_N of [wide-train]: 2P = 128 on its bf16 tables, 130 regenerating
 WIDE_TRAIN_N = 128
 N_WIDE_TRAIN = 100_000
+# the units of the wide adjoint's 2-D window products (PEAKS) by table type
+WIDE_ADJ_UNIT = {torch.float32: "wgmma_tf32x3", torch.bfloat16: "wgmma_tf32x2"}
+# the shapes of the wide adjoint's bounds table: (mode, where in the tag)
+WIDE_BOUND_SHAPES = {"afn-pcg-256 f32 1 pair 2P=256": ("table-f32@2P=256", "windows=[[0, 1]] "),
+                     "wide-train bf16 5 pairs 2P=128": ("table-bf16@2P=128", f"windows={WINDOWS}"),
+                     "wide-train doubling slab 5 pairs 2P=130": ("doubling@2P=130", f"windows={WINDOWS}")}
 
 
 def check_wide_kernels(X):
@@ -499,7 +530,7 @@ def check_wide_kernels(X):
             lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles),
             lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles),
             pn, pn.P, Xw, nvs, nsets, timed, Tp.float(), Tp.numel() * Tp.element_size(), repeat=True,
-            label="kernels-wide")
+            label="kernels-wide", units=(WIDE_ADJ_UNIT[dtype], "f32"))
 
     def regen(Xw, windows, W2, gen, nvs, nsets):
         lay = fs._packed_layout(_plan(Xw, windows, N=W2 - 2))
@@ -513,7 +544,7 @@ def check_wide_kernels(X):
             lambda G2, G1: pk.packed_forward_regen(xT, G2, G1, **kw),
             lambda G2s, G1s: pk.packed_forward_regen_plain(xT, G2s, G1s, P, pairs, singles, gen),
             lay, P, Xw, nvs, nsets, True, pk.phase_slab(xT, P, gen), xT.numel() * xT.element_size(),
-            repeat=True, label="kernels-wide",
+            repeat=True, label="kernels-wide", units=(WIDE_ADJ_UNIT[torch.float32], "f32"),
             adj_ref=lambda a: pk.packed_adjoint_regen_plain(xT.double(), a.double(), P, pairs, singles, gen),
             fwd_ref=lambda G2s, G1s: pk.packed_forward_regen_plain(
                 xT.double(), G2s.double(), None if G1s is None else G1s.double(), P, pairs, singles, gen))
@@ -544,7 +575,7 @@ def check_wide_kernels(X):
                 Tp, *pk._dense_stacks(torch.stack(G2, 1), None, 32, Tp.device), pairs, ()))),
             lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, ()),
             pn, pn.P, Xa, (1, 10), (1, 20), True, Tp.float(), Tp.numel() * Tp.element_size(), repeat=True,
-            label="kernels-wide")
+            label="kernels-wide", units=(WIDE_ADJ_UNIT[dtype], "f32"))
         narrow_cases = check_pair(
             f"table-{kind}@2P=32 (narrow) n={Xa.shape[0]}",
             ("packed_adjoint", "packed_forward"),
@@ -557,6 +588,19 @@ def check_wide_kernels(X):
         print(f"[kernels-wide] 2P=32 {dtype}: wide / narrow ms = "
               f"{[(w['shape'], w['ms'], v['ms']) for w, v in zip(wide, narrow_cases)]}", flush=True)
         cases += wide
+    # the wide adjoint (2-D windows on wgmma) at the four shapes of its bounds
+    table = {}
+    for c in cases:
+        for key, (mode, where) in WIDE_BOUND_SHAPES.items():
+            if c["kernel"] == names[0] and c["mode"] == mode and where in c["tag"]:
+                table[f"{key} {c['shape']}"] = dict(ms=c["ms"], plain_ms=c["plain_ms"], library_ms=c["library_ms"],
+                                                    bound_ms=round(c["bound_ms"], 4), bound_by=c["bound_by"],
+                                                    share=round(c["bound_ms"] / c["ms"], 3), rel_err=c["rel"])
+    print(f"[kernels-wide] the wide adjoint at its bounds-table shapes (2-D windows on wgmma; bound: 3 or, on a "
+          f"bf16 table, 2 TF32 products at {TF32_PEAK / 1e12:.0f} TFLOP/s, or the bytes): {json.dumps(table)}",
+          flush=True)
+    if len(table) != 2 * len(WIDE_BOUND_SHAPES):
+        raise AssertionError(f"kernels-wide: the bounds-table shapes were not all run: {sorted(table)}")
     return cases
 
 
@@ -1097,6 +1141,121 @@ def check_afn_pcg(X, y):
     return counts
 
 
+N_MANY = 20_000
+# one window past a launch's 32 pairs, and past its 64 singles
+MANY_PAIRS_D, MANY_SINGLES_D = 66, 65
+# the adjoint's right-hand sides and the forward's weight sets of its loss
+# steps (their launches by shape)
+MANY_NVS, MANY_NSETS = (1, 10), (1, 2, 10, 20)
+
+
+def check_many_windows_kernels(engine, X, windows):
+    """The kernel wrappers of one [many-windows] problem at its shapes, on
+    its own coordinates, windows and width, against their plain versions
+    (KERNEL_RTOL; the regenerating ones in float64), a second call bitwise
+    equal: the bf16-table pair at 33 pairs (stream), the regenerating pair
+    at 65 singles (fused, "doubling", the engine's phases).  Every call
+    must launch twice (two window groups).  Returns the case dicts."""
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    plan = _plan(X, windows)
+    if engine == "stream":
+        names = ("packed_adjoint", "packed_forward")
+        pn = fs.packed_ndft_plan(plan, table_dtype=torch.bfloat16)
+        Tp, pairs, singles = pn.Tp, pn.pairs, pn.singles
+        tag, lay, P, T32, units = "table-bf16", pn, pn.P, Tp.float(), ("bf16x3", "bf16x3")
+        src_bytes = Tp.numel() * Tp.element_size()
+        fns = (lambda a: pk.packed_adjoint(Tp, a, pairs=pairs, singles=singles),
+               lambda a: pk.packed_adjoint_plain(Tp, a, pairs, singles),
+               lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles),
+               lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles))
+        refs = {}
+    else:
+        names = ("packed_adjoint_regen", "packed_forward_regen")
+        lay = fs._packed_layout(plan)
+        P, gen = fs._nmodes(FASTSUM_N), "doubling"
+        xT, pairs, singles = lay.xT, lay.pairs, lay.singles
+        tag, T32, units = gen, pk.phase_slab(xT, P, gen), ("tf32x3", "tf32x3")
+        src_bytes = xT.numel() * xT.element_size()
+        kw = dict(P=P, pairs=pairs, singles=singles, phase_gen=gen)
+        fns = (lambda a: pk.packed_adjoint_regen(xT, a, **kw),
+               lambda a: pk.packed_adjoint_regen_plain(xT, a, P, pairs, singles, gen),
+               lambda G2, G1: pk.packed_forward_regen(xT, G2, G1, **kw),
+               lambda G2s, G1s: pk.packed_forward_regen_plain(xT, G2s, G1s, P, pairs, singles, gen))
+        x64 = (lambda t: None if t is None else t.double())  # noqa: E731
+        refs = dict(adj_ref=lambda a: pk.packed_adjoint_regen_plain(xT.double(), a.double(), P, pairs, singles, gen),
+                    fwd_ref=lambda G2s, G1s: pk.packed_forward_regen_plain(xT.double(), x64(G2s), x64(G1s), P, pairs,
+                                                                           singles, gen))
+    wrappers = [getattr(pk, name) for name in names]
+    before = [fn.launches for fn in wrappers]
+    cases = check_pair(f"{tag} {len(pairs)} pairs {len(singles)} singles n={X.shape[0]}", names, *fns, lay, P, X,
+                       MANY_NVS, MANY_NSETS, False, T32, src_bytes, units=units, repeat=True, label="many-windows",
+                       **refs)
+    # two calls a case (the bitwise repeat), two window groups a call
+    launched = [fn.launches - b for fn, b in zip(wrappers, before)]
+    if launched != [4 * len(MANY_NVS), 4 * len(MANY_NSETS)]:
+        raise AssertionError(f"many-windows: {names} launched {launched} times, not twice a call")
+    return cases
+
+
+def check_many_windows(dev):
+    """[many-windows]: more windows than one kernel launch takes, through
+    GPProblem on the card at n = N_MANY, one loss and gradient each: d = 66
+    features as 33 2-D windows on the stream engine (gaussian, bf16 tables,
+    2P = 32: the tensor-core table kernels), and d = 65 as 65 1-D windows on
+    the fused engine (matern12, 2P = 34: the regenerating kernels), each
+    against the torch table engine on the card (the fused engine with
+    float32 tables and the same KNN patterns): the limits of [agree] and of
+    [agree-fused].  Before each, its kernel wrappers at its shapes against
+    their plain versions (`check_many_windows_kernels`).  Each kernel
+    wrapper must launch twice a call (two window groups).  Returns {engine:
+    launch counts}."""
+    from nfft4gp_torch.models.problem import GPProblem
+    from nfft4gp_torch.models.transforms import transform_inverse
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    out = {}
+    for engine, d in (("stream", MANY_PAIRS_D), ("fused", MANY_SINGLES_D)):
+        rng = np.random.default_rng(d)
+        X = torch.from_numpy(rng.uniform(size=(N_MANY, d)).astype(np.float32)).to(dev)
+        y = torch.from_numpy((np.sin(3.0 * X[:, 0].cpu().numpy()) + 0.1 * rng.normal(size=N_MANY))
+                             .astype(np.float32)).to(dev)
+        if engine == "stream":
+            windows = [[2 * w, 2 * w + 1] for w in range(d // 2)]
+            kw = dict(kernel="gaussian", windows=windows, operator="fastsum", precond="nystrom", rank=50,
+                      maxits=10, nvecs=10, fastsum_N=FASTSUM_N)
+            mu, card_kw, rtol = 0.1, dict(fastsum_engine="stream"), (4e-2, 2e-1, 2e-2)
+            counted = ("packed_adjoint", "packed_forward")
+        else:
+            windows = [[j] for j in range(d)]
+            kw = dict(kernel="matern12", windows=windows, operator="fastsum", precond="nystrom", rank=50,
+                      maxits=10, nvecs=10, fastsum_N=FASTSUM_N)
+            mu, card_kw, rtol = 1.0, dict(fastsum_fused=True), (1e-3, 1e-2, 1e-3)
+            counted = ("packed_adjoint_regen", "packed_forward_regen")
+        check_many_windows_kernels(engine, X, windows)
+        raw = transform_inverse("softplus", torch.tensor([1.0, 0.5, mu], device=dev))
+        card = GPProblem(**card_kw, **kw)
+        pk.reset_launch_counts()
+        loss_c, grad_c = card.make_loss(X, y)(raw)
+        counts = _launches()
+        table_kw = dict(fastsum_engine="table") if engine == "stream" else dict(fastsum_engine="table",
+                                                                              fastsum_table_dtype="float32")
+        pats = None if engine == "stream" else card.nf_patterns_
+        loss_t, grad_t = GPProblem(**table_kw, **kw).make_loss(X, y, nf_patterns=pats)(raw)
+        calls = {k: counts["by_shape"].get(k, {}) for k in counted}
+        print(f"[many-windows] n={N_MANY} d={d} {len(windows)} windows engine={engine} (f, l, mu) = (1, 0.5, {mu}): "
+              f"loss={float(loss_c):.8e} grad={grad_c.tolist()} | table engine loss={float(loss_t):.8e} "
+              f"grad={grad_t.tolist()} (limits: loss rtol {rtol[0]}, gradient rtol {rtol[1]} / atol {rtol[2]}); "
+              f"launches by shape {calls}", flush=True)
+        np.testing.assert_allclose(float(loss_c), float(loss_t), rtol=rtol[0])
+        np.testing.assert_allclose(grad_c.cpu().numpy(), grad_t.cpu().numpy(), rtol=rtol[1], atol=rtol[2])
+        if any(v % 2 for k in counted for v in calls[k].values()) or min(counts[k] for k in counted) < 2:
+            raise AssertionError(f"many-windows: the {engine} kernels did not run in two window groups: {calls}")
+        out[engine] = counts
+    return out
+
+
 AFN_PCG_256_ARGV = ["--n", "100000", "--d", "2", "--kernel", "matern12", "--l", "0.1", "--mu", "0.01", "--N", "256",
                     "--nf-lfil", "128", "--rank", "200", "--lfil", "16", "--tol", "1e-2", "--maxits", "400", "--comp",
                     "--replace-every", "25", "--engine", "stream", "--precs", "none,nystrom,afn", "--solvers", "pcg"]
@@ -1320,6 +1479,9 @@ def main():
           f"table; of the phase slab: 0 doubling, 1 direct): {wide_ptxas}", flush=True)
     if any(r["spill_bytes"] for r in wide_ptxas if r["kernel"].startswith("wide_")):
         raise AssertionError(f"a wide kernel spills registers: {wide_ptxas}")
+    print(f"[build] ptxas, csrc/packed_ndft_wide.cu, its notes on the wgmma adjoint (registers: the entry count; "
+          f"its consumer warpgroups run at 224 after setmaxnreg): {_cuda_build.ptxas_notes('packed_ndft_wide')}",
+          flush=True)
     blocks, total = _cuda_build.grid_sync_probe(torch.device("cuda:0"))
     print(f"[build] grid.sync() over {blocks} resident blocks: sum {total} "
           f"(expected {blocks * (blocks + 1) // 2})", flush=True)
@@ -1386,6 +1548,8 @@ def main():
     mark("afn-pcg")
     wcounts = check_afn_pcg_256(X.device)
     mark("afn-pcg-256")
+    mcounts = check_many_windows(X.device)
+    mark("many-windows")
     tcounts = check_wide_train(X, y)
     mark("wide-train")
     check_fsai(X, y)
@@ -1411,6 +1575,8 @@ def main():
         k["launches_by_shape_afn"] = acounts["by_shape"][k["name"]]
     for k in summary[2:4]:
         k["pcg_iterations"] = pcounts["iterations"]
+    for k, engine in ((summary[0], "stream"), (summary[1], "stream"), (summary[4], "fused"), (summary[5], "fused")):
+        k[f"launches_by_shape_many_windows_{engine}"] = mcounts[engine]["by_shape"][k["name"]]
     for k in summary[6:8]:
         k["pcg_iterations"] = wcounts["iterations"]
         for engine, counts in tcounts.items():

@@ -76,6 +76,7 @@ extern "C" {
 int adjoint_launch(const void* tab, int stride, const float* alpha, int WR, int n, int nv,
                    const int* pairs, int npairs, const int* singles, int nsingles, float* part,
                    int nchunks, int chunk, float* out, void* stream) {
+  if (!windows_fit(npairs, nsingles)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NDFT_ADJ(W)                                                                                   \
   launch_adjoint<W>(TableSrc<W>{static_cast<const float*>(tab), n, stride}, alpha, n, nv, pairs, \
@@ -90,6 +91,7 @@ int adjoint_launch(const void* tab, int stride, const float* alpha, int WR, int 
 int forward_launch(const void* tab, int stride, int WR, int n, const int* pairs, int npairs,
                    const float* G2, const int* singles, int nsingles, const float* G1, int nsets,
                    float* y, void* stream) {
+  if (!windows_fit(npairs, nsingles)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NDFT_FWD(W)                                                                                 \
   launch_forward<W>(TableSrc<W>{static_cast<const float*>(tab), n, stride}, n, pairs, npairs, G2, \

@@ -52,9 +52,20 @@
 
 namespace {
 
+// The coordinate rows of one launch's windows: at most MAX_PAIRS 2-D
+// windows (two rows each) or MAX_SINGLES 1-D windows.  A call with more
+// runs in several launches (ops/packed_ndft.py `window_groups`); every C
+// entry point refuses a launch beyond these (`windows_fit`) before it makes
+// its Rows.
+constexpr int MAX_PAIRS = 32, MAX_SINGLES = 64;
+
 struct Rows {
-  int v[64];
+  int v[2 * MAX_PAIRS > MAX_SINGLES ? 2 * MAX_PAIRS : MAX_SINGLES];
 };
+
+inline bool windows_fit(int npairs, int nsingles) {
+  return npairs >= 0 && nsingles >= 0 && npairs <= MAX_PAIRS && nsingles <= MAX_SINGLES;
+}
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 
@@ -250,9 +261,10 @@ __global__ void __launch_bounds__(NTF) forward_kernel(
   }
 }
 
+// count <= 2 MAX_PAIRS or MAX_SINGLES: the entry points check windows_fit
 Rows make_rows(const int* v, int count) {
   Rows r{};
-  for (int k = 0; k < count && k < 64; ++k) r.v[k] = v[k];
+  for (int k = 0; k < count; ++k) r.v[k] = v[k];
   return r;
 }
 

@@ -730,6 +730,7 @@ extern "C" {
 int adjoint_launch(const float* x, int phase_gen, const float* alpha, int WR, int n, int nv,
                    const int* pairs, int npairs, const int* singles, int nsingles, float* part,
                    int nchunks, int chunk, int nw, int wk, int mpw, float* out, void* stream) {
+  if (!windows_fit(npairs, nsingles)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NDFT_ADJ(W, G) \
   return adjoint_regen<W, G>(x, alpha, n, nv, pairs, npairs, singles, nsingles, part, nchunks, chunk, nw, wk, mpw, out, st)
@@ -749,6 +750,7 @@ int adjoint_launch(const float* x, int phase_gen, const float* alpha, int WR, in
 int forward_launch(const float* x, int phase_gen, int WR, int n, const int* pairs, int npairs,
                    const float* G2, const int* singles, int nsingles, const float* G1, int ns, void* Gf,
                    float* y, void* stream) {
+  if (!windows_fit(npairs, nsingles)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint32_t* W = static_cast<uint32_t*>(Gf);
 #define NDFT_FWD(WW, G) return forward_regen<WW, G>(x, n, pairs, npairs, G2, singles, nsingles, G1, ns, W, y, st)

@@ -576,6 +576,7 @@ extern "C" {
 int tc_adjoint_launch(const void* tab, int ld, const float* alpha, int WR, int n, int nv,
                       const int* pairs, int npairs, const int* singles, int nsingles, float* part,
                       int nchunks, int chunk, int nw, int wk, int mpw, float* out, void* stream) {
+  if (!windows_fit(npairs, nsingles)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* T = static_cast<const bf16*>(tab);
   if (WR == 16)
@@ -591,6 +592,7 @@ int tc_adjoint_launch(const void* tab, int ld, const float* alpha, int WR, int n
 int tc_forward_launch(const void* tab, int ld, int WR, int n, const int* pairs, int npairs,
                       const float* G2, const int* singles, int nsingles, const float* G1, int nsets,
                       void* Gf, float* y, void* stream) {
+  if (!windows_fit(npairs, nsingles)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* T = static_cast<const bf16*>(tab);
   uint32_t* W = static_cast<uint32_t*>(Gf);

@@ -1,18 +1,20 @@
-// Wide packed NDFT kernels for Hopper (sm_90a) on the CUDA cores, plain C
-// interface: every even width 2P = WR from 2 to 1026, every phase source.
+// Wide packed NDFT kernels for Hopper (sm_90a), plain C interface: every
+// even width 2P = WR the narrow kernels are not built for, every phase
+// source.
 //
 // Port of the two Pallas kernels of the JAX package's ops/pallas_ndft.py at
 // the widths the narrow kernels (packed_ndft.cu, packed_ndft_tc.cu,
 // packed_ndft_regen.cu: 2P in {16, 32} and {18, 34}) are not built for --
-// matern12's accuracy widths, N = 64 to 1024:
-//   _adjoint_kernel (pallas_call at :326) -> wide_adjoint_kernel
+// matern12's accuracy widths, N = 64 to 1024 and past them:
+//   _adjoint_kernel (pallas_call at :326) -> wide_adjoint_wg_kernel (2-D windows, tensor cores)
+//                                            + wide_singles_kernel (1-D windows, CUDA cores)
 //                                            + reduce_slices_kernel (tc_common.cuh)
-//   _forward_kernel (pallas_call at :508) -> wide_forward_kernel
-// in all four of its phase sources.  The two GEMM kernels read a float32 or
-// a bf16 table (`WideKind`, bf16 upcast on load).  The regenerating sources
-// ("doubling", "direct") first write the phases of every coordinate row
-// into a float32 slab (wide_phases_kernel, scratch the caller allocates),
-// each by the formula of its plain version (ops/packed_ndft.py phase_slab):
+//   _forward_kernel (pallas_call at :508) -> wide_forward_kernel (CUDA cores)
+// in all four of its phase sources.  The kernels read a float32 or a bf16
+// table (`WideKind`).  The regenerating sources ("doubling", "direct")
+// first write the phases of every coordinate row into a float32 slab
+// (wide_phases_kernel, scratch the caller allocates), each by the formula of
+// its plain version (ops/packed_ndft.py phase_slab):
 //   DIRECT    cos/sin(pi * 2p x) per mode (cospif/sinpif: 2p is an integer);
 //   DOUBLING  row p is row (p & 1) rotated, for every set bit k >= 1 of p
 //             from the lowest up, by e^{i 2^k theta}; the rotators come from
@@ -20,60 +22,88 @@
 //             recurrence of _build_T6_doubling (rows [have, 2 have) = rows
 //             [0, have) rotated by the rotator of row have/2) evaluated per
 //             row: the same operations in the same order.
-// and the float32 GEMMs read the slab as a table.  Made once per call, a
-// phase costs its up to log2(P) rotations once, not once per output tile
-// and weight set that reads it; the slab's bytes (Dtot WR n float32) are
-// written once and read as the table's are.
+// and the kernels read the slab as a float32 table.
 //
-// What bounds them on an H100 SXM (published peaks at 700 W): the adjoint
-// does 2 nv npairs WR^2 n flops and the forward 2 nsets npairs WR^2 n, as
-// float32 FMAs on the CUDA cores (67 TFLOP/s).  At n = 1e5, one pair,
-// WR = 256, nv = nsets = 1 that is 1.31e10 flops, 0.196 ms, against 0.061 ms
-// for the 205 MB float32 table at 3.35 TB/s: operations bound both from
-// WR ~ 64 up.  (3xTF32 through mma.sync issues at about a quarter of the
-// TF32 peak on this card, about 41 TFLOP/s of float32 products, so the CUDA
-// cores are no slower and exact float32; wgmma in 3xTF32 is the later
-// redesign.)
+// What bounds them on an H100 SXM (published peaks at 700 W): the adjoint's
+// 2-D windows do 2 nv npairs WR^2 n flops.  In 3xTF32 (three TF32 products
+// per float32 product) on the tensor cores that is 3x over 495 TFLOP/s: at
+// n = 1e5, one pair, WR = 256, nv = 1, 0.079 ms against 0.061 ms for the
+// 205 MB float32 table at 3.35 TB/s -- operations bound it, bytes nearly.
+// A bf16 table's values are exact in tf32 (8 significant bits, tf32 has
+// 11), so its products need two TF32 passes, not three.  The forward does
+// 2 nsets npairs WR^2 n flops as float32 FMAs on the CUDA cores (67
+// TFLOP/s).  mma.sync's TF32 issues at about a quarter of the tensor-core
+// peak on this card (packed_ndft_regen.cu's kernels, NVIDIA H100 80GB
+// HBM3), below the CUDA cores; wgmma is the route to the full rate, so the
+// adjoint's 2-D windows run on it.
 //
-// Design: each is a register-blocked float32 tile GEMM; the tiles run at WR
-// rounded up to the tile, pad phase rows are zero and pad outputs are not
-// written; warps whose rows or columns of a tile are all pad skip their
-// FMAs, and the forward's last chunk of b runs only its live rows, so the
-// widths 2P = 64k + 2 of the regenerating sources (130, 258) pay little
-// for the padding of their last tile (the adjoint still pays it in rows at
-// nv = 1, where M = 2P).
-// - Adjoint, a split-K GEMM per window: C[(r, a), b] = sum_i (alpha_r[i]
-//   L0[a, i]) L1[b, i], M = nv WR flattened (r, a) rows, N = WR, K = points.
-//   A block owns one 64 x 64 output tile and one chunk of points; its 256
-//   threads hold 4 x 4 register tiles and stage alpha * L0 and L1 for 32
-//   points a step in shared memory.  The grid is (output tile, window,
-//   chunk) with the tile fastest, so the blocks of one chunk run together
-//   and read its table rows from L2.  A 1-D window is the same product with
-//   M = nv rows and alpha alone as A.  Each chunk writes its own partial
-//   slice; reduce_slices_kernel adds them in a fixed order: no atomics, a
-//   second launch is bitwise equal.
-// - Forward, one block per 128 points and up to 32 weight sets: per window,
-//   per 64-row tile of a (L0 staged once), per set, Z[a, i] = sum_b G_s[a, b]
-//   L1[b, i] accumulated in registers (4 a x 8 points a thread) over 32-row
-//   chunks of b, G and L1 staged in shared memory (G is read from L2: about
-//   26 MB at 20 sets, five windows, WR = 256); then y_s[i] += sum_a L0[a, i]
-//   Z[a, i], summed over the 16 a-groups in a fixed order through shared
-//   memory.  1-D windows add sum_a L[a, i] g_s[a], two threads a point.  y
-//   is written once, no cross-block reduction.
-// Shared memory: 17 KB (adjoint), 84 KB (forward, dynamic) at every width.
+// Adjoint, 2-D windows (wide_adjoint_wg_kernel): a split-K GEMM per window,
+// C[(r, a), b] = sum_i (alpha_r[i] L0[a, i]) L1[b, i], M = nv WR flattened
+// (r, a) rows, N = WR, K = the points.
+// - A block: 128 M rows (two consumer warpgroups, one 64-row wgmma tile
+//   each), one N tile of NT <= 144 columns (WR in ceil(WR / 144) tiles,
+//   each rounded up to a compiled width, 64, 72, 128, 136 or 144: 2P = 130
+//   runs 136, 256 two of 128, 2P < 64 one of 64), one window,
+//   one point chunk; one producer warp (of a third warpgroup, for
+//   setmaxnreg).  Pad rows and columns are computed from zeros (TMA fills
+//   past WR and past n) or from rows past M, and never written.
+// - The producer warp keeps a three-stage ring of 32 points a stage: per
+//   stage one TMA copy (cp.async.bulk.tensor, a 3-D map over points, mode
+//   rows, coordinate rows) of the tile's NT L1 rows, up to 17 of 8 L0 rows
+//   (the block's 128 M rows need at most two runs of a: all rows when
+//   WR <= 136), and alpha of the block's right-hand sides by plain loads;
+//   full / empty mbarriers.  float32 rows are 128 bytes, copied with the
+//   128-byte swizzle that wgmma reads.
+// - B = L1 from shared memory through a descriptor (the table's rows are
+//   K-major, as tf32 operands must be).  float32: the consumers round the
+//   L1 tile to tf32 in place (big) and write the remainder, rounded, into a
+//   second buffer (small), so big * big + small * big + big * small are the
+//   three products; bf16: they write L1 as float32 into the swizzled
+//   buffer, and big * B + small * B are the two.
+// - A = alpha_r * L0 from registers: loaded from the swizzled stage, scaled
+//   and split into big / small tf32 (tc_common.cuh split_tf32).
+// - Three warps of the producer warpgroup prepare B (a `ready` barrier a
+//   stage), so the two consumer warpgroups run apart: one's A fragments and
+//   sums while the other's products run.
+// - Each stage's products go to a fresh accumulator, added to the sum in
+//   float32 (round to nearest) when they are done: the tensor cores'
+//   float32 accumulation rounds with a bias, and over a chunk of 2e4
+//   points it erred by 1.4e-4 relative (NVIDIA H100 80GB HBM3); two
+//   accumulators in registers bound the N tile to 144 columns.
+// - The chunks write partial slices; reduce_slices_kernel adds them in a
+//   fixed order: no atomics, a second launch is bitwise equal.
+// Shared memory 184 KB: one block an SM of 384 threads, the consumers at
+// 224 registers (setmaxnreg; 144 of them the two accumulators), the
+// producer warpgroup at 56.
+//
+// Adjoint, 1-D windows (wide_singles_kernel): v[r, b] = sum_i alpha_r[i]
+// L[b, i] has 1/WR of a pair's work and stays a CUDA-core float32 tile GEMM
+// (64 x 64 output tiles, 4 x 4 register tiles, 32 points a step staged as 8
+// consecutive points of 4 rows a warp into conflict-free banks).
+//
+// Forward (wide_forward_kernel): one block per 128 points and up to 32
+// weight sets: per window, per 64-row tile of a (L0 staged once), per set,
+// Z[a, i] = sum_b G_s[a, b] L1[b, i] accumulated in registers (4 a x 8
+// points a thread) over 32-row chunks of b, G and L1 staged in shared memory
+// (G is read from L2: about 26 MB at 20 sets, five windows, WR = 256); then
+// y_s[i] += sum_a L0[a, i] Z[a, i], summed over the 16 a-groups in a fixed
+// order through shared memory.  1-D windows add sum_a L[a, i] g_s[a], two
+// threads a point.  y is written once, no cross-block reduction.  Its
+// shared memory (84 KB, dynamic) does not grow with WR.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 
 #include "packed_ndft.cuh"
 #include "tc_common.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
 enum WideKind { W_F32 = 0, W_BF16 = 1 };
 enum PhaseGen { G_DOUBLING = 0, G_DIRECT = 1 };  // PHASE_GEN_CODES of ops/_cuda_build.py
 
-constexpr int WIDE_MAX = 1026;  // widest 2P
-constexpr int ROT = 10;         // rotators e^{i 2^k theta}, k < ROT: bits of p < 1024
+constexpr int ROT = 20;  // rotators e^{i 2^k theta}, k < ROT: modes p < 2^20
 
 struct WideSrc {
   const void* p;  // table (Dtot, WR, stride)
@@ -94,21 +124,21 @@ __device__ __forceinline__ float phase(const WideSrc& src, int j, int a, int i) 
 
 // --- phases of the regenerating sources ----------------------------------------------
 
-// slab[(j WR + a) n + i] = phase row a of coordinate row j at point i:
+// slab[(j WR + a) ld + i] = phase row a of coordinate row j at point i:
 // cos(2 pi p x) in rows a = p < P, sin in rows P + p.  One thread a point.
 template <int GEN>
 __global__ void __launch_bounds__(256) wide_phases_kernel(const float* __restrict__ x, int xstride, int P, int n,
-                                                          float* __restrict__ slab) {
+                                                          int ld, float* __restrict__ slab) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x, j = blockIdx.y;
   if (i >= n) return;
   const float xi = x[(size_t)j * xstride + i];
-  float* cs = slab + (size_t)j * 2 * P * n + i;
-  float* sn = cs + (size_t)P * n;
+  float* cs = slab + (size_t)j * 2 * P * ld + i;
+  float* sn = cs + (size_t)P * ld;
   if constexpr (GEN == G_DIRECT) {
     for (int p = 0; p < P; ++p) {
       const float arg = 2.f * p * xi;
-      cs[(size_t)p * n] = cospif(arg);
-      sn[(size_t)p * n] = sinpif(arg);
+      cs[(size_t)p * ld] = cospif(arg);
+      sn[(size_t)p * ld] = sinpif(arg);
     }
   } else {
     float rc[ROT], rs[ROT];
@@ -126,6 +156,7 @@ __global__ void __launch_bounds__(256) wide_phases_kernel(const float* __restric
       }
 #pragma unroll
       for (int k = 1; k < ROT; ++k) {
+        if ((p >> k) == 0) break;
         if ((p >> k) & 1) {
           const float nc = vc * rc[k] - vs * rs[k];
           const float ns = vs * rc[k] + vc * rs[k];
@@ -133,42 +164,418 @@ __global__ void __launch_bounds__(256) wide_phases_kernel(const float* __restric
           vs = ns;
         }
       }
-      cs[(size_t)p * n] = vc;
-      sn[(size_t)p * n] = vs;
+      cs[(size_t)p * ld] = vc;
+      sn[(size_t)p * ld] = vs;
     }
   }
 }
 
-// --- adjoint ------------------------------------------------------------------------
+// --- adjoint, 2-D windows: wgmma in 3xTF32 ---------------------------------------------
+
+constexpr int WG_CONSUMERS = 256;                // two warpgroups
+constexpr int WG_THREADS = WG_CONSUMERS + 128;   // and the producer warpgroup: a loader warp, three B-prep warps
+constexpr int WG_PREP = 96;                      // the B-prep threads
+constexpr int WG_REGS_CONSUMER = 224;            // setmaxnreg: 2 x 128 x 224 + 128 x 56 <= 65536
+constexpr int WG_REGS_PRODUCER = 56;
+constexpr int WG_ROWS = 128;                     // M rows a block
+constexpr int WG_KS = 32;                        // points a stage: one 128-byte float32 row
+constexpr int WG_NMAX = WGMMA_ROWS_MAX;          // the widest N tile: 144 (two accumulators in registers)
+constexpr int WG_ACC = WGMMA_ROWS_ACC;           // registers of one accumulator
+constexpr int WG_STAGES = 3;                     // the ring
+constexpr int WG_SLOTS = 136;                    // L0 rows a stage: WR <= 136, or two 8-row-rounded runs of 128
+constexpr int WG_AR = 64;                        // alpha rows a stage: the rhs of 128 M rows at 2P = 2
+constexpr int WG_L1_BYTES = WG_NMAX * WG_KS * 4;
+constexpr int WG_L0_BYTES = WG_SLOTS * WG_KS * 4;
+constexpr int WG_AL_BYTES = WG_AR * WG_KS * 4;
+// per stage s: L1 (TMA), Bx (small part / float32 copy), L0 (TMA), alpha;
+// every buffer 1024-byte aligned (the 128-byte swizzle's period)
+constexpr int WG_OFF_BX = WG_STAGES * WG_L1_BYTES;
+constexpr int WG_OFF_L0 = WG_OFF_BX + WG_STAGES * WG_L1_BYTES;
+constexpr int WG_OFF_AL = WG_OFF_L0 + WG_STAGES * WG_L0_BYTES;
+constexpr int WG_OFF_BAR = WG_OFF_AL + WG_STAGES * WG_AL_BYTES;
+constexpr int WG_SMEM = WG_OFF_BAR + 24 * WG_STAGES + 1024;  // three barriers a stage; + the base's alignment
+static_assert(WG_L1_BYTES % 1024 == 0 && WG_L0_BYTES % 1024 == 0, "stage buffers must stay 1024-byte aligned");
+static_assert(WG_SMEM <= 232448, "more shared memory than a block can have");
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// a box of the 3-D tensor map at (point c0, mode row c1, coordinate row c2)
+// into shared memory, its bytes counted on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :
+      : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// the consumers' generic writes of shared memory, seen by wgmma (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// keeps the accumulator's registers out of reach of the compiler's
+// reordering around the asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[WG_ACC]) {
+#pragma unroll
+  for (int i = 0; i < WG_ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// L0 row `slot` of a stage at point k: float32 rows of 128 bytes with the
+// 128-byte swizzle (16-byte chunk k / 4 at chunk (k / 4) ^ (slot % 8)),
+// bf16 rows of 64 bytes with the 64-byte swizzle (chunk (k / 8) ^ ((slot / 2) % 4))
+template <int KIND>
+__device__ __forceinline__ float l0_at(const unsigned char* L0, int slot, int k) {
+  if constexpr (KIND == W_F32) {
+    return *reinterpret_cast<const float*>(L0 + slot * 128 + ((((k >> 2) ^ (slot & 7)) << 4) | ((k & 3) << 2)));
+  } else {
+    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+        L0 + slot * 64 + ((((k >> 3) ^ ((slot >> 1) & 3)) << 4) | ((k & 7) << 1))));
+  }
+}
+
+// B of one stage, by the WG_PREP threads (t < WG_PREP): float32, L1
+// rounded to tf32 in place and the rounded remainder into Bx at the same
+// offsets (the swizzle does not move them); bf16, L1's plain 64-byte rows
+// into Bx as float32 rows with the 128-byte swizzle
+template <int KIND>
+__device__ __forceinline__ void prep_b(unsigned char* L1, unsigned char* Bx, int nt, int t) {
+  if constexpr (KIND == W_F32) {
+    float4* big = reinterpret_cast<float4*>(L1);
+    float4* small = reinterpret_cast<float4*>(Bx);
+#pragma unroll 1
+    for (int idx = t; idx < nt * 8; idx += WG_PREP) {
+      const float4 v = big[idx];
+      uint32_t b[4], s[4];
+      split_tf32(v.x, b[0], s[0]);
+      split_tf32(v.y, b[1], s[1]);
+      split_tf32(v.z, b[2], s[2]);
+      split_tf32(v.w, b[3], s[3]);
+      big[idx] = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]),
+                             __uint_as_float(b[3]));
+      small[idx] = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]), __uint_as_float(s[2]),
+                               __uint_as_float(s[3]));
+    }
+  } else {
+#pragma unroll 1
+    for (int idx = t; idx < nt * 8; idx += WG_PREP) {
+      const int row = idx >> 3, q = idx & 7;
+      const uint2 raw = *reinterpret_cast<const uint2*>(L1 + row * 64 + q * 8);
+      *reinterpret_cast<float4*>(Bx + row * 128 + ((q ^ (row & 7)) << 4)) =
+          make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                      __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+    }
+  }
+}
+
+// The A fragments of one stage (4 k-steps of 8 points): rows slot[h] of
+// L0, scaled by alpha row ar[h], split into big / small tf32
+template <int KIND>
+__device__ __forceinline__ void make_a(uint32_t (&fa)[4][2][4], const unsigned char* L0, const float* al,
+                                       int (&slot)[2], int (&ar)[2], int cq) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 8 * ks + cq + 4 * q;
+        split_tf32(al[ar[h] * WG_KS + k] * l0_at<KIND>(L0, slot[h], k), fa[ks][0][h + 2 * q], fa[ks][1][h + 2 * q]);
+      }
+}
+
+// One stage's products into a fresh accumulator d (the first overwrites
+// it): per k-step big * big, small * big and (float32) big * small;
+// descriptors advance 32 bytes (2 units) a k-step
+template <int KIND, int NT>
+__device__ __forceinline__ void stage_products(float (&d)[WG_ACC], const uint32_t (&fa)[4][2][4], uint32_t big,
+                                               uint32_t small) {
+  const uint64_t db = sw128_desc(big), ds = sw128_desc(small);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    wgmma_rows<NT>(d, fa[ks][0], db + 2 * ks, ks > 0);
+    wgmma_rows<NT>(d, fa[ks][1], db + 2 * ks, 1);
+    if constexpr (KIND == W_F32) wgmma_rows<NT>(d, fa[ks][0], ds + 2 * ks, 1);
+  }
+}
+
+// The accumulator slice of width W at d[OFF..] (wgmma_rows) to columns
+// cb.. of the tile: float2 stores of the live rows and columns
+template <int W, int OFF>
+__device__ __forceinline__ void store_slice(const float (&d)[WG_ACC], float* (&orow)[2], bool (&ok)[2], int cb,
+                                            int ncols, int cq) {
+#pragma unroll
+  for (int i = 0; i < W / 2; i += 2) {
+    const int h = (i >> 1) & 1, col = cb + 8 * (i >> 2) + 2 * cq;
+    if (ok[h] && col < ncols) *reinterpret_cast<float2*>(orow[h] + col) = make_float2(d[OFF + i], d[OFF + i + 1]);
+  }
+}
+
+// One chunk's partial C of one window over 128 M rows and one N tile.
+// map0: L0 boxes of 8 rows, map1: L1 boxes of nt rows, both 32 points wide.
+// Output (r, a, b) at part + c S + w WR^2 + r rstride + a WR + b.  NT: the
+// tile width, fixed at compile time, so that the products run without
+// branches and ptxas keeps them in flight (a width taken at run time
+// serialized them and cost a third more time: NVIDIA H100 80GB HBM3,
+// 2P = 256, nv = 10, 1.77 against 1.35 ms); wg_kernel lists the widths.
+template <int KIND, int NT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    wide_adjoint_wg_kernel(const __grid_constant__ CUtensorMap map0, const __grid_constant__ CUtensorMap map1,
+                           const float* __restrict__ alpha, int n, int nv, int WR, Rows pairs, int ntn, int chunk,
+                           float* __restrict__ part, size_t S, size_t rstride) {
+  constexpr int nt = NT;
+  constexpr int ROWB = KIND == W_F32 ? 128 : 64;  // bytes of a staged table row
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* base = wg_smem + ((1024 - (smem_addr(wg_smem) & 1023)) & 1023);
+  const uint32_t sbase = smem_addr(base);
+  // a barrier a stage each, 8 bytes apart: the loads have landed (full),
+  // B is prepared (ready), the consumers are done with the stage (empty)
+  const uint32_t full = sbase + WG_OFF_BAR, ready = full + 8 * WG_STAGES, empty = ready + 8 * WG_STAGES;
+  const int t = threadIdx.x;
+  // the warpgroup, uniform to the compiler (a shuffle from lane 0), so that
+  // the wgmmas under branches on it are not serialized
+  const int wg = __shfl_sync(0xffffffffu, t / 128, 0);
+  const int tn = blockIdx.x % ntn, m_cta = (blockIdx.x / ntn) * WG_ROWS, n0 = tn * nt;
+  const int w = blockIdx.y, c = blockIdx.z;
+  const int M = nv * WR;
+  const int i_begin = c * chunk, i_end = min(n, i_begin + chunk);
+  const int nstage = (i_end - i_begin + WG_KS - 1) / WG_KS;
+  // L0 rows of the block's M rows: all WR rows at slots a when WR <= WG_SLOTS;
+  // else the 128-row run from a_s (seg1 rows to WR, then seg2 from row 0,
+  // slots from slot2), each run in whole 8-row boxes
+  const bool all_rows = WR <= WG_SLOTS;
+  const int a_s = all_rows ? 0 : m_cta % WR;
+  const int seg1 = all_rows ? WR : min(WG_ROWS, WR - a_s);
+  const int seg2 = all_rows ? 0 : WG_ROWS - seg1;
+  const int nb1 = (seg1 + 7) / 8, slot2 = 8 * nb1, nb0 = nb1 + (seg2 + 7) / 8;
+  const int r_lo = m_cta / WR;
+  const int nar = min(nv - 1, (m_cta + WG_ROWS - 1) / WR) - r_lo + 1;
+
+  if (t == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full + 8 * s, 33);              // the loader lane with the bytes, then all 32 lanes after alpha
+      mbar_init(ready + 8 * s, WG_PREP / 32);   // the B-prep warps
+      mbar_init(empty + 8 * s, 8);              // the 8 consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warpgroup: its first warp loads, the others prepare B
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_REGS_PRODUCER));
+    if (t >= WG_CONSUMERS + 32) {
+      const int pt = t - WG_CONSUMERS - 32;
+      for (int k = 0; k < nstage; ++k) {
+        const int s = k % WG_STAGES;
+        mbar_wait(full + 8 * s, (k / WG_STAGES) & 1);
+        prep_b<KIND>(base + s * WG_L1_BYTES, base + WG_OFF_BX + s * WG_L1_BYTES, nt, pt);
+        fence_proxy_async();  // the generic writes, before the consumers' wgmmas read them
+        __syncwarp();
+        if (pt % 32 == 0) mbar_arrive(ready + 8 * s);
+      }
+      return;
+    }
+    const int lane = t - WG_CONSUMERS;
+    const int ja = pairs.v[2 * w], jb = pairs.v[2 * w + 1];
+    const uint32_t tx = (uint32_t)(8 * nb0 + nt) * ROWB;  // bytes a stage: the boxes, pad rows included
+    for (int k = 0; k < nstage; ++k) {
+      const int s = k % WG_STAGES, u = k / WG_STAGES, i0 = i_begin + k * WG_KS;
+      if (u > 0) mbar_wait(empty + 8 * s, (u - 1) & 1);  // stage k - WG_STAGES is done with the buffers
+      if (lane == 0) mbar_arrive_tx(full + 8 * s, tx);
+      __syncwarp();
+      if (lane < nb0) {
+        const int row = lane < nb1 ? a_s + 8 * lane : 8 * (lane - nb1);
+        const int slot = lane < nb1 ? 8 * lane : slot2 + 8 * (lane - nb1);
+        tma_load(sbase + WG_OFF_L0 + s * WG_L0_BYTES + slot * ROWB, &map0, full + 8 * s, i0, row, ja);
+      }
+      if (lane == 31) tma_load(sbase + s * WG_L1_BYTES, &map1, full + 8 * s, i0, n0, jb);
+      float* al = reinterpret_cast<float*>(base + WG_OFF_AL + s * WG_AL_BYTES);
+      const int i = i0 + lane;
+      for (int ar = 0; ar < nar; ++ar)
+        al[ar * WG_KS + lane] = i < i_end ? __ldg(alpha + (size_t)(r_lo + ar) * n + i) : 0.f;
+      mbar_arrive(full + 8 * s);
+    }
+  } else {  // the two consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_REGS_CONSUMER));
+    const int wq = (t % 128) / 32, lane = t % 32, g = lane / 4, cq = lane % 4;
+    const int mt0 = m_cta + 64 * wg;  // the warpgroup's 64-row M tile
+    const bool live = mt0 < M;
+    // this thread's rows of A: block rows tr and tr + 8 (rows past M compute
+    // from slot 0 and are never written)
+    int slot[2], ar[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tr = 64 * wg + 16 * wq + g + 8 * h, m = m_cta + tr, r = m / WR, a = m - r * WR;
+      const bool ok = m < M;
+      slot[h] = !ok ? 0 : all_rows ? a : tr < seg1 ? tr : slot2 + tr - seg1;
+      ar[h] = ok ? r - r_lo : 0;
+    }
+    // each stage's products go to a fresh accumulator, added to the sum
+    // (round to nearest) once they are done: the tensor cores' own float32
+    // accumulation rounds with a bias that grows with the points it sums
+    float acc[WG_ACC], fresh[WG_ACC];
+#pragma unroll
+    for (int e = 0; e < WG_ACC; ++e) acc[e] = fresh[e] = 0.f;
+    uint32_t fa[4][2][4];
+    // the two warpgroups run apart: one's A fragments and sums while the
+    // other's products run.  A warpgroup past M still waits for every
+    // stage, so that its arrivals never run ahead of the live one's.
+    for (int k = 0; k < nstage; ++k) {
+      const int s = k % WG_STAGES, par = (k / WG_STAGES) & 1;
+      if (k > 0) {  // stage k - 1's products are done with its buffers
+        if (live) {
+          wgmma_wait0();
+          fence_acc(fresh);
+#pragma unroll
+          for (int e = 0; e < WG_ACC; ++e) acc[e] += fresh[e];
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * ((k - 1) % WG_STAGES));
+      }
+      mbar_wait(ready + 8 * s, par);
+      mbar_wait(full + 8 * s, par);  // complete already; orders the TMA's L0 and alpha before the reads
+      if (live) {
+        make_a<KIND>(fa, base + WG_OFF_L0 + s * WG_L0_BYTES,
+                     reinterpret_cast<const float*>(base + WG_OFF_AL + s * WG_AL_BYTES), slot, ar, cq);
+        wgmma_fence();
+        if constexpr (KIND == W_F32) {
+          stage_products<KIND, NT>(fresh, fa, sbase + s * WG_L1_BYTES, sbase + WG_OFF_BX + s * WG_L1_BYTES);
+        } else {
+          stage_products<KIND, NT>(fresh, fa, sbase + WG_OFF_BX + s * WG_L1_BYTES, 0);
+        }
+        wgmma_commit();
+      }
+    }
+    if (live) {
+      wgmma_wait0();
+      fence_acc(fresh);
+#pragma unroll
+      for (int e = 0; e < WG_ACC; ++e) acc[e] += fresh[e];
+      float* orow[2];
+      bool ok[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = mt0 + 16 * wq + g + 8 * h, r = m / WR, a = m - r * WR;
+        ok[h] = m < M;
+        orow[h] = part + (size_t)c * S + (size_t)w * WR * WR + (size_t)r * rstride + (size_t)a * WR + n0;
+      }
+      const int ncols = min(nt, WR - n0);
+      if constexpr (nt >= 128) {  // the slices of wgmma_rows
+        store_slice<128, 0>(acc, orow, ok, 0, ncols, cq);
+        if constexpr ((nt & 16) != 0) store_slice<16, 64>(acc, orow, ok, wgmma_cols(nt, 16), ncols, cq);
+        if constexpr ((nt & 8) != 0) store_slice<8, 64>(acc, orow, ok, wgmma_cols(nt, 8), ncols, cq);
+      } else {
+        store_slice<64, 0>(acc, orow, ok, 0, ncols, cq);
+        if constexpr ((nt & 8) != 0) store_slice<8, 56>(acc, orow, ok, wgmma_cols(nt, 8), ncols, cq);
+      }
+    }
+  }
+}
+
+// The N-tile widths of the 2-D windows' kernel, one instance each: those
+// of 2P = N and N + 2 for N = 64, 128, 256, ..., and 144, the widest
+constexpr int WG_WIDTHS[] = {64, 72, 128, 136, 144};
+
+template <int KIND>
+auto wg_kernel(int nt) {
+  return nt == 64    ? wide_adjoint_wg_kernel<KIND, 64>
+         : nt == 72  ? wide_adjoint_wg_kernel<KIND, 72>
+         : nt == 128 ? wide_adjoint_wg_kernel<KIND, 128>
+         : nt == 136 ? wide_adjoint_wg_kernel<KIND, 136>
+                     : wide_adjoint_wg_kernel<KIND, 144>;
+}
+
+// The N tiles and the M row pairs of tiles of the 2-D windows' kernel: WR
+// in ceil(WR / 144) tiles, each the narrowest width of WG_WIDTHS that holds
+// its share (ops/_cuda_build.py `wide_tiles` computes the same)
+struct WgTiles {
+  int nt, ntn, mpairs;
+};
+
+WgTiles wg_tiles(int WR, int nv) {
+  const int ntn = (WR + WG_NMAX - 1) / WG_NMAX;
+  const int need = (WR + ntn - 1) / ntn;
+  int nt = WG_NMAX;
+  for (int k = 4; k >= 0; --k)
+    if (WG_WIDTHS[k] >= need) nt = WG_WIDTHS[k];
+  const long long mtiles = ((long long)nv * WR + 63) / 64;
+  return {nt, ntn, (int)((mtiles + 1) / 2)};
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, through the runtime's entry-point
+// query (no link to libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The table (Dtot, WR, stride) as a 3-D tensor map (points, mode rows,
+// coordinate rows) in boxes of 32 points x `rows` rows: float32 with the
+// 128-byte swizzle; bf16 with the 64-byte swizzle (l0) or none.  Reads past
+// n or WR fill zeros.
+bool tensor_map(CUtensorMap* map, int kind, const void* src, int stride, int WR, int n, int Dtot, int rows, bool l0) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t esz = kind == W_F32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)WR, (cuuint64_t)Dtot};
+  const cuuint64_t strides[2] = {(cuuint64_t)stride * esz, (cuuint64_t)stride * esz * WR};
+  const cuuint32_t box[3] = {WG_KS, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = kind == W_F32 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                              : (l0 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE);
+  return enc(map, kind == W_F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(src), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// --- adjoint, 1-D windows: CUDA cores ----------------------------------------------------
 
 constexpr int AT = 256;                      // threads
 constexpr int ABM = 64, ABN = 64, ABK = 32;  // output tile, points per step
 constexpr int ALD = ABM + 4;
 
-// One chunk's partial C over one 64 x 64 output tile of one window.
-// two_d: a 2-D window (rows = pairs, A = alpha_r * L0[a]) or a 1-D window
-// (rows = singles, A = alpha_r).  Output (r, a, b) at part + c S + base +
-// w wstride + r rstride + a WR + b.  Three blocks an SM (at most 85
-// registers a thread): on an NVIDIA H100 80GB HBM3 (700 W) this was faster
-// than a two-buffer pipeline of the table loads, and four blocks an SM
-// spilled; the bf16 instance spills at 85 registers and runs two blocks an
-// SM.  All sixteen staged loads of a thread stay in flight together (one
-// half at a time, fewer registers, was slower).  A warp owns 8 columns of
-// the tile (tn = 2 warp, 2 warp + 1) over all 64 rows, so in the last
-// column tile of a width 2P = 64k + r only the warps of its r columns do
-// FMAs (2 of 64 columns at 2P = 130).
+// One chunk's partial v over one 64 x 64 output tile (rhs r x mode b) of a
+// 1-D window; output (r, b) at part + c S + base + w WR + r rstride + b.
+// A warp owns 8 columns of the tile (tn = 2 warp, 2 warp + 1) over all 64
+// rows, so pad columns' warps skip their FMAs.
 template <int KIND>
 __global__ void __launch_bounds__(AT, KIND == W_BF16 ? 2 : 3)
-    wide_adjoint_kernel(WideSrc src, const float* __restrict__ alpha, int n, int nv, Rows rows, int two_d, int ntn,
-                        int chunk, float* __restrict__ part, size_t S, size_t base, size_t wstride, size_t rstride) {
+    wide_singles_kernel(WideSrc src, const float* __restrict__ alpha, int n, int nv, Rows singles, int ntn, int chunk,
+                        float* __restrict__ part, size_t S, size_t base, size_t rstride) {
   __shared__ __align__(16) float sA[ABK][ALD];
   __shared__ __align__(16) float sB[ABK][ALD];
   const int WR = src.WR;
-  const int arows = two_d ? WR : 1;
-  const int M = nv * arows;
   const int m0 = (blockIdx.x / ntn) * ABM, n0 = (blockIdx.x % ntn) * ABN;
   const int w = blockIdx.y, c = blockIdx.z;
-  const int ja = two_d ? rows.v[2 * w] : 0, jb = two_d ? rows.v[2 * w + 1] : rows.v[w];
+  const int j = singles.v[w];
   const int i_begin = c * chunk, i_end = min(n, i_begin + chunk);
   const int t = threadIdx.x, tm = t % 16, tn = t / 16;
   const bool idle = n0 + tn * 4 >= WR;
@@ -178,14 +585,10 @@ __global__ void __launch_bounds__(AT, KIND == W_BF16 ? 2 : 3)
   const int lane = t % 32, k8 = lane % 8;
   const int srow[2] = {lane / 8 + 4 * (t / 32), lane / 8 + 4 * (t / 32 + 8)};
   bool okA[2], okB[2];
-  int arow[2], brow[2];
-  size_t aoff[2];
+  int brow[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int m = m0 + srow[h], r = m / arows;
-    okA[h] = m < M;
-    arow[h] = m - r * arows;
-    aoff[h] = (size_t)r * n;
+    okA[h] = m0 + srow[h] < nv;
     brow[h] = n0 + srow[h];
     okB[h] = brow[h] < WR;
   }
@@ -198,13 +601,8 @@ __global__ void __launch_bounds__(AT, KIND == W_BF16 ? 2 : 3)
       for (int q = 0; q < 4; ++q) {
         const int kk = k8 + 8 * q, i = i0 + kk;
         const bool live = i < i_end;
-        float v = 0.f;
-        if (live && okA[h]) {
-          v = alpha[aoff[h] + i];
-          if (two_d) v *= phase<KIND>(src, ja, arow[h], i);
-        }
-        sA[kk][srow[h]] = v;
-        sB[kk][srow[h]] = (live && okB[h]) ? phase<KIND>(src, jb, brow[h], i) : 0.f;
+        sA[kk][srow[h]] = (live && okA[h]) ? alpha[(size_t)(m0 + srow[h]) * n + i] : 0.f;
+        sB[kk][srow[h]] = (live && okB[h]) ? phase<KIND>(src, j, brow[h], i) : 0.f;
       }
     }
     __syncthreads();
@@ -222,10 +620,9 @@ __global__ void __launch_bounds__(AT, KIND == W_BF16 ? 2 : 3)
   }
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
-    const int m = m0 + tm * 4 + p;
-    if (m >= M) continue;
-    const int r = m / arows, a = m - r * arows;
-    float* out = part + (size_t)c * S + base + (size_t)w * wstride + (size_t)r * rstride + (size_t)a * WR;
+    const int r = m0 + tm * 4 + p;
+    if (r >= nv) continue;
+    float* out = part + (size_t)c * S + base + (size_t)w * WR + (size_t)r * rstride;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int b = n0 + tn * 4 + q;
@@ -235,26 +632,35 @@ __global__ void __launch_bounds__(AT, KIND == W_BF16 ? 2 : 3)
 }
 
 template <int KIND>
-void wide_adjoint(const WideSrc& src, const float* alpha, int n, int nv, const int* pairs, int npairs,
-                  const int* singles, int nsingles, float* part, int nchunks, int chunk, float* out,
-                  cudaStream_t st) {
+cudaError_t wide_adjoint(const WideSrc& src, const float* alpha, int n, int nv, const int* pairs, int npairs,
+                         const int* singles, int nsingles, float* part, int nchunks, int chunk, float* out,
+                         cudaStream_t st) {
   const size_t WR = src.WR;
   const size_t S2 = (size_t)nv * npairs * WR * WR;
   const size_t S = S2 + (size_t)nv * nsingles * WR;
-  const int ntn = (src.WR + ABN - 1) / ABN;
   if (npairs > 0) {
-    const int ntm = (int)(((size_t)nv * WR + ABM - 1) / ABM);
-    dim3 grid(ntm * ntn, npairs, nchunks);
-    wide_adjoint_kernel<KIND><<<grid, AT, 0, st>>>(src, alpha, n, nv, make_rows(pairs, 2 * npairs), 1, ntn, chunk,
-                                                   part, S, 0, WR * WR, (size_t)npairs * WR * WR);
+    int Dtot = 0;
+    for (int k = 0; k < 2 * npairs; ++k) Dtot = pairs[k] + 1 > Dtot ? pairs[k] + 1 : Dtot;
+    const WgTiles g = wg_tiles(src.WR, nv);
+    CUtensorMap map0, map1;
+    if (!tensor_map(&map0, KIND, src.p, src.stride, src.WR, n, Dtot, 8, true) ||
+        !tensor_map(&map1, KIND, src.p, src.stride, src.WR, n, Dtot, g.nt, false))
+      return cudaErrorInvalidValue;
+    const auto kernel = wg_kernel<KIND>(g.nt);
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+    if (e != cudaSuccess) return e;
+    dim3 grid(g.mpairs * g.ntn, npairs, nchunks);
+    kernel<<<grid, WG_THREADS, WG_SMEM, st>>>(map0, map1, alpha, n, nv, src.WR, make_rows(pairs, 2 * npairs), g.ntn,
+                                              chunk, part, S, (size_t)npairs * WR * WR);
   }
   if (nsingles > 0) {
-    const int ntm = (nv + ABM - 1) / ABM;
+    const int ntn = (src.WR + ABN - 1) / ABN, ntm = (nv + ABM - 1) / ABM;
     dim3 grid(ntm * ntn, nsingles, nchunks);
-    wide_adjoint_kernel<KIND><<<grid, AT, 0, st>>>(src, alpha, n, nv, make_rows(singles, nsingles), 0, ntn, chunk,
-                                                   part, S, S2, WR, (size_t)nsingles * WR);
+    wide_singles_kernel<KIND><<<grid, AT, 0, st>>>(src, alpha, n, nv, make_rows(singles, nsingles), ntn, chunk, part,
+                                                   S, S2, (size_t)nsingles * WR);
   }
   launch_reduce_slices(part, nchunks, S, out, st);
+  return cudaSuccess;
 }
 
 // --- forward ------------------------------------------------------------------------
@@ -409,8 +815,8 @@ cudaError_t wide_forward(const WideSrc& src, int n, const int* pairs, int npairs
 }
 
 bool bad_args(int kind, int WR, int n, int npairs, int nsingles) {
-  return kind < W_F32 || kind > W_BF16 || WR < 2 || WR > WIDE_MAX || WR % 2 != 0 || n < 1 || npairs < 0 ||
-         npairs > 32 || nsingles < 0 || nsingles > 64 || npairs + nsingles == 0;
+  return kind < W_F32 || kind > W_BF16 || WR < 2 || WR % 2 != 0 || n < 1 || !windows_fit(npairs, nsingles) ||
+         npairs + nsingles == 0;
 }
 
 }  // namespace
@@ -419,36 +825,41 @@ extern "C" {
 
 // Each returns the cudaGetLastError() code after its launches (0 = success).
 
-// The phases of the regenerating sources: slab (Dtot, 2P, n) float32,
-// contiguous, from the float32 coordinates x (Dtot rows, xstride apart).
-// gen: 0 doubling, 1 direct.
-int wide_phases_launch(int gen, const float* x, int xstride, int Dtot, int P, int n, float* slab, void* stream) {
-  if (gen < G_DOUBLING || gen > G_DIRECT || Dtot < 1 || Dtot > 65535 || P < 1 || 2 * P > WIDE_MAX || n < 1)
+// The phases of the regenerating sources: slab (Dtot, 2P, ld) float32, its
+// first n points of each row written, from the float32 coordinates x (Dtot
+// rows, xstride apart).  gen: 0 doubling, 1 direct.
+int wide_phases_launch(int gen, const float* x, int xstride, int Dtot, int P, int n, int ld, float* slab,
+                       void* stream) {
+  if (gen < G_DOUBLING || gen > G_DIRECT || Dtot < 1 || Dtot > 65535 || P < 1 || P > (1 << ROT) || n < 1 || ld < n)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((n + 255) / 256, Dtot);
   if (gen == G_DOUBLING) {
-    wide_phases_kernel<G_DOUBLING><<<grid, 256, 0, st>>>(x, xstride, P, n, slab);
+    wide_phases_kernel<G_DOUBLING><<<grid, 256, 0, st>>>(x, xstride, P, n, ld, slab);
   } else {
-    wide_phases_kernel<G_DIRECT><<<grid, 256, 0, st>>>(x, xstride, P, n, slab);
+    wide_phases_kernel<G_DIRECT><<<grid, 256, 0, st>>>(x, xstride, P, n, ld, slab);
   }
   return (int)cudaGetLastError();
 }
 
-// kind: 0 float32 table, 1 bf16 table; src: the table (Dtot, WR, .),
-// stride: its row stride in elements.
+// kind: 0 float32 table, 1 bf16 table; src: the table (Dtot, WR, .), its
+// rows 16-byte aligned (stride: the row stride in elements).  With 2-D
+// windows the chunk is a whole number of 32-point stages (ops/_cuda_build.py
+// `wide_chunks`).
 int wide_adjoint_launch(int kind, const void* src, int stride, const float* alpha, int WR, int n, int nv,
                         const int* pairs, int npairs, const int* singles, int nsingles, float* part, int nchunks,
                         int chunk, float* out, void* stream) {
-  if (bad_args(kind, WR, n, npairs, nsingles) || nv < 1 || nchunks < 1 || chunk < 1)
+  if (bad_args(kind, WR, n, npairs, nsingles) || nv < 1 || nchunks < 1 || nchunks > 65535 || chunk < 1 ||
+      (npairs > 0 && (chunk % WG_KS != 0 || reinterpret_cast<uintptr_t>(src) % 16 != 0 ||
+                      (size_t)stride * (kind == W_F32 ? 4 : 2) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const WideSrc s{src, stride, WR};
-  if (kind == W_F32) {
-    wide_adjoint<W_F32>(s, alpha, n, nv, pairs, npairs, singles, nsingles, part, nchunks, chunk, out, st);
-  } else {
-    wide_adjoint<W_BF16>(s, alpha, n, nv, pairs, npairs, singles, nsingles, part, nchunks, chunk, out, st);
-  }
+  const cudaError_t e =
+      kind == W_F32
+          ? wide_adjoint<W_F32>(s, alpha, n, nv, pairs, npairs, singles, nsingles, part, nchunks, chunk, out, st)
+          : wide_adjoint<W_BF16>(s, alpha, n, nv, pairs, npairs, singles, nsingles, part, nchunks, chunk, out, st);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -10,11 +10,12 @@ Five shared libraries with a plain C interface, one per source:
   kernels ("doubling", "direct"), both on the tensor cores in 3xTF32 with
   the Nyquist mode's two rows or columns and the 1-D windows on the CUDA
   cores in the same kernel;
-- `packed_ndft_wide`: csrc/packed_ndft_wide.cu, the CUDA-core NDFT kernels
-  for every even width 2P from 2 to 1026 on float32 and bf16 tables, and
-  the kernel that writes the phases of "doubling" and "direct" into a
-  float32 slab for them: the widths the three narrow libraries are not
-  built for;
+- `packed_ndft_wide`: csrc/packed_ndft_wide.cu, the NDFT kernels for every
+  even width 2P the three narrow libraries are not built for, on float32
+  and bf16 tables (the adjoint's 2-D windows on the tensor cores, wgmma in
+  3xTF32 fed by TMA copies, csrc/wgmma_tf32.cuh; its 1-D windows and the
+  forward on the CUDA cores), and the kernel that writes the phases of
+  "doubling" and "direct" into a float32 slab for them;
 - `fused_pcg`: csrc/fused_pcg.cu, the cooperative CG and Lanczos kernels.
 
 Each is compiled at first use with
@@ -55,7 +56,7 @@ SOURCES = {"packed_ndft_tc": CSRC / "packed_ndft_tc.cu",
 HEADERS = {"packed_ndft_tc": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
            "packed_ndft": (CSRC / "packed_ndft.cuh",),
            "packed_ndft_regen": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
-           "packed_ndft_wide": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
+           "packed_ndft_wide": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh", CSRC / "wgmma_tf32.cuh"),
            "fused_pcg": ()}
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -71,10 +72,14 @@ _TC_ROWS = 512
 PHASE_GEN_CODES = {"doubling": 0, "direct": 1}
 # table kinds of packed_ndft_wide.cu's GEMMs (WideKind)
 WIDE_KINDS = {torch.float32: 0, torch.bfloat16: 1}
-# the wide adjoint's blocks: about eight 256-thread blocks per SM of an H100
+# the wide adjoint's 1-D windows (wide_singles_kernel): about eight
+# 256-thread blocks per SM of an H100, 64 x 64 output tiles (ABM = ABN)
 _WIDE_TARGET_BLOCKS = 1056
-# output tile of the wide adjoint (ABM = ABN in the source)
 _WIDE_TILE = 64
+# its 2-D windows (wide_adjoint_wg_kernel): 128 M rows a block in 64-row
+# wgmma tiles, N tiles of the compiled widths (WG_WIDTHS), at most 144
+_WG_MTILE = 64
+_WG_WIDTHS = (64, 72, 128, 136, 144)
 
 
 def _nvcc() -> str:
@@ -132,6 +137,16 @@ def build() -> tuple[dict, float]:
     return paths, time.perf_counter() - t0
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    symbol: "wide_adjoint_wg_kernel<0,128>"."""
+    k = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)(I(?:L[ij]\d+E)+E)?", mangled)
+    if not k:
+        return mangled
+    args = re.findall(r"L[ij](\d+)E", k.group(2) or "")
+    return k.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
 def ptxas_report(name: str) -> list[dict]:
     """Per kernel of a built library, from ptxas's report: {kernel (its
     name and template arguments, from the mangled symbol), registers,
@@ -140,8 +155,7 @@ def ptxas_report(name: str) -> list[dict]:
     for line in (library_path(name).parent / "ptxas.txt").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)((?:IL[ij]\d+E)*)", m.group(1))
-            kernel = k.group(1) + ("<" + ",".join(re.findall(r"IL[ij](\d+)E", k.group(2))) + ">" if k.group(2) else "")
+            kernel = _kernel_name(m.group(1))
             rows.append(dict(kernel=kernel, registers=None, spill_bytes=0, smem=0))
         elif kernel and "spill stores" in line:
             rows[-1]["spill_bytes"] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
@@ -150,6 +164,19 @@ def ptxas_report(name: str) -> list[dict]:
             smem = re.search(r"(\d+) bytes smem", line)
             rows[-1]["smem"] = int(smem.group(1)) if smem else 0
     return rows
+
+
+def ptxas_notes(name: str) -> list[str]:
+    """ptxas's performance notes on a built library (as "(C7511) ... in
+    <kernel>"), each once: what it could not schedule as asked."""
+    notes = []
+    for line in (library_path(name).parent / "ptxas.txt").read_text().splitlines():
+        m = re.search(r"(\(C\d+\) Potential Performance Loss: .*?) in the function '(\S+)'", line)
+        if m:
+            note = f"{m.group(1)} in {_kernel_name(m.group(2))}"
+            if note not in notes:
+                notes.append(note)
+    return notes
 
 
 def _ndft_signatures(lib):
@@ -203,7 +230,7 @@ def _ndft_wide_signatures(lib):
     """wide_adjoint_launch / wide_forward_launch: the table's kind
     (WIDE_KINDS), its pointer and row stride first; wide_phases_launch."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.wide_phases_launch.argtypes = [I, P, I, I, I, I, P, P]
+    lib.wide_phases_launch.argtypes = [I, P, I, I, I, I, I, P, P]
     lib.wide_phases_launch.restype = I
     lib.wide_adjoint_launch.argtypes = [I, P, I, P, I, I, I, P, I, P, I, P, I, I, P, P]
     lib.wide_forward_launch.argtypes = [I, P, I, I, I, P, I, P, P, I, P, I, P, P]
@@ -402,37 +429,73 @@ def forward_regen(xT, G2, G1, WR, pairs, singles, phase_gen):
     return y
 
 
-def wide_chunks(WR: int, nv: int, n: int, npairs: int, nsingles: int) -> tuple[int, int]:
-    """(nchunks, chunk) of the wide adjoint: its blocks per chunk are the
-    64 x 64 output tiles of every window (nv WR rows per 2-D window, nv per
-    1-D window, WR columns)."""
-    cols = -(-WR // _WIDE_TILE)
-    per_chunk = cols * (npairs * -(-nv * WR // _WIDE_TILE) + nsingles * -(-nv // _WIDE_TILE))
-    return _chunks(n, per_chunk, _WIDE_TARGET_BLOCKS)
+def wide_tiles(WR: int, nv: int) -> tuple[int, int, int]:
+    """(nt, ntn, mblocks) of the wide adjoint's 2-D windows: the N tile
+    width (WR in ceil(WR / 144) tiles, each the narrowest compiled width
+    that holds its share), the N tiles, and the blocks of 128 M rows (nv WR
+    rows in 64-row tiles, two a block); wg_tiles in
+    csrc/packed_ndft_wide.cu computes the same."""
+    ntn = -(-WR // _WG_WIDTHS[-1])
+    nt = next(w for w in _WG_WIDTHS if w * ntn >= WR)
+    return nt, ntn, -(-(-(-nv * WR // _WG_MTILE)) // 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def wide_chunks(WR: int, nv: int, n: int, npairs: int, nsingles: int, sms: int) -> tuple[int, int]:
+    """(nchunks, chunk) of the wide adjoint: chunks of whole 64-point tiles.
+
+    With 2-D windows, one block an SM (its shared memory): the number of
+    chunks k that minimises waves(k) (ceil(k blocks per chunk / sms)) times
+    a block's time in 32-point stages (2 ceil(tiles / k), plus 3 for its
+    prologue and epilogue), plus the k partial slices' write and read (8
+    bytes an output a chunk at 3e12 B/s) in stages of nt columns (3xTF32 at
+    about half the tensor cores' rate: nt * 1.5e-8 s).  Without, the 1-D
+    windows' 64 x 64 output tiles (nv rows, WR columns) at about eight
+    blocks an SM.  Kept per shape: a solver calls it every iteration."""
+    if npairs == 0:
+        cols = -(-WR // _WIDE_TILE)
+        return _chunks(n, cols * nsingles * -(-nv // _WIDE_TILE), _WIDE_TARGET_BLOCKS)
+    nt, ntn, mblocks = wide_tiles(WR, nv)
+    per_chunk = npairs * ntn * mblocks
+    tiles = -(-n // _TILE)
+    out_stages = 8.0 * nv * (npairs * WR * WR + nsingles * WR) / 3e12 / (nt * 1.5e-8)
+    best = min(range(1, min(tiles, 65535) + 1),
+               key=lambda k: (-(-k * per_chunk // sms) * (2 * -(-tiles // k) + 3) + k * out_stages, k))
+    chunk = -(-tiles // best) * _TILE
+    return -(-n // chunk), chunk
 
 
 def phases_wide(xT, P: int, phase_gen: str):
     """The phases of the coordinate rows xT (Dtot, n) float32 as the wide
-    kernels' float32 table: (Dtot, 2P, n), regenerated by `phase_gen`'s
-    formula (csrc/packed_ndft_wide.cu wide_phases_kernel)."""
+    kernels' float32 table: (Dtot, 2P, n), the view of storage padded to
+    TABLE_PAD points as pack_phase_table's (rows on 256-byte boundaries, as
+    the adjoint's TMA copies need), regenerated by `phase_gen`'s formula
+    (csrc/packed_ndft_wide.cu wide_phases_kernel)."""
     lib = library("packed_ndft_wide")
     Dtot, n = xT.shape
-    slab = torch.empty((Dtot, 2 * P, n), dtype=torch.float32, device=xT.device)
+    ld = -(-n // _TILE) * _TILE
+    slab = torch.empty((Dtot, 2 * P, ld), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
-        code = lib.wide_phases_launch(PHASE_GEN_CODES[phase_gen], xT.data_ptr(), xT.stride(0), Dtot, P, n,
+        code = lib.wide_phases_launch(PHASE_GEN_CODES[phase_gen], xT.data_ptr(), xT.stride(0), Dtot, P, n, ld,
                                       slab.data_ptr(), _stream(xT))
     _check(lib, code, "wide phases")
-    return slab
+    return slab[:, :, :n]
 
 
 def adjoint_wide(Tp, alpha, pairs, singles):
     """Launch the wide adjoint (csrc/packed_ndft_wide.cu) on a float32 or
-    bf16 table (Dtot, WR, n): ((nv, npairs, WR, WR), (nv, nsingles, WR))."""
+    bf16 table (Dtot, WR, n) whose rows start on 16-byte boundaries:
+    ((nv, npairs, WR, WR), (nv, nsingles, WR))."""
     lib = library("packed_ndft_wide")
     _, WR, n = Tp.shape
     nv = alpha.shape[0]
     np_, ns = len(pairs), len(singles)
-    nchunks, chunk = wide_chunks(WR, nv, n, np_, ns)
+    nchunks, chunk = wide_chunks(WR, nv, n, np_, ns, _sm_count(alpha.device))
     S2 = nv * np_ * WR * WR
     S = S2 + nv * ns * WR
     part = torch.empty((nchunks, S), dtype=torch.float32, device=alpha.device)

@@ -24,12 +24,19 @@ kernel launches in its `launches` attribute, and by shape in
 `launches_by_shape`.
 
 Widths on CUDA tensors: the narrow kernels below serve 2P in KERNEL_WIDTHS
-(tables) and REGEN_KERNEL_WIDTHS (regenerating); every other even 2P from 2
-to WIDE_MAX goes, with the same phase source, to the wide pair of
-csrc/packed_ndft_wide.cu (CUDA-core float32 tile GEMMs on the table; the
-regenerating sources first write their phases into a float32 slab, at most
-SLAB_BYTES at a time), whose launches WIDE_ADJOINT / WIDE_FORWARD count (by
-"2P=.. nv=.." / "2P=.. nsets=.."); wider raises.
+(tables) and REGEN_KERNEL_WIDTHS (regenerating); every other even 2P goes,
+with the same phase source, to the wide pair of csrc/packed_ndft_wide.cu
+(the adjoint's 2-D windows on the tensor cores, wgmma in 3xTF32; its 1-D
+windows and the forward on the CUDA cores; the regenerating sources first
+write their phases into a float32 slab, at most SLAB_BYTES at a time),
+whose launches WIDE_ADJOINT / WIDE_FORWARD count (by "2P=.. nv=.." /
+"2P=.. nsets=.."); an odd width raises.
+
+Window counts: one launch of a CUDA kernel takes at most MAX_PAIRS 2-D and
+MAX_SINGLES 1-D windows (the C side's `Rows`); a call with more runs its
+windows in groups of launches (`window_groups`), every route alike: the
+adjoint's outputs are per window and concatenate in window order, the
+forward's per-point sums add, group by group in launch order.
 
 A bf16 table (the training path's) goes to the tensor-core kernels of
 csrc/packed_ndft_tc.cu: alpha * L0 and the combined weights are split into
@@ -68,13 +75,12 @@ TWO_PI = 6.283185307179586
 KERNEL_WIDTHS = (16, 32)
 REGEN_KERNEL_WIDTHS = (18, 34)
 PHASE_GENS = ("doubling", "direct")
-# the widest 2P of the wide kernels (csrc/packed_ndft_wide.cu)
-WIDE_MAX = 1026
 # the most bytes a regenerating call's phase slab takes on the wide kernels;
 # more points run in ranges of whole TABLE_PAD tiles
 SLAB_BYTES = 1 << 30
-_MAX_PAIRS = 32
-_MAX_SINGLES = 64
+# the most 2-D / 1-D windows one kernel launch takes (Rows in csrc/packed_ndft.cuh)
+MAX_PAIRS = 32
+MAX_SINGLES = 64
 # points per padded table row: pack_phase_table rounds its storage up to it
 TABLE_PAD = 64
 
@@ -180,11 +186,11 @@ def _check_table(Tp, pairs, singles):
     _check_rows(Tp.shape[0], pairs, singles)
 
 
-def _tc_table(Tp):
-    """A bf16 table whose rows start on 16-byte boundaries, as the
-    tensor-core kernels' asynchronous copies need: Tp itself, or a copy
-    into padded storage."""
-    if Tp.stride(1) % 8 == 0 and Tp.data_ptr() % 16 == 0:
+def _aligned_table(Tp):
+    """A table whose rows start on 16-byte boundaries, as the asynchronous
+    copies of the tensor-core kernels (bf16 tables) and of the wide adjoint
+    need: Tp itself, or a copy into padded storage."""
+    if Tp.stride(1) * Tp.element_size() % 16 == 0 and Tp.data_ptr() % 16 == 0:
         return Tp
     n = Tp.shape[2]
     store = Tp.new_zeros((*Tp.shape[:2], -(-n // TABLE_PAD) * TABLE_PAD))
@@ -200,16 +206,16 @@ def _check_coords(xT, pairs, singles):
 
 def _route(width, narrow):
     """"narrow" for a width the narrow kernels are built for, "wide" for
-    another even 2P up to WIDE_MAX; raises for the rest."""
+    every other even 2P; raises for an odd width."""
     if width in narrow:
         return "narrow"
-    if width % 2 == 0 and 2 <= width <= WIDE_MAX:
+    if width % 2 == 0 and width >= 2:
         return "wide"
-    raise ValueError(f"the CUDA kernels take 2P in {narrow} (narrow kernels) or an even 2P from 2 to "
-                     f"{WIDE_MAX} (wide kernels), got {width}")
+    raise ValueError(f"the CUDA kernels take 2P in {narrow} (narrow kernels) or any other even 2P (wide "
+                     f"kernels), got {width}")
 
 
-def _check_cuda(src, others, pairs, singles, src_dtypes, width, widths, table=False):
+def _check_cuda(src, others, src_dtypes, width, widths, table=False):
     """Shape/dtype rules of the CUDA kernels beyond those of the plain path;
     returns the route (`_route`) of the width."""
     for t in others:
@@ -220,10 +226,46 @@ def _check_cuda(src, others, pairs, singles, src_dtypes, width, widths, table=Fa
     if src.dtype not in src_dtypes or not (table or src.is_contiguous()):
         raise ValueError(f"the CUDA kernels take {src_dtypes} tables or contiguous coordinates, "
                          f"got {src.dtype}")
-    route = _route(width, widths)
-    if len(pairs) > _MAX_PAIRS or len(singles) > _MAX_SINGLES:
-        raise ValueError(f"at most {_MAX_PAIRS} 2-D and {_MAX_SINGLES} 1-D windows per call")
-    return route
+    return _route(width, widths)
+
+
+def window_groups(npairs: int, nsingles: int) -> list:
+    """[(pair slice, single slice)]: the windows of one call split into
+    launches of at most MAX_PAIRS 2-D and MAX_SINGLES 1-D windows, in
+    window order; one group when they fit one launch."""
+    count = max(1, -(-npairs // MAX_PAIRS), -(-nsingles // MAX_SINGLES))
+    return [(slice(min(npairs, k * MAX_PAIRS), min(npairs, (k + 1) * MAX_PAIRS)),
+             slice(min(nsingles, k * MAX_SINGLES), min(nsingles, (k + 1) * MAX_SINGLES))) for k in range(count)]
+
+
+def grouped_adjoint(launch, pairs, singles):
+    """The adjoint of every window through launch(pairs, singles) -> (A2
+    (nv, npairs, 2P, 2P), A1 (nv, nsingles, 2P)), one call per group of
+    `window_groups`: the groups' outputs concatenated in window order."""
+    pairs, singles = tuple(pairs), tuple(singles)
+    groups = window_groups(len(pairs), len(singles))
+    if len(groups) == 1:
+        return launch(pairs, singles)
+    outs = [launch(pairs[p], singles[s]) for p, s in groups]
+    return torch.cat([o[0] for o in outs], dim=1), torch.cat([o[1] for o in outs], dim=1)
+
+
+def grouped_forward(launch, G2, G1, pairs, singles):
+    """The forward of every window through launch(G2, G1, pairs, singles)
+    -> y (nsets, n), one call per group of `window_groups` on its slices of
+    the stacks G2 (nsets, npairs, 2P, 2P) and G1 (nsets, nsingles, 2P)
+    (either None without windows of its kind): the groups' y summed in
+    launch order, so a second call is bitwise equal."""
+    pairs, singles = tuple(pairs), tuple(singles)
+    groups = window_groups(len(pairs), len(singles))
+    if len(groups) == 1:
+        return launch(G2, G1, pairs, singles)
+    y = None
+    for p, s in groups:
+        part = launch(None if G2 is None else G2[:, p].contiguous(), None if G1 is None else G1[:, s].contiguous(),
+                      pairs[p], singles[s])
+        y = part if y is None else y + part
+    return y
 
 
 def _alpha_rows(alpha, n):
@@ -276,15 +318,13 @@ def packed_adjoint(Tp, alpha, *, pairs: tuple, singles: tuple = ()):
     if a2d.device.type == "cpu" and Tp.device.type == "cpu":
         A2, A1 = packed_adjoint_plain(Tp, a2d, pairs, singles)
     elif a2d.is_cuda and Tp.is_cuda:
-        route = _check_cuda(Tp, [a2d], pairs, singles, _TABLE_DTYPES, Tp.shape[1], KERNEL_WIDTHS, table=True)
-        if route == "wide":
+        if _check_cuda(Tp, [a2d], _TABLE_DTYPES, Tp.shape[1], KERNEL_WIDTHS, table=True) == "wide":
             A2, A1 = _adjoint_wide(Tp, a2d, pairs, singles)
-        elif Tp.dtype == torch.bfloat16:
-            A2, A1 = _cuda_build.adjoint_tc(_tc_table(Tp), a2d, pairs, singles)
-            _count(packed_adjoint, f"nv={a2d.shape[0]}")
         else:
-            A2, A1 = _cuda_build.adjoint(Tp, a2d, pairs, singles)
-            _count(packed_adjoint, f"nv={a2d.shape[0]}")
+            tc = Tp.dtype == torch.bfloat16
+            T, kernel = (_aligned_table(Tp), _cuda_build.adjoint_tc) if tc else (Tp, _cuda_build.adjoint)
+            A2, A1 = grouped_adjoint(_counted(lambda pr, sg: kernel(T, a2d, pr, sg), packed_adjoint,
+                                              f"nv={a2d.shape[0]}"), pairs, singles)
     else:
         raise ValueError(f"table on {Tp.device}, alpha on {a2d.device}")
     return _adjoint_outputs(A2, A1, alpha.ndim == 2, len(pairs), len(singles))
@@ -306,15 +346,13 @@ def packed_forward(Tp, G2_sets, G1_sets=(), *, pairs: tuple, singles: tuple = ()
         y = packed_forward_plain(Tp, G2, G1, pairs, singles)
     elif ref.is_cuda and Tp.is_cuda:
         G2c, G1c = _dense_stacks(G2, G1, W2, Tp.device)
-        route = _check_cuda(Tp, [G2c, G1c], pairs, singles, _TABLE_DTYPES, W2, KERNEL_WIDTHS, table=True)
-        if route == "wide":
+        if _check_cuda(Tp, [G2c, G1c], _TABLE_DTYPES, W2, KERNEL_WIDTHS, table=True) == "wide":
             y = _forward_wide(Tp, G2c, G1c, pairs, singles)
-        elif Tp.dtype == torch.bfloat16:
-            y = _cuda_build.forward_tc(_tc_table(Tp), G2c, G1c, pairs, singles)
-            _count(packed_forward, f"nsets={G2c.shape[0]}")
         else:
-            y = _cuda_build.forward(Tp, G2c, G1c, pairs, singles)
-            _count(packed_forward, f"nsets={G2c.shape[0]}")
+            tc = Tp.dtype == torch.bfloat16
+            T, kernel = (_aligned_table(Tp), _cuda_build.forward_tc) if tc else (Tp, _cuda_build.forward)
+            y = grouped_forward(_counted(lambda g2, g1, pr, sg: kernel(T, g2, g1, pr, sg), packed_forward,
+                                         f"nsets={G2c.shape[0]}"), G2c, G1c, pairs, singles)
     else:
         raise ValueError(f"table on {Tp.device}, weights on {ref.device}")
     return list(torch.unbind(y))
@@ -341,11 +379,12 @@ def packed_adjoint_regen(xT, alpha, *, P: int, pairs: tuple, singles: tuple = ()
     if a2d.device.type == "cpu" and xT.device.type == "cpu":
         A2, A1 = packed_adjoint_regen_plain(xT, a2d, P, pairs, singles, phase_gen)
     elif a2d.is_cuda and xT.is_cuda:
-        if _check_cuda(xT, [a2d], pairs, singles, (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS) == "wide":
+        if _check_cuda(xT, [a2d], (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS) == "wide":
             A2, A1 = _adjoint_wide(xT, a2d, pairs, singles, P, phase_gen)
         else:
-            A2, A1 = _cuda_build.adjoint_regen(xT, a2d, 2 * P, pairs, singles, phase_gen)
-            _count(packed_adjoint_regen, f"nv={a2d.shape[0]}")
+            A2, A1 = grouped_adjoint(_counted(lambda pr, sg: _cuda_build.adjoint_regen(xT, a2d, 2 * P, pr, sg,
+                                                                                      phase_gen),
+                                              packed_adjoint_regen, f"nv={a2d.shape[0]}"), pairs, singles)
     else:
         raise ValueError(f"coordinates on {xT.device}, alpha on {a2d.device}")
     return _adjoint_outputs(A2, A1, alpha.ndim == 2, len(pairs), len(singles))
@@ -374,17 +413,18 @@ def packed_forward_regen(xT, G2_sets, G1_sets=(), *, P: int, pairs: tuple, singl
         y = packed_forward_regen_plain(xT, G2, G1, P, pairs, singles, phase_gen)
     elif ref.is_cuda and xT.is_cuda:
         G2c, G1c = _dense_stacks(G2, G1, 2 * P, xT.device)
-        if _check_cuda(xT, [G2c, G1c], pairs, singles, (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS) == "wide":
+        if _check_cuda(xT, [G2c, G1c], (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS) == "wide":
             y = _forward_wide(xT, G2c, G1c, pairs, singles, P, phase_gen)
         else:
-            y = _cuda_build.forward_regen(xT, G2c, G1c, 2 * P, pairs, singles, phase_gen)
-            _count(packed_forward_regen, f"nsets={G2c.shape[0]}")
+            y = grouped_forward(_counted(lambda g2, g1, pr, sg: _cuda_build.forward_regen(xT, g2, g1, 2 * P, pr, sg,
+                                                                                         phase_gen),
+                                         packed_forward_regen, f"nsets={G2c.shape[0]}"), G2c, G1c, pairs, singles)
     else:
         raise ValueError(f"coordinates on {xT.device}, weights on {ref.device}")
     return list(torch.unbind(y))
 
 
-# --- the wide pair: every even 2P up to WIDE_MAX, every phase source -----------------
+# --- the wide pair: every even 2P, every phase source -----------------------------------
 
 _TABLE_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -414,9 +454,9 @@ def _adjoint_wide(src, a2d, pairs, singles, P=None, phase_gen=None):
     of coordinates src regenerated by phase_gen (P modes), range by range,
     the ranges' outputs summed in order."""
     if phase_gen is None:
-        A2, A1 = _cuda_build.adjoint_wide(src, a2d, pairs, singles)
-        _count(WIDE_ADJOINT, f"2P={src.shape[1]} nv={a2d.shape[0]}")
-        return A2, A1
+        T = _aligned_table(src)
+        return grouped_adjoint(_counted(lambda pr, sg: _cuda_build.adjoint_wide(T, a2d, pr, sg), WIDE_ADJOINT,
+                                        f"2P={src.shape[1]} nv={a2d.shape[0]}"), pairs, singles)
     ranges = _point_ranges(src, 2 * P)
     for k, (i0, i1) in enumerate(ranges):
         alpha = a2d if len(ranges) == 1 else a2d[:, i0:i1].contiguous()
@@ -429,9 +469,9 @@ def _forward_wide(src, G2c, G1c, pairs, singles, P=None, phase_gen=None):
     """The wide forward on a table src (phase_gen None), or on regenerated
     phases range by range as `_adjoint_wide`."""
     if phase_gen is None:
-        y = _cuda_build.forward_wide(src, G2c, G1c, pairs, singles)
-        _count(WIDE_FORWARD, f"2P={src.shape[1]} nsets={G2c.shape[0]}")
-        return y
+        return grouped_forward(_counted(lambda g2, g1, pr, sg: _cuda_build.forward_wide(src, g2, g1, pr, sg),
+                                        WIDE_FORWARD, f"2P={src.shape[1]} nsets={G2c.shape[0]}"),
+                               G2c, G1c, pairs, singles)
     ranges = _point_ranges(src, 2 * P)
     if len(ranges) == 1:
         return _forward_wide(_cuda_build.phases_wide(src, P, phase_gen), G2c, G1c, pairs, singles)
@@ -449,6 +489,15 @@ def _count(fn, shape):
     """One launch of fn's kernel, also counted by shape ("nv=10", "nsets=20")."""
     fn.launches += 1
     fn.launches_by_shape[shape] = fn.launches_by_shape.get(shape, 0) + 1
+
+
+def _counted(launch, fn, shape):
+    """launch, counting one launch of fn's kernel (`_count`) per call."""
+    def counted(*args):
+        out = launch(*args)
+        _count(fn, shape)
+        return out
+    return counted
 
 
 def reset_launch_counts():

@@ -4,6 +4,7 @@ profile one loss step, on one NVIDIA GPU.
     python3 scripts/torch_table_kernels_ab.py --old-csrc OLD/csrc
     python3 scripts/torch_table_kernels_ab.py --kernels regen --old-csrc OLD/csrc
     python3 scripts/torch_table_kernels_ab.py --kernels wide --old-csrc OLD/csrc
+    python3 scripts/torch_table_kernels_ab.py --kernels wide-chunks
 
 OLD/csrc is an earlier `csrc/` (unpack it from an earlier commit with
 `git archive`).  The script builds one of its sources with nvcc into
@@ -32,16 +33,26 @@ problem (GPProblem(matern12, WINDOWS_FUSED, fastsum_fused=True)) at
 n = 2e5, whose `ndft_kernels_ms` gives the forward's card time in it.
 
 --kernels wide: an earlier OLD/csrc/packed_ndft_wide.cu against the
-current wide pair (one phase slab per call, then the float32-table
-GEMMs): one whose GEMMs regenerate the phases of "doubling" and "direct"
+current wide pair (the adjoint's 2-D windows on wgmma in 3xTF32): one
+whose GEMMs regenerate the phases of "doubling" and "direct"
 inside every tile (source kinds 2 and 3, the coordinates as their source),
-or one with a phase slab of its own (wide_phases_launch), at chip_smoke.py's
+or one with a phase slab of its own (wide_phases_launch; its adjoint chunked
+by its own rule, `_old_wide_chunks`), at chip_smoke.py's
 [wide-train] shapes (the first N_WIDE_TRAIN = 1e5 points, WINDOWS, 2P =
 130, both phase sources): the adjoint at nv = 1, 10, the forward at
 nsets = 1, 2, 10, 20; the bf16 table at 2P = 128; and the float32 table
-at [afn-pcg-256]'s shape (the window [0, 1], 2P = 256, nv = nsets = 1).  Then one profiled
+at [afn-pcg-256]'s shape (the window [0, 1], 2P = 256, adjoint nv = 1,
+10, forward nsets = 1).  Then one profiled
 loss-and-gradient step of [wide-train]'s problem at n = 1e5 on the stream
-engine and one on the fused engine, with the wide kernels' device time.
+engine and one on the fused engine, with the wide kernels' device time, and
+one AFN-PCG solve of [afn-pcg-256] (ms per iteration, the wide kernels'
+share), after the whole solve timed with the old adjoint in place of the
+new one and with the new, in turns (host clock: the solve is host-bound).
+
+--kernels wide-chunks: the current wide adjoint alone at the shapes of its
+bounds table (chip_smoke.py WIDE_BOUND_SHAPES, nv = 1, 10), its chunk
+count from `wide_chunks` against simple rules (the most chunks whose blocks
+fit one wave, or four, of one block an SM), in turns; no profile.
 
 The profile (torch.profiler, after a warm-up step): wall time, device-busy
 time (the union of the device kernels' intervals) and its share of the wall
@@ -57,6 +68,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -244,6 +256,16 @@ def ab_regen(old_lib, X):
 OLD_WIDE_KINDS = {"table_f32": 0, "table_bf16": 1, "doubling": 2, "direct": 3}
 
 
+def _old_wide_chunks(WR, nv, n, npairs):
+    """(nchunks, chunk) of the CUDA-core wide adjoint of an earlier source
+    (its 64 x 64 output tiles of every window, about eight blocks an SM),
+    as its wrapper chunked it."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    per_chunk = -(-WR // 64) * npairs * -(-nv * WR // 64)
+    return cb._chunks(n, per_chunk, 1056)
+
+
 def old_wide_calls(lib, src, kind, WR, pairs):
     """The earlier wide kernels' adjoint(alpha) -> (nv, npairs, WR, WR) and
     forward(G2) -> (nsets, n) on a table (Dtot, WR, n) or coordinates
@@ -268,7 +290,7 @@ def old_wide_calls(lib, src, kind, WR, pairs):
 
     def adj(alpha):
         nv = alpha.shape[0]
-        nchunks, chunk = cb.wide_chunks(WR, nv, n, len(pairs), 0)
+        nchunks, chunk = _old_wide_chunks(WR, nv, n, len(pairs))
         S = nv * len(pairs) * WR * WR
         part = torch.empty((nchunks, S), device=alpha.device)
         out = torch.empty(S, device=alpha.device)
@@ -305,11 +327,13 @@ def ab_wide(old_lib, X):
     rows = []
     pa = fs.packed_ndft_plan(cs._plan(Xw[:, :2].contiguous(), [[0, 1]], N=256), table_dtype=torch.float32)
     old_adj, old_fwd = old_wide_calls(old_lib, pa.Tp, "table_f32", 256, pa.pairs) if old_lib else (None, None)
-    alpha = torch.randn((1, Xw.shape[0]), generator=gen, device=X.device)
+    for nv in NVS:
+        alpha = torch.randn((nv, Xw.shape[0]), generator=gen, device=X.device)
+        rows.append(_ab_row(f"adjoint table_f32@2P=256 nv={nv}",
+                            (lambda a: lambda: pk.packed_adjoint(pa.Tp, a, pairs=pa.pairs))(alpha),
+                            (lambda a: lambda: old_adj(a))(alpha) if old_lib else None,
+                            lambda r: torch.stack(r[0], 1).reshape(-1), lambda r: r.reshape(-1)))
     G2 = torch.randn((1, 1, 256, 256), generator=gen, device=X.device)
-    rows.append(_ab_row("adjoint table_f32@2P=256 nv=1", lambda: pk.packed_adjoint(pa.Tp, alpha, pairs=pa.pairs),
-                        (lambda: old_adj(alpha)) if old_lib else None,
-                        lambda r: torch.stack(r[0], 1).reshape(-1), lambda r: r.reshape(-1)))
     rows.append(_ab_row("forward table_f32@2P=256 nsets=1",
                         lambda: pk.packed_forward(pa.Tp, list(torch.unbind(G2, 1)), pairs=pa.pairs),
                         (lambda: old_fwd(G2)) if old_lib else None,
@@ -343,6 +367,161 @@ def ab_wide(old_lib, X):
     return rows
 
 
+# the simple rules the wide adjoint's chunk count (`wide_chunks`) is held
+# against: the most chunks whose blocks fit `waves` waves of one block an SM
+CHUNK_RULES = {"one wave": 1, "four waves": 4}
+
+
+def ab_chunks(X):
+    """The wide adjoint at its bounds-table shapes (chip_smoke.py
+    WIDE_BOUND_SHAPES; nv = 1, 10) with its chunk count from `wide_chunks`
+    (the current rule) and from each simple rule of CHUNK_RULES (the
+    wrapper's `wide_chunks` swapped for the call), timed in turns (current,
+    rules..., rules reversed, current); the outputs' relative difference."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    current = cb.wide_chunks
+    sms = cb._sm_count(X.device)
+
+    def rule(waves):
+        def chunks(WR, nv, n, npairs, nsingles, sms_):
+            _, ntn, mblocks = cb.wide_tiles(WR, nv)
+            return cb._chunks(n, npairs * ntn * mblocks, waves * sms_)
+        return chunks
+
+    def swapped(fn, chunks):
+        def call():
+            cb.wide_chunks = chunks
+            try:
+                return fn()
+            finally:
+                cb.wide_chunks = current
+        return call
+
+    Xw = X[:cs.N_WIDE_TRAIN]
+    pa = fs.packed_ndft_plan(cs._plan(X[:cs.N_AFN_PCG, :2].contiguous(), [[0, 1]], N=256), table_dtype=torch.float32)
+    pn = fs.packed_ndft_plan(cs._plan(Xw, cs.WINDOWS, N=cs.WIDE_TRAIN_N), table_dtype=torch.bfloat16)
+    lay = fs._packed_layout(cs._plan(Xw, cs.WINDOWS, N=cs.WIDE_TRAIN_N))
+    P = fs._nmodes(cs.WIDE_TRAIN_N)
+    shapes = {"afn-pcg-256 f32 1 pair 2P=256": (lambda a: pk.packed_adjoint(pa.Tp, a, pairs=pa.pairs), 256, 1),
+              "wide-train bf16 5 pairs 2P=128": (lambda a: pk.packed_adjoint(pn.Tp, a, pairs=pn.pairs), 128, 5),
+              "wide-train doubling slab 5 pairs 2P=130": (lambda a: pk.packed_adjoint_regen(
+                  lay.xT, a, P=P, pairs=lay.pairs, phase_gen="doubling"), 2 * P, 5)}
+    gen = torch.Generator(device=X.device).manual_seed(5)
+    rows = []
+    for key, (adj, W2, npairs) in shapes.items():
+        n = cs.N_AFN_PCG if W2 == 256 else cs.N_WIDE_TRAIN
+        for nv in NVS:
+            alpha = torch.randn((nv, n), generator=gen, device=X.device)
+            fns = {"current": lambda a=alpha: adj(a)}
+            fns.update({name: swapped(lambda a=alpha: adj(a), rule(w)) for name, w in CHUNK_RULES.items()})
+            want = torch.stack(fns["current"]()[0], 1)
+            row = {"call": f"{key} nv={nv}", "sms": sms,
+                   "nchunks": {"current": current(W2, nv, n, npairs, 0, sms)[0],
+                               **{name: rule(w)(W2, nv, n, npairs, 0, sms)[0] for name, w in CHUNK_RULES.items()}},
+                   "rel_to_current": {name: float(torch.linalg.norm((torch.stack(fns[name]()[0], 1) - want).double())
+                                                  / torch.linalg.norm(want.double())) for name in CHUNK_RULES}}
+            order = list(fns) + list(fns)[::-1]
+            times = {}
+            for name in order:
+                times.setdefault(name, []).append(cs.cuda_ms(fns[name]))
+            row["ms"] = times
+            row["ratio_over_current"] = {name: sum(times[name]) / sum(times["current"]) for name in CHUNK_RULES}
+            print(f"[chunks] {json.dumps(row)}", flush=True)
+            rows.append(row)
+    return rows
+
+
+def _device_summary(prof, wall_ms):
+    """Device-busy time (the union of the device kernels' intervals), its
+    share of wall_ms, and the device time by kernel."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return (busy / 1e3 if spans else None, busy / 1e3 / wall_ms if spans else None, len(spans), by_kernel)
+
+
+def afn_pcg_256(old_lib):
+    """chip_smoke.py's [afn-pcg-256] AFN-PCG solve (AFN_PCG.md section 3's
+    row through scripts/torch_afn_pcg_bench.py), set up once.  Times the
+    whole solve (host clock, synchronized) with the current wide adjoint
+    and, given old_lib, with the old one in its place (the same operator
+    otherwise), in turns old, new, new, old three times; then profiles one
+    solve with the current kernels (`profile_afn_pcg_256`)."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
+
+    bench = cs._bench_module()
+    args = bench.parse_args(cs.AFN_PCG_256_ARGV)
+    dev = torch.device("cuda:0")
+    X, b, dtype = bench.make_problem(args, dev)
+    params = KernelParams.make(1.0, args.l, args.mu, dtype=dtype, device=dev)
+    windows = make_windows(bench.windows_of(args.d))
+    mv, _ = bench.build_operator(args, X, params, windows, log=lambda m: None)
+    (_, _, pre, _), = bench.preconditioners(args, X, params, windows, ["afn"])
+    new_adjoint = cb.adjoint_wide
+
+    def old_adjoint(Tp, alpha, pairs, singles):
+        adj, _ = old_wide_calls(old_lib, Tp, "table_f32", Tp.shape[1], pairs)
+        return adj(alpha), alpha.new_zeros((alpha.shape[0], 0, Tp.shape[1]))
+
+    def timed(adjoint):
+        cb.adjoint_wide = adjoint
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = bench.solve(args, mv, b, pre, "pcg")
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, int(res.niter)
+        finally:
+            cb.adjoint_wide = new_adjoint
+
+    row = {"call": "afn-pcg-256 AFN-PCG solve, ms per iteration (host clock)"}
+    timed(new_adjoint)
+    if old_lib is not None:
+        timed(old_adjoint)
+        runs = [timed(f) for _ in range(3) for f in (old_adjoint, new_adjoint, new_adjoint, old_adjoint)]
+        old = [ms / it for k, (ms, it) in enumerate(runs) if k % 4 in (0, 3)]
+        new = [ms / it for k, (ms, it) in enumerate(runs) if k % 4 in (1, 2)]
+        row.update(iterations=sorted({it for _, it in runs}), old_ms=old, new_ms=new,
+                   old_median=float(np.median(old)), new_median=float(np.median(new)))
+    print(f"[ab] {json.dumps(row)}", flush=True)
+    return row, profile_afn_pcg_256(args, bench, mv, b, pre)
+
+
+def profile_afn_pcg_256(args, bench, mv, b, pre):
+    """One AFN-PCG solve, profiled after a warm-up solve: wall time,
+    iterations, device-busy share, the device time by kernel and the wide
+    kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bench.solve(args, mv, b, pre, "pcg")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = bench.solve(args, mv, b, pre, "pcg")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, share, nk, by_kernel = _device_summary(prof, wall_ms)
+    wide = {k: v for k, v in by_kernel.items() if "wide" in k or "reduce_slices" in k}
+    out = {"problem": "afn-pcg-256", "iterations": int(res.niter), "wall_ms": wall_ms,
+           "ms_per_iteration": wall_ms / max(int(res.niter), 1), "device_busy_ms": busy, "busy_share": share,
+           "device_kernels": nk, "device_ms_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]),
+           "wide_kernels_ms": sum(wide.values()), "wide_share_of_wall": sum(wide.values()) / wall_ms}
+    print(f"[profile] {json.dumps(out)}", flush=True)
+    return out
+
+
 def profile_step(X, y, kernels):
     from torch.profiler import ProfilerActivity, profile
 
@@ -366,25 +545,15 @@ def profile_step(X, y, kernels):
         loss, _ = loss_fn(raw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    busy, share, nk, by_kernel = _device_summary(prof, wall_ms)
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
     # the NDFT kernels of the port by name (csrc/), whether in the top or not
     ndft = {k: v for k, v in by_kernel.items()
             if any(s in k for s in ("adjoint", "forward", "reduce_slices", "split_", "phases"))}
     wide = {k: v for k, v in ndft.items() if "wide" in k}
     out = {"problem": kernels, "loss": float(loss), "wall_ms": wall_ms,
-           "device_busy_ms": busy / 1e3 if spans else None, "busy_share": busy / 1e3 / wall_ms if spans else None,
-           "device_kernels": len(spans), "device_ms_by_kernel": top, "ndft_kernels_ms": ndft,
+           "device_busy_ms": busy, "busy_share": share,
+           "device_kernels": nk, "device_ms_by_kernel": top, "ndft_kernels_ms": ndft,
            "wide_kernels_ms": sum(wide.values()),
            "wide_share_of_wall": sum(wide.values()) / wall_ms}
     print(f"[profile] {json.dumps(out)}", flush=True)
@@ -394,7 +563,7 @@ def profile_step(X, y, kernels):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--old-csrc", type=Path, default=None)
-    ap.add_argument("--kernels", choices=("table", "regen", "wide"), default="table")
+    ap.add_argument("--kernels", choices=("table", "regen", "wide", "wide-chunks"), default="table")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_table_kernels_ab: no CUDA device")
@@ -404,9 +573,14 @@ def main():
     source = {"regen": "packed_ndft_regen.cu", "wide": "packed_ndft_wide.cu"}.get(args.kernels, "packed_ndft.cu")
     old_lib = build_old(args.old_csrc.resolve(), source) if args.old_csrc else None
     X, y = cs.make_data(cs.N_POINTS)
+    if args.kernels == "wide-chunks":
+        print(json.dumps({"chunks": ab_chunks(X)}), flush=True)
+        return
     rows = {"regen": ab_regen, "wide": ab_wide}.get(args.kernels, ab)(old_lib, X)
     if args.kernels == "wide":
-        prof = [profile_step(X, y, "wide-stream"), profile_step(X, y, "wide-fused")]
+        row, afn_prof = afn_pcg_256(old_lib)
+        rows.append(row)
+        prof = [profile_step(X, y, "wide-stream"), profile_step(X, y, "wide-fused"), afn_prof]
     else:
         prof = profile_step(X, y, args.kernels)
     print(json.dumps({"ab": rows, "profile": prof}), flush=True)

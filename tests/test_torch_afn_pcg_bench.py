@@ -113,3 +113,22 @@ def test_pcg_matches_jax(sides, name):
     else:
         assert abs(tr.niter - int(jr.niter)) <= 0.25 * int(jr.niter)
         assert np.linalg.norm(x - jx) <= 5e-3 * np.linalg.norm(jx)
+
+
+def test_comp_op_ignored_on_stream_engine(sides):
+    """--comp-op with the stream engine runs (the JAX script's stream
+    branch never reads it) and gives what the run without it gives: the
+    same matvec and the same unpreconditioned PCG solve, bit for bit."""
+    t, _ = sides
+    bench = _bench()
+    args = bench.parse_args(ARGV + ["--comp-op"])
+    assert args.comp_op and args.engine == "stream"
+    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
+
+    X, b, dtype = bench.make_problem(args, torch.device("cpu"))
+    params = KernelParams.make(1.0, args.l, args.mu, dtype=dtype)
+    mv, info = bench.build_operator(args, X, params, make_windows(bench.windows_of(args.d)), log=lambda s: None)
+    assert info == t["info"]
+    assert torch.equal(mv(b), t["Kb"])
+    res = bench.solve(args, mv, b, None, "pcg")
+    assert res.niter == t["runs"]["none"].niter and torch.equal(res.x, t["runs"]["none"].x)

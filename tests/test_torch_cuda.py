@@ -12,8 +12,9 @@ chip_smoke.py do not: both compiled widths of each kernel (2P = 16, 32 for
 the table kernels, 18, 34 for the regenerating ones), f32 and bf16 tables,
 both phase sources ("doubling", "direct"), a ragged last tile, fewer points
 than one tile, weight-set counts that straddle the forward's set tiles,
-layouts with only 2-D or only 1-D windows, and the 32-pair / 64-single
-limits of one call.
+layouts with only 2-D or only 1-D windows, the 32-pair / 64-single
+limits of one launch, and calls one window past them (33 pairs and 65
+singles: two launches, on every route).
 
 The regenerating adjoint (tensor cores, 3xTF32, csrc/packed_ndft_regen.cu)
 is held over 1, 3 and 32 pairs with and without 1-D windows, n = 1, 7, 63,
@@ -36,16 +37,20 @@ passes of at most 32 sets); 2P = 16 and 32, with and without 1-D windows; a
 table view of padded storage whose pad holds NaN; and a second launch
 bitwise equal to the first.
 
-The wide pair (csrc/packed_ndft_wide.cu: every even 2P from 2 to 1026 the
-narrow kernels are not built for) is held at 2P = 2, 8, 48, 64, 130, 256,
-258, 600, 1026 (below, at and past its 64-wide tiles, the regenerating
-widths 8k + 2, the limit), every phase source (float32 and bf16 tables,
+The wide pair (csrc/packed_ndft_wide.cu: every even 2P the narrow kernels
+are not built for) is held at 2P = 2, 8, 48, 64, 130, 256, 258, 600, 1026
+(below, at and past the forward's 64-wide tiles, the regenerating widths
+8k + 2, the old 1026 cap), every phase source (float32 and bf16 tables,
 "doubling", "direct"), only 2-D, only 1-D and both window kinds, nv = 1,
 3, 10, 17 and nsets = 1, 2, 20, 33 (two 32-set blocks) at n = 997, ragged
 n = 1 to 20001, a bf16 table with unpadded rows, a bitwise-equal second
 launch; the regenerating sources' phase slab cut into point ranges; the
-wrappers' routes by width and the refusal at 2P = 1028; and
-[afn-pcg-256]'s shape.  Its regenerating sources are held against the
+wrappers' routes by width (2P = 1028 to the wide pair: no width cap); and
+[afn-pcg-256]'s shape.  Its adjoint's 2-D windows (wgmma, 3xTF32; two
+products on bf16 tables) are held at 2P = 2 to 2050 (every compiled N-tile
+width, 64, 72, 128, 136 and 144, one tile or several, one or two runs of
+L0 rows a block), nv = 1 to 17 and n = 1 to 100003,
+every phase source, at 1e-4 against the plain versions.  Its regenerating sources are held against the
 plain versions in float64 with 1e-4: a float32 coordinate's phase
 2 pi p x errs by about p |x| 2^-22 (3e-5 at p = 512).
 
@@ -276,9 +281,9 @@ def test_wrappers_count_and_refuse(dev):
     wide_before = pk.WIDE_ADJOINT.launches_by_shape.get("2P=48 nv=2", 0)
     pk.packed_adjoint(wide, alpha, pairs=((0, 1),))
     assert pk.WIDE_ADJOINT.launches_by_shape["2P=48 nv=2"] == wide_before + 1
-    too_wide, _ = _table(dev, 300, 514, torch.bfloat16)     # 2P = 1028: no kernel
-    with pytest.raises(ValueError):
-        pk.packed_adjoint(too_wide, alpha, pairs=((0, 1),))
+    past_cap, _ = _table(dev, 300, 514, torch.bfloat16)     # 2P = 1028: the wide pair too (no width cap)
+    pk.packed_adjoint(past_cap, alpha, pairs=((0, 1),))
+    assert pk.WIDE_ADJOINT.launches_by_shape["2P=1028 nv=2"] >= 1
     with pytest.raises(ValueError):                          # float64 alpha
         pk.packed_adjoint(Tp, alpha.double(), pairs=((0, 1),))
     with pytest.raises(ValueError):                          # alpha on the CPU
@@ -373,47 +378,55 @@ def test_forward_regen_matches_plain(dev, layout, n, P, phase_gen, nsets):
 @pytest.mark.parametrize("nsets", [1, 2, 3, 10, 20, 33])
 @pytest.mark.parametrize("kind", ["pairs", "singles"])
 def test_regen_window_limits(dev, kind, nsets):
-    """32 pairs / 64 singles in one call run, the forward at every set
-    count; one window more, 2P = 1028 or float64 coordinates raise before
-    any launch, and the launch counts stay as they were."""
+    """32 pairs / 64 singles run in one launch, the forward at every set
+    count; one window more runs in two launches (the grouping of
+    `window_groups`) and matches the plain version; 2P = 1028 runs on the
+    wide pair; float64 coordinates raise before any launch."""
     n, P = 300, 17
-    xT, rng = _coords(dev, n, rows=64)
+    xT, rng = _coords(dev, n, rows=66)
     if kind == "pairs":
-        full, over = tuple((2 * w, 2 * w + 1) for w in range(32)), {"pairs": ((0, 1),) * 33}
+        full, over = tuple((2 * w, 2 * w + 1) for w in range(32)), {"pairs": tuple((2 * w, 2 * w + 1)
+                                                                                  for w in range(33))}
         kw = {"pairs": full}
     else:
-        full, over = tuple(range(64)), {"pairs": (), "singles": tuple(range(64)) + (0,)}
+        full, over = tuple(range(64)), {"pairs": (), "singles": tuple(range(65))}
         kw = {"pairs": (), "singles": full}
     alpha = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)).to(dev)
+    before = (pk.packed_adjoint_regen.launches, pk.packed_forward_regen.launches)
     A2, A1 = pk.packed_adjoint_regen(xT, alpha, P=P, **kw)
     torch.cuda.synchronize()
     W2, W1 = pk.packed_adjoint_regen_plain(xT, alpha, P, kw["pairs"], kw.get("singles", ()))
     got = torch.stack(A2, 1) if A2 else torch.stack(A1, 1)
     assert _rel(got, W2 if A2 else W1) <= KERNEL_RTOL
     G = [torch.from_numpy(rng.normal(size=(nsets, 2 * P, 2 * P) if A2 else (nsets, 2 * P)).astype(np.float32))
-         .to(dev) for _ in full]
-    ys = pk.packed_forward_regen(xT, G if A2 else (), () if A2 else G, P=P, **kw)
+         .to(dev) for _ in range(len(full) + 1)]
+    ys = pk.packed_forward_regen(xT, G[:-1] if A2 else (), () if A2 else G[:-1], P=P, **kw)
     torch.cuda.synchronize()
-    want = pk.packed_forward_regen_plain(xT, torch.stack(G, 1) if A2 else None,
-                                         None if A2 else torch.stack(G, 1), P, kw["pairs"],
+    want = pk.packed_forward_regen_plain(xT, torch.stack(G[:-1], 1) if A2 else None,
+                                         None if A2 else torch.stack(G[:-1], 1), P, kw["pairs"],
                                          kw.get("singles", ()))
     assert _rel(torch.stack(ys), want) <= KERNEL_RTOL
-    before = (pk.packed_adjoint_regen.launches, pk.packed_forward_regen.launches)
-    Gover = [G[0]] * 33 if A2 else [G[0]] * 65
-    with pytest.raises(ValueError):
-        pk.packed_adjoint_regen(xT, alpha, P=P, **over)
-    with pytest.raises(ValueError):
-        pk.packed_forward_regen(xT, Gover if A2 else (), () if A2 else Gover, P=P, **over)
-    with pytest.raises(ValueError):                        # 2P = 1028: wider than the wide kernels
-        pk.packed_adjoint_regen(xT, alpha, P=514, **kw)
-    G1028 = [torch.zeros((1, 1028, 1028) if A2 else (1, 1028), device=dev)] * len(G)
-    with pytest.raises(ValueError):
-        pk.packed_forward_regen(xT, G1028 if A2 else (), () if A2 else G1028, P=514, **kw)
+    assert (pk.packed_adjoint_regen.launches, pk.packed_forward_regen.launches) == (before[0] + 1, before[1] + 1)
+    # one window more: two launches each, the same values as the plain versions
+    O2, O1 = pk.packed_adjoint_regen(xT, alpha, P=P, **over)
+    V2, V1 = pk.packed_adjoint_regen_plain(xT, alpha, P, over["pairs"], over.get("singles", ()))
+    assert _rel(torch.stack(O2, 1) if A2 else torch.stack(O1, 1), V2 if A2 else V1) <= KERNEL_RTOL
+    yo = pk.packed_forward_regen(xT, G if A2 else (), () if A2 else G, P=P, **over)
+    wo = pk.packed_forward_regen_plain(xT, torch.stack(G, 1) if A2 else None, None if A2 else torch.stack(G, 1), P,
+                                       over["pairs"], over.get("singles", ()))
+    assert _rel(torch.stack(yo), wo) <= KERNEL_RTOL
+    assert (pk.packed_adjoint_regen.launches, pk.packed_forward_regen.launches) == (before[0] + 3, before[1] + 3)
+    wide_before = (pk.WIDE_ADJOINT.launches, pk.WIDE_FORWARD.launches)
+    pk.packed_adjoint_regen(xT, alpha, P=514, **kw)              # 2P = 1028: the wide pair
+    G1028 = [torch.zeros((1, 1028, 1028) if A2 else (1, 1028), device=dev)] * len(full)
+    pk.packed_forward_regen(xT, G1028 if A2 else (), () if A2 else G1028, P=514, **kw)
+    torch.cuda.synchronize()
+    assert (pk.WIDE_ADJOINT.launches, pk.WIDE_FORWARD.launches) == (wide_before[0] + 1, wide_before[1] + 1)
     with pytest.raises(ValueError):                        # float64 coordinates
         pk.packed_adjoint_regen(xT.double(), alpha, P=P, **kw)
     with pytest.raises(ValueError):
-        pk.packed_forward_regen(xT.double(), G if A2 else (), () if A2 else G, P=P, **kw)
-    assert (pk.packed_adjoint_regen.launches, pk.packed_forward_regen.launches) == before
+        pk.packed_forward_regen(xT.double(), G[:-1] if A2 else (), () if A2 else G[:-1], P=P, **kw)
+    assert (pk.packed_adjoint_regen.launches, pk.packed_forward_regen.launches) == (before[0] + 3, before[1] + 3)
 
 
 def test_loss_step_on_card_matches_cpu(dev):
@@ -843,7 +856,7 @@ def test_f32_table_kernels_at_afn_pcg_shape(dev):
     assert _rel(y, want) <= 1e-4
 
 
-# --- the wide pair (csrc/packed_ndft_wide.cu): every even 2P up to 1026 -------------------
+# --- the wide pair (csrc/packed_ndft_wide.cu): every even 2P the narrow kernels lack ---------
 
 WIDE_WIDTHS = [2, 8, 48, 64, 130, 256, 258, 600, 1026]
 WIDE_SOURCES = ["f32", "bf16", "doubling", "direct"]
@@ -1013,8 +1026,9 @@ def test_wide_regen_point_ranges(dev, monkeypatch, source):
 
 def test_wide_routes_and_refusals(dev):
     """The wrappers send the narrow kernels' widths to them and every other
-    even width to the wide pair (counted there only); 2P = 1028 and
-    float64 operands at a wide width raise before any launch."""
+    even width to the wide pair (counted there only), 2P = 1028 too (the
+    wide pair has no width cap); float64 operands at a wide width raise
+    before any launch."""
     pairs = ((0, 1),)
     x, _ = _coords(dev, 300)
     alpha = torch.ones((2, 300), device=dev)
@@ -1028,17 +1042,16 @@ def test_wide_routes_and_refusals(dev):
     assert (pk.packed_adjoint.launches, pk.packed_adjoint_regen.launches) == (1, 1)
     assert pk.WIDE_ADJOINT.launches_by_shape == {"2P=64 nv=2": 1, "2P=32 nv=2": 1}
     assert pk.WIDE_FORWARD.launches_by_shape == {"2P=130 nsets=1": 1}
-    with pytest.raises(ValueError):
-        pk.packed_adjoint(pk.pack_phase_table(x, 514), alpha, pairs=pairs)
-    with pytest.raises(ValueError):
-        pk.packed_adjoint_regen(x, alpha, P=514, pairs=pairs)
-    with pytest.raises(ValueError):
-        pk.packed_adjoint_regen(x, alpha, P=514, pairs=pairs, phase_gen="direct")
+    pk.packed_adjoint(pk.pack_phase_table(x, 514), alpha, pairs=pairs)
+    pk.packed_adjoint_regen(x, alpha, P=514, pairs=pairs)
+    pk.packed_adjoint_regen(x, alpha, P=514, pairs=pairs, phase_gen="direct")
+    torch.cuda.synchronize()
+    assert pk.WIDE_ADJOINT.launches_by_shape["2P=1028 nv=2"] == 3
     with pytest.raises(ValueError):                                              # float64 alpha
         pk.packed_adjoint_regen(x, alpha.double(), P=65, pairs=pairs)
     with pytest.raises(ValueError):                                              # float64 table
         pk.packed_adjoint(pk.pack_phase_table(x.double(), 32), alpha, pairs=pairs)
-    assert pk.WIDE_ADJOINT.launches == 2 and pk.WIDE_FORWARD.launches == 1
+    assert pk.WIDE_ADJOINT.launches == 5 and pk.WIDE_FORWARD.launches == 1
 
 
 def test_wide_kernels_at_afn_pcg_256_shape(dev):
@@ -1056,3 +1069,88 @@ def test_wide_kernels_at_afn_pcg_256_shape(dev):
     y = pk.packed_forward(Tp, G2, pairs=pairs)[0]
     assert torch.equal(y, pk.packed_forward(Tp, G2, pairs=pairs)[0])
     assert _rel(y, pk.packed_forward_plain(Tp, torch.stack(G2, 1), None, pairs, ())[0]) <= 1e-4
+
+
+# --- the wide adjoint's 2-D windows on wgmma (3xTF32), and calls past one launch's windows ---
+
+WG_WIDTHS = [2, 8, 16, 30, 32, 64, 66, 128, 130, 136, 144, 146, 256, 258, 1026, 1028, 1030, 2050]
+# (nv, n): every nv and every n at least once; n = 1, below and above one
+# 32-point stage, past a chunk's 64-point tiles, [afn-pcg-256]'s size
+WG_NV_N = [(1, 1), (3, 31), (10, 33), (16, 4097), (17, 100_003), (1, 100_003), (10, 4097)]
+WG_RTOL = 1e-4
+
+
+@pytest.mark.parametrize("nv,n", WG_NV_N)
+@pytest.mark.parametrize("W2", WG_WIDTHS)
+@pytest.mark.parametrize("source", WIDE_SOURCES)
+def test_wide_adjoint_wgmma_matches_plain(dev, source, W2, nv, n):
+    """The wide adjoint (its 2-D windows on wgmma in 3xTF32, two products on
+    bf16 tables; its 1-D window on the CUDA cores) at every width class of
+    its N tiles (2P = 2 to 2050: one tile of each compiled width, 64, 72,
+    128, 136 and 144, rounded up from the width, and several past 144; the
+    rows of a 128-row block in one or two runs of a), every phase source, nv across the 64-row M tiles, n = 1 to
+    100003: relative Frobenius 1e-4 against the plain version (the
+    regenerating sources against it in float64), a second launch bitwise
+    equal, every launch counted (the table kernels' own widths 16 and 32
+    through the wide entry)."""
+    pairs, singles = LAYOUTS["mixed"]
+    src, P, name, rng = _wide_src(dev, n, W2, source, seed=W2 + n)
+    alpha = torch.from_numpy(rng.normal(size=(nv, n)).astype(np.float32)).to(dev)
+    direct = name == "table" and W2 in pk.KERNEL_WIDTHS
+
+    def call():
+        if direct:
+            return pk._adjoint_outputs(*pk._adjoint_wide(src, alpha, pairs, singles), True, len(pairs), len(singles))
+        return _wide_adjoint(src, alpha, pairs, singles, name, P)
+
+    key = f"2P={W2} nv={nv}"
+    before = pk.WIDE_ADJOINT.launches_by_shape.get(key, 0)
+    runs = [call() for _ in range(2)]
+    torch.cuda.synchronize()
+    ranges = 1 if name == "table" else len(pk._point_ranges(src, W2))
+    assert pk.WIDE_ADJOINT.launches_by_shape[key] == before + 2 * ranges
+    got, again = (_flat(A2, A1, alpha) for A2, A1 in runs)
+    assert torch.equal(got, again)
+    W2w, W1w = _wide_adjoint_want(src, alpha, P, pairs, singles, name)
+    assert _rel(got, torch.cat([W2w.reshape(-1), W1w.reshape(-1)])) <= WG_RTOL
+
+
+MANY_PAIRS = tuple((2 * w, 2 * w + 1) for w in range(33))
+MANY_SINGLES = tuple(range(65))
+
+
+@pytest.mark.parametrize("route", ["f32@32", "bf16@32", "doubling@34", "direct@34",
+                                   "f32@64", "bf16@64", "doubling@66", "direct@66"])
+def test_many_windows_every_route(dev, route):
+    """33 pairs and 65 singles in one call, on every route (the narrow
+    float32-table, bf16-table and regenerating kernels, the wide pair on
+    each phase source): two launches of the adjoint and two of the forward
+    per call, their outputs concatenated / summed in order equal to the
+    plain versions (tables: KERNEL_RTOL; regenerating: 1e-4 against float64)
+    and a second call bitwise equal."""
+    source, W2 = route.split("@")
+    W2, n, nv, nsets = int(W2), 997, 3, 3
+    rng = np.random.default_rng(W2)
+    x = torch.from_numpy(rng.uniform(-0.25, 0.25, size=(66, n)).astype(np.float32)).to(dev)
+    P = W2 // 2
+    table = source in ("f32", "bf16")
+    if table:
+        src = pk.pack_phase_table(x, P, table_dtype=torch.float32 if source == "f32" else torch.bfloat16)
+        name, tol = "table", KERNEL_RTOL
+    else:
+        src, name, tol = x, source, 1e-4
+    narrow = W2 in (pk.KERNEL_WIDTHS if table else pk.REGEN_KERNEL_WIDTHS)
+    adj_counter = (pk.packed_adjoint if table else pk.packed_adjoint_regen) if narrow else pk.WIDE_ADJOINT
+    fwd_counter = (pk.packed_forward if table else pk.packed_forward_regen) if narrow else pk.WIDE_FORWARD
+    alpha = torch.from_numpy(rng.normal(size=(nv, n)).astype(np.float32)).to(dev)
+    before = (adj_counter.launches, fwd_counter.launches)
+    runs = [_flat(*_wide_adjoint(src, alpha, MANY_PAIRS, MANY_SINGLES, name, P), alpha) for _ in range(2)]
+    G2 = [torch.from_numpy(rng.normal(size=(nsets, W2, W2)).astype(np.float32)).to(dev) for _ in MANY_PAIRS]
+    G1 = [torch.from_numpy(rng.normal(size=(nsets, W2)).astype(np.float32)).to(dev) for _ in MANY_SINGLES]
+    ys = [torch.stack(_wide_forward(src, G2, G1, MANY_PAIRS, MANY_SINGLES, name, P)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (adj_counter.launches, fwd_counter.launches) == (before[0] + 4, before[1] + 4)
+    assert torch.equal(runs[0], runs[1]) and torch.equal(ys[0], ys[1])
+    W2w, W1w = _wide_adjoint_want(src, alpha, P, MANY_PAIRS, MANY_SINGLES, name)
+    assert _rel(runs[0], torch.cat([W2w.reshape(-1), W1w.reshape(-1)])) <= tol
+    assert _rel(ys[0], _wide_forward_want(src, G2, G1, P, MANY_PAIRS, MANY_SINGLES, name)) <= tol

@@ -186,16 +186,17 @@ def test_phase_table_storage_is_padded(rows, n):
 
 
 def test_unaligned_table_copied_to_padded_rows(rows):
-    """A contiguous bf16 table whose rows do not start on 16 bytes goes to the
-    tensor-core kernels as a padded copy with the same values."""
+    """A contiguous bf16 or float32 table whose rows do not start on 16
+    bytes goes to the tensor-core kernels and the wide adjoint as a padded
+    copy with the same values; a padded table goes as it is."""
     xT, _ = rows
-    T = tpn.pack_phase_table(torch.tensor(xT[:, :37], dtype=torch.float32), 8,
-                             table_dtype=torch.bfloat16).contiguous()
-    assert T.stride(1) == 37
-    Tc = tpn._tc_table(T)
-    assert Tc.stride(1) % 8 == 0 and torch.equal(Tc, T)
-    padded = tpn.pack_phase_table(torch.tensor(xT, dtype=torch.float32), 8, table_dtype=torch.bfloat16)
-    assert tpn._tc_table(padded) is padded
+    for dtype in (torch.bfloat16, torch.float32):
+        T = tpn.pack_phase_table(torch.tensor(xT[:, :37], dtype=torch.float32), 8, table_dtype=dtype).contiguous()
+        assert T.stride(1) == 37
+        Tc = tpn._aligned_table(T)
+        assert Tc.stride(1) * Tc.element_size() % 16 == 0 and torch.equal(Tc, T)
+        padded = tpn.pack_phase_table(torch.tensor(xT, dtype=torch.float32), 8, table_dtype=dtype)
+        assert tpn._aligned_table(padded) is padded
 
 
 def test_launches_by_shape_reset():

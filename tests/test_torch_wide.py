@@ -165,16 +165,60 @@ def test_point_ranges_bound_the_phase_slab(n, W2):
 
 def test_cuda_routes_by_width():
     """The width rule of CUDA tensors, decided before any launch: the narrow
-    kernels' widths, every other even 2P up to 1026 to the wide pair,
-    odd or wider ones raise."""
+    kernels' widths, every other even 2P (1028 and 2050 too: the wide pair
+    has no width cap) to the wide pair, odd ones raise."""
     assert tpn._route(32, tpn.KERNEL_WIDTHS) == "narrow"
     assert tpn._route(34, tpn.REGEN_KERNEL_WIDTHS) == "narrow"
     assert tpn._route(34, tpn.KERNEL_WIDTHS) == "wide"
-    for W2 in (2, 8, 64, 130, 256, 258, 600, tpn.WIDE_MAX):
+    for W2 in (2, 8, 64, 130, 256, 258, 600, 1026, 1028, 2050):
         assert tpn._route(W2, tpn.KERNEL_WIDTHS) == "wide"
-    for W2 in (0, 33, tpn.WIDE_MAX + 2):
+    for W2 in (0, 33, 1027):
         with pytest.raises(ValueError):
             tpn._route(W2, tpn.KERNEL_WIDTHS)
+
+
+def test_wide_adjoint_tiles_are_compiled_widths():
+    """The wide adjoint's N tiles (`wide_tiles`, as csrc/packed_ndft_wide.cu
+    wg_tiles) at every even 2P to 4096: ceil(2P / 144) tiles, each the
+    narrowest compiled width (64, 72, 128, 136, 144) that covers 2P with
+    them; 128-row blocks over the nv 2P rows in 64-row tiles."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    widths = (64, 72, 128, 136, 144)
+    for W2 in range(2, 4098, 2):
+        nt, ntn, mblocks = cb.wide_tiles(W2, 3)
+        assert ntn == -(-W2 // 144)
+        assert nt == min(w for w in widths if w * ntn >= W2)
+        assert mblocks == -(-(-(-3 * W2 // 64)) // 2)
+    assert [cb.wide_tiles(W2, 1)[:2] for W2 in (2, 66, 130, 144, 146, 256, 258, 1030)] == [
+        (64, 1), (72, 1), (136, 1), (144, 1), (128, 2), (128, 2), (136, 2), (136, 8)]
+
+
+@pytest.mark.parametrize("kind", ["adjoint", "forward"])
+def test_doubling_plain_vs_jax_at_1030(rows, kind):
+    """Past the old 1026 cap: the plain versions at 2P = 1030 (doubling,
+    P = 515, the recurrence's tenth doubling) against the JAX kernel in
+    interpret mode, n = 200, one 2-D and one 1-D window, nv = nsets = 2."""
+    xT, rng = rows
+    W2, P = 1030, 515
+    x = torch.tensor(xT)
+    if kind == "adjoint":
+        alpha = rng.normal(size=(2, xT.shape[1]))
+        tA2, tA1 = tpn.packed_adjoint_regen(x, torch.tensor(alpha), P=P, pairs=PAIRS, singles=SINGLES)
+        jA2, jA1 = jpn.packed_adjoint(jnp.asarray(xT), jnp.asarray(alpha), P=P, pairs=PAIRS, singles=SINGLES,
+                                      block=BLOCK, interpret=True, phase_gen="doubling")
+        for t, j in zip(tA2 + tA1, jA2 + jA1):
+            assert t.shape[-1] == W2
+            _close(t, j, RTOL["doubling"])
+    else:
+        G2 = [rng.normal(size=(2, W2, W2)) for _ in PAIRS]
+        G1 = [rng.normal(size=(2, W2)) for _ in SINGLES]
+        ty = tpn.packed_forward_regen(x, [torch.tensor(g) for g in G2], [torch.tensor(g) for g in G1], P=P,
+                                      pairs=PAIRS, singles=SINGLES)
+        jy = jpn.packed_forward(jnp.asarray(xT), [jnp.asarray(g) for g in G2], [jnp.asarray(g) for g in G1], P=P,
+                                pairs=PAIRS, singles=SINGLES, block=BLOCK, interpret=True, phase_gen="doubling")
+        for t, j in zip(ty, jy):
+            _close(t, j, RTOL["doubling"])
 
 
 # --- psd_clip and solve-only plans -----------------------------------------------------

@@ -6,7 +6,7 @@ Phases, one line each (any failure raises and exits non-zero):
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: compiles the five kernel libraries of csrc/ with nvcc (sm_90a),
      prints ptxas's registers, spills and shared memory of the wide pair
-     (none may spill) and its notes on the wgmma adjoint,
+     (none may spill) and its notes on the wgmma adjoint and forward,
      one nvcc per source, all at once, if needed, and checks grid.sync()
      with a tiny cooperative kernel over every resident block;
   3. kernels: the bf16-table kernels (the tensor-core adjoint and forward
@@ -28,13 +28,13 @@ Phases, one line each (any failure raises and exits non-zero):
      CUDA-core flops at the float32 peak, whichever takes longer); a second
      launch of each must be bitwise equal to the first;
   4b. kernels-wide: the wide pair (csrc/packed_ndft_wide.cu, every even 2P
-     the narrow kernels lack: the adjoint's 2-D windows on wgmma in 3xTF32,
-     two products on a bf16 table; its 1-D windows and the forward on the
-     CUDA cores; the regenerating sources write their phases into a float32
-     slab first) against its
+     the narrow kernels lack: the 2-D windows of the adjoint and of the
+     forward on wgmma in 3xTF32, two products on a bf16 table; their 1-D
+     windows on the CUDA cores; the regenerating sources write their phases
+     into a float32 slab first) against its
      plain versions through the wrappers at n = 1e5: at the window [0, 1]
      ([afn-pcg-256]'s shape) float32 and bf16 tables at 2P = 64, 128, 256
-     (nv = 1, 10; nsets = 1, 2, 20), a 1-D window beside it at 2P = 128,
+     (nv = 1, 10; nsets = 1, 2, 10, 20), a 1-D window beside it at 2P = 128,
      both regenerating sources at 2P = 130, 258 (against the plain versions
      in float64: a float32 plain version's own phases at p ~ 128 err by
      more than the kernel); at WINDOWS ([wide-train]'s shape) the bf16
@@ -42,12 +42,13 @@ Phases, one line each (any failure raises and exits non-zero):
      10; nsets = 1, 2, 10, 20); and at 2P = 32 the wide pair beside the
      narrow kernels on the same inputs; a second launch of each must be
      bitwise equal, and no narrow kernel may serve a wide width; bound: the
-     adjoint's 2-D products 3 x (bf16 tables 2 x) at the TF32 peak beside
-     its 1-D windows' flops at the float32 peak, the forward's flops at the
-     float32 peak, or the bytes; then one line with the adjoint at the four
-     shapes of its bounds table ([afn-pcg-256]'s float32 table at 2P = 256,
-     [wide-train]'s bf16 table at 128 and doubling slab at 130; nv = 1, 10):
-     time, plain, library, bound with its unit, share;
+     2-D products 3 x (bf16 tables 2 x) at the TF32 peak beside the 1-D
+     windows' flops (and the forward's epilogue over a) at the float32
+     peak, or the bytes; then one line each with the adjoint and the
+     forward at the three shapes of their bounds tables ([afn-pcg-256]'s
+     float32 table at 2P = 256, [wide-train]'s bf16 table at 128 and
+     doubling slab at 130; nv = 1, 10; nsets = 1, 2, 10, 20): time, plain,
+     library, bound with its unit, share; a shape that did not run fails;
      in 3, 4 and 4b the limit is a relative Frobenius error <= 1e-4 (two f32
      sums over 2e5 terms in different orders, about sqrt(n) eps); times
      from CUDA events around back-to-back calls queued behind a sleep
@@ -194,7 +195,7 @@ input read once, each output written once) over 3.35 TB/s.  The
 tensor-core kernels' 2-D window products count three times (the three bf16
 terms of the float32 operand over the 989 TFLOP/s bf16 peak for the table
 kernels, 3xTF32 over the 495 TFLOP/s dense TF32 peak for the regenerating
-ones and the wide adjoint; twice for the wide adjoint on a bf16 table,
+ones and the wide pair; twice for the wide pair on a bf16 table,
 whose values are exact in tf32); their CUDA-core flops (the 1-D windows,
 the forwards' epilogue) over the 67 TFLOP/s float32 peak run beside them,
 so the operations take the larger of the two times; the other kernels'
@@ -486,21 +487,21 @@ WIDE_REGEN_WIDTHS = (130, 258)
 # fastsum_N of [wide-train]: 2P = 128 on its bf16 tables, 130 regenerating
 WIDE_TRAIN_N = 128
 N_WIDE_TRAIN = 100_000
-# the units of the wide adjoint's 2-D window products (PEAKS) by table type
-WIDE_ADJ_UNIT = {torch.float32: "wgmma_tf32x3", torch.bfloat16: "wgmma_tf32x2"}
-# the shapes of the wide adjoint's bounds table: (mode, where in the tag)
+# the units of the wide pair's 2-D window products (PEAKS) by table type
+WIDE_UNIT = {torch.float32: "wgmma_tf32x3", torch.bfloat16: "wgmma_tf32x2"}
+# the shapes of the wide pair's bounds tables: (mode, where in the tag)
 WIDE_BOUND_SHAPES = {"afn-pcg-256 f32 1 pair 2P=256": ("table-f32@2P=256", "windows=[[0, 1]] "),
                      "wide-train bf16 5 pairs 2P=128": ("table-bf16@2P=128", f"windows={WINDOWS}"),
                      "wide-train doubling slab 5 pairs 2P=130": ("doubling@2P=130", f"windows={WINDOWS}")}
 
 
 def check_wide_kernels(X):
-    """[kernels-wide]: the wide pair (csrc/packed_ndft_wide.cu, CUDA-core
-    float32 tile GEMMs; the regenerating sources through a float32 phase
+    """[kernels-wide]: the wide pair (csrc/packed_ndft_wide.cu, 2-D windows
+    on wgmma in 3xTF32; the regenerating sources through a float32 phase
     slab) against its plain versions, through the wrappers at widths only
     it serves.  At [afn-pcg-256]'s shape (the first N_AFN_PCG points, the
     window [0, 1]): float32 and bf16 tables at 2P = 64, 128, 256 (nv = 1,
-    10; nsets = 1, 2, 20), a 1-D window beside it (2P = 128, untimed), both
+    10; nsets = 1, 2, 10, 20), a 1-D window beside it (2P = 128, untimed), both
     regenerating sources at 2P = 130, 258 against the plain versions in
     float64 (nv = 1, 10; nsets = 1, 2, 20).  At [wide-train]'s shape (the
     first N_WIDE_TRAIN points, the five 2-D windows of WINDOWS): the bf16
@@ -530,7 +531,7 @@ def check_wide_kernels(X):
             lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles),
             lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles),
             pn, pn.P, Xw, nvs, nsets, timed, Tp.float(), Tp.numel() * Tp.element_size(), repeat=True,
-            label="kernels-wide", units=(WIDE_ADJ_UNIT[dtype], "f32"))
+            label="kernels-wide", units=(WIDE_UNIT[dtype], WIDE_UNIT[dtype]))
 
     def regen(Xw, windows, W2, gen, nvs, nsets):
         lay = fs._packed_layout(_plan(Xw, windows, N=W2 - 2))
@@ -544,14 +545,14 @@ def check_wide_kernels(X):
             lambda G2, G1: pk.packed_forward_regen(xT, G2, G1, **kw),
             lambda G2s, G1s: pk.packed_forward_regen_plain(xT, G2s, G1s, P, pairs, singles, gen),
             lay, P, Xw, nvs, nsets, True, pk.phase_slab(xT, P, gen), xT.numel() * xT.element_size(),
-            repeat=True, label="kernels-wide", units=(WIDE_ADJ_UNIT[torch.float32], "f32"),
+            repeat=True, label="kernels-wide", units=(WIDE_UNIT[torch.float32], WIDE_UNIT[torch.float32]),
             adj_ref=lambda a: pk.packed_adjoint_regen_plain(xT.double(), a.double(), P, pairs, singles, gen),
             fwd_ref=lambda G2s, G1s: pk.packed_forward_regen_plain(
                 xT.double(), G2s.double(), None if G1s is None else G1s.double(), P, pairs, singles, gen))
 
     for dtype in (torch.float32, torch.bfloat16):
         for W2 in WIDE_TABLE_WIDTHS:
-            cases += tables(Xa, [[0, 1]], W2, dtype, (1, 10), (1, 2, 20))
+            cases += tables(Xa, [[0, 1]], W2, dtype, (1, 10), (1, 2, 10, 20))
     cases += tables(Xa, [[0, 1], [2]], 128, torch.float32, (1, 10), (1, 20), timed=False)
     for W2 in WIDE_REGEN_WIDTHS:
         for gen in pk.PHASE_GENS:
@@ -575,7 +576,7 @@ def check_wide_kernels(X):
                 Tp, *pk._dense_stacks(torch.stack(G2, 1), None, 32, Tp.device), pairs, ()))),
             lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, ()),
             pn, pn.P, Xa, (1, 10), (1, 20), True, Tp.float(), Tp.numel() * Tp.element_size(), repeat=True,
-            label="kernels-wide", units=(WIDE_ADJ_UNIT[dtype], "f32"))
+            label="kernels-wide", units=(WIDE_UNIT[dtype], WIDE_UNIT[dtype]))
         narrow_cases = check_pair(
             f"table-{kind}@2P=32 (narrow) n={Xa.shape[0]}",
             ("packed_adjoint", "packed_forward"),
@@ -588,19 +589,23 @@ def check_wide_kernels(X):
         print(f"[kernels-wide] 2P=32 {dtype}: wide / narrow ms = "
               f"{[(w['shape'], w['ms'], v['ms']) for w, v in zip(wide, narrow_cases)]}", flush=True)
         cases += wide
-    # the wide adjoint (2-D windows on wgmma) at the four shapes of its bounds
-    table = {}
-    for c in cases:
-        for key, (mode, where) in WIDE_BOUND_SHAPES.items():
-            if c["kernel"] == names[0] and c["mode"] == mode and where in c["tag"]:
-                table[f"{key} {c['shape']}"] = dict(ms=c["ms"], plain_ms=c["plain_ms"], library_ms=c["library_ms"],
-                                                    bound_ms=round(c["bound_ms"], 4), bound_by=c["bound_by"],
-                                                    share=round(c["bound_ms"] / c["ms"], 3), rel_err=c["rel"])
-    print(f"[kernels-wide] the wide adjoint at its bounds-table shapes (2-D windows on wgmma; bound: 3 or, on a "
-          f"bf16 table, 2 TF32 products at {TF32_PEAK / 1e12:.0f} TFLOP/s, or the bytes): {json.dumps(table)}",
-          flush=True)
-    if len(table) != 2 * len(WIDE_BOUND_SHAPES):
-        raise AssertionError(f"kernels-wide: the bounds-table shapes were not all run: {sorted(table)}")
+    # the wide adjoint (nv = 1, 10) and forward (nsets = 1, 2, 10, 20), 2-D
+    # windows on wgmma, at the three shapes of their bounds tables
+    for name, what, shapes in ((names[0], "adjoint", ("nv=1", "nv=10")),
+                               (names[1], "forward", ("nsets=1", "nsets=2", "nsets=10", "nsets=20"))):
+        table = {}
+        for c in cases:
+            for key, (mode, where) in WIDE_BOUND_SHAPES.items():
+                if c["kernel"] == name and c["mode"] == mode and where in c["tag"] and c["shape"] in shapes:
+                    table[f"{key} {c['shape']}"] = dict(
+                        ms=c["ms"], plain_ms=c["plain_ms"], library_ms=c["library_ms"],
+                        bound_ms=round(c["bound_ms"], 4), bound_by=c["bound_by"],
+                        share=round(c["bound_ms"] / c["ms"], 3), rel_err=c["rel"])
+        print(f"[kernels-wide] the wide {what} at its bounds-table shapes (2-D windows on wgmma; bound: 3 or, on a "
+              f"bf16 table, 2 TF32 products at {TF32_PEAK / 1e12:.0f} TFLOP/s, or the bytes): {json.dumps(table)}",
+              flush=True)
+        if len(table) != len(shapes) * len(WIDE_BOUND_SHAPES):
+            raise AssertionError(f"kernels-wide: the {what}'s bounds-table shapes were not all run: {sorted(table)}")
     return cases
 
 
@@ -1475,13 +1480,13 @@ def main():
     print(f"[build] {', '.join(p.parent.name for p in paths.values())} compiled in {secs:.1f} s "
           "(one nvcc per source, in parallel)", flush=True)
     wide_ptxas = _cuda_build.ptxas_report("packed_ndft_wide")
-    print(f"[build] ptxas, csrc/packed_ndft_wide.cu (template argument of the GEMMs: 0 float32 table, 1 bf16 "
-          f"table; of the phase slab: 0 doubling, 1 direct): {wide_ptxas}", flush=True)
+    print(f"[build] ptxas, csrc/packed_ndft_wide.cu (template arguments of the GEMMs: 0 float32 table, 1 bf16 "
+          f"table, then the wgmma N tile; of the phase slab: 0 doubling, 1 direct): {wide_ptxas}", flush=True)
     if any(r["spill_bytes"] for r in wide_ptxas if r["kernel"].startswith("wide_")):
         raise AssertionError(f"a wide kernel spills registers: {wide_ptxas}")
-    print(f"[build] ptxas, csrc/packed_ndft_wide.cu, its notes on the wgmma adjoint (registers: the entry count; "
-          f"its consumer warpgroups run at 224 after setmaxnreg): {_cuda_build.ptxas_notes('packed_ndft_wide')}",
-          flush=True)
+    print(f"[build] ptxas, csrc/packed_ndft_wide.cu, its notes on the wgmma adjoint and forward (registers: the "
+          f"entry count; their consumer warpgroups run at 224 after setmaxnreg): "
+          f"{_cuda_build.ptxas_notes('packed_ndft_wide')}", flush=True)
     blocks, total = _cuda_build.grid_sync_probe(torch.device("cuda:0"))
     print(f"[build] grid.sync() over {blocks} resident blocks: sum {total} "
           f"(expected {blocks * (blocks + 1) // 2})", flush=True)

@@ -9,7 +9,8 @@
 //   _adjoint_kernel (pallas_call at :326) -> wide_adjoint_wg_kernel (2-D windows, tensor cores)
 //                                            + wide_singles_kernel (1-D windows, CUDA cores)
 //                                            + reduce_slices_kernel (tc_common.cuh)
-//   _forward_kernel (pallas_call at :508) -> wide_forward_kernel (CUDA cores)
+//   _forward_kernel (pallas_call at :508) -> wide_forward_wg_kernel (2-D windows, tensor cores)
+//                                            + wide_singles_forward_kernel (1-D windows, CUDA cores)
 // in all four of its phase sources.  The kernels read a float32 or a bf16
 // table (`WideKind`).  The regenerating sources ("doubling", "direct")
 // first write the phases of every coordinate row into a float32 slab
@@ -24,19 +25,19 @@
 //             row: the same operations in the same order.
 // and the kernels read the slab as a float32 table.
 //
-// What bounds them on an H100 SXM (published peaks at 700 W): the adjoint's
-// 2-D windows do 2 nv npairs WR^2 n flops.  In 3xTF32 (three TF32 products
-// per float32 product) on the tensor cores that is 3x over 495 TFLOP/s: at
-// n = 1e5, one pair, WR = 256, nv = 1, 0.079 ms against 0.061 ms for the
-// 205 MB float32 table at 3.35 TB/s -- operations bound it, bytes nearly.
-// A bf16 table's values are exact in tf32 (8 significant bits, tf32 has
-// 11), so its products need two TF32 passes, not three.  The forward does
-// 2 nsets npairs WR^2 n flops as float32 FMAs on the CUDA cores (67
-// TFLOP/s).  mma.sync's TF32 issues at about a quarter of the tensor-core
-// peak on this card (packed_ndft_regen.cu's kernels, NVIDIA H100 80GB
-// HBM3), below the CUDA cores; wgmma is the route to the full rate, so the
-// adjoint's 2-D windows run on it.
-//
+// What bounds them on an H100 SXM (published peaks at 700 W): the 2-D
+// windows do 2 nv npairs WR^2 n flops (adjoint) and 2 nsets npairs WR^2 n
+// (forward).  In 3xTF32 (three TF32 products per float32 product) on the
+// tensor cores that is 3x over 495 TFLOP/s: at n = 1e5, one pair, WR = 256,
+// nv = 1, 0.079 ms against 0.061 ms for the 205 MB float32 table at 3.35
+// TB/s -- operations bound them, bytes nearly.  A bf16 table's values are
+// exact in tf32 (8 significant bits, tf32 has 11), so its products need two
+// TF32 passes, not three.  mma.sync's TF32 issues at about a quarter of the
+// tensor-core peak on this card (packed_ndft_regen.cu's kernels, NVIDIA H100
+// 80GB HBM3), below the CUDA cores' 67 TFLOP/s of float32; wgmma is the
+// route to the full rate, so the 2-D windows of both run on it.  The 1-D
+// windows have 1/WR of a pair's work and are bound by the table's bytes.
+
 // Adjoint, 2-D windows (wide_adjoint_wg_kernel): a split-K GEMM per window,
 // C[(r, a), b] = sum_i (alpha_r[i] L0[a, i]) L1[b, i], M = nv WR flattened
 // (r, a) rows, N = WR, K = the points.
@@ -81,15 +82,50 @@
 // (64 x 64 output tiles, 4 x 4 register tiles, 32 points a step staged as 8
 // consecutive points of 4 rows a warp into conflict-free banks).
 //
-// Forward (wide_forward_kernel): one block per 128 points and up to 32
-// weight sets: per window, per 64-row tile of a (L0 staged once), per set,
-// Z[a, i] = sum_b G_s[a, b] L1[b, i] accumulated in registers (4 a x 8
-// points a thread) over 32-row chunks of b, G and L1 staged in shared memory
-// (G is read from L2: about 26 MB at 20 sets, five windows, WR = 256); then
-// y_s[i] += sum_a L0[a, i] Z[a, i], summed over the 16 a-groups in a fixed
-// order through shared memory.  1-D windows add sum_a L[a, i] g_s[a], two
-// threads a point.  y is written once, no cross-block reduction.  Its
-// shared memory (84 KB, dynamic) does not grow with WR.
+// Forward, 2-D windows (wide_forward_wg_kernel): per window, per set,
+// Z_s^T = L1^T G_s^T with the points as M (tf32 wgmma takes both shared
+// operands K-major only; G_s's rows are K-major over b, the table's rows
+// are not), then y_s[i] += sum_a L0[a, i] Z_s[a, i] in registers.
+// - A block: 128 points (two consumer warpgroups, one 64-row M tile each)
+//   and up to 32 weight sets, all of them, so the table's rows are read
+//   from device memory once per block; one N tile of NT <= 136 columns a
+//   at a time (WR in ceil(WR / 136) tiles, each rounded up to 64, 72, 128
+//   or 136: 2P = 130 runs 136, 256 two of 128); K = b in stages of 32 (2P =
+//   130 runs 160, the rows past WR zero).
+// - The weights are split once a call (wide_split_weights_kernel) into big
+//   and small tf32 halves, rows padded to 16 bytes, in scratch the caller
+//   allocates.  What bounds the kernel is shared memory's bandwidth: per
+//   stage the wgmmas read their B tile once per product and warpgroup
+//   (96 KB of a float32-table stage), and splitting G in shared memory, as
+//   the adjoint splits its L1, read and wrote 48 KB more; split in device
+//   memory, the halves cost 16 KB more L2 reads a stage and the split
+//   nothing per block (NVIDIA H100 80GB HBM3: 1.05x to 1.52x as fast at nsets >= 2).
+// - The producer warp's ring (three stages on float32 tables, four on
+//   bf16): per stage one TMA copy each of G_s's big and small tile (32 b x
+//   NT a, from a 4-D map) and four of L1's 32 b rows over the block's
+//   points; per (window, N tile) one of the L0 tile (NT rows over the
+//   points), kept for every set.
+// - A = L1^T from registers, loaded from the swizzled stage and split into
+//   big / small (float32 table: big * big + small * big + big * small) or
+//   taken as it is (bf16: A * big + A * small).  B = G by descriptor.  The
+//   M rows map to points so that the A loads and the epilogue's L0 loads
+//   hit 32 distinct banks.
+// - The epilogue: Z never leaves registers.  Each thread multiplies its
+//   accumulator by L0 at its two points, sums its columns, then the four
+//   lanes of a quad with shuffles; lane cq keeps y of the sets 4q + cq in
+//   registers, added in a fixed order over windows and tiles.  y is
+//   written once, no atomics, a second launch is bitwise equal.
+// - One accumulator over K: K = WR is at most a few thousand terms, where
+//   the tensor cores' float32 accumulation errs below 1e-4 (held against
+//   float64 at 2P = 1026 and 2050; the adjoint's fresh per-stage
+//   accumulators are for K = 2e4 points).
+// Shared memory 219 KB at NT = 136 (float32): one block an SM of 384
+// threads, setmaxnreg as the adjoint.
+//
+// Forward, 1-D windows (wide_singles_forward_kernel): y_s[i] += sum_a L[a,
+// i] g_s[a], a GEMV per set bound by the table's bytes: CUDA cores, 128
+// points and up to 32 sets a block, two threads a point; it adds to y after
+// the 2-D windows' kernel (or writes y without 2-D windows).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -663,120 +699,346 @@ cudaError_t wide_adjoint(const WideSrc& src, const float* alpha, int n, int nv, 
   return cudaSuccess;
 }
 
-// --- forward ------------------------------------------------------------------------
+// --- forward, 2-D windows: wgmma in 3xTF32, the points as M ----------------------------
 
-constexpr int FT = 256;  // threads
-constexpr int FP = 128;  // points per block
-constexpr int FA = 64;   // rows of a per tile
-constexpr int FK = 32;   // rows of b per staged chunk (of a for the 1-D windows)
-constexpr int FS = 32;   // weight sets per block (the grid tiles more)
-constexpr int FLD = FP + 4, GLD = FA + 4;
+constexpr int FW_POINTS = 128;  // points a block: one 64-row M tile per consumer warpgroup
+constexpr int FW_BOXES = FW_POINTS / WG_KS;  // 32-point TMA boxes a block
+constexpr int FW_SETS = 32;     // weight sets a block (the grid tiles more); 8 per lane of a quad
+constexpr int FW_KS = 32;       // b a stage: one 128-byte float32 row of G
+// the ring: three stages (float32 tables, whose L1 rows take twice the
+// bytes and the L0 tile too) or four (bf16)
+constexpr int FW_STAGES_F32 = 3, FW_STAGES_BF16 = 4;
+constexpr int FW_NMAX = 136;    // the widest N tile: the ring and the L0 tile fit shared memory
 
-struct FwdSmem {
-  float L0[FA][FLD];    // the a tile of L0 for the block's points
-  float L1[FK][FLD];    // a chunk of L1 rows (1-D windows: of L rows)
-  float G[FK][GLD];     // G_s[a tile, b chunk], transposed (1-D windows: g[a][s])
-  float part[16][FP];   // per a-group sums of the epilogue
-  float y[FS][FP];
+// Shared memory of the instance with N tile NT: per stage the big and the
+// small tf32 half of G_s's tile (NT rows of 32 b each, 128-byte swizzle)
+// and L1's 32 b rows over the block's points (FW_BOXES boxes of 32 points);
+// the L0 tile of NT a rows over the block's points; barriers.  Every buffer
+// 1024-byte aligned (the 128-byte swizzle's period).
+template <int KIND, int NT>
+struct FwSmem {
+  static constexpr int ROWB = KIND == W_F32 ? 128 : 64;  // bytes of a staged table row of 32 points
+  static constexpr int STAGES = KIND == W_F32 ? FW_STAGES_F32 : FW_STAGES_BF16;
+  static constexpr int G = NT * 128;
+  static constexpr int L1 = FW_BOXES * FW_KS * ROWB;
+  static constexpr int L0 = FW_BOXES * NT * ROWB;
+  static constexpr int OFF_GS = STAGES * G;
+  static constexpr int OFF_L1 = 2 * STAGES * G;
+  static constexpr int OFF_L0 = OFF_L1 + STAGES * L1;
+  static constexpr int OFF_BAR = OFF_L0 + L0;
+  static constexpr int BYTES = OFF_BAR + 8 * (2 * STAGES + 2) + 1024;  // + the base's alignment
+  static_assert(G % 1024 == 0 && L1 % 1024 == 0 && OFF_L0 % 1024 == 0, "stage buffers must stay 1024-byte aligned");
+  static_assert(BYTES <= 232448, "more shared memory than a block can have");
 };
 
-template <int KIND>
-__global__ void __launch_bounds__(FT, 2) wide_forward_kernel(WideSrc src, int n, Rows pairs, int npairs,
-                                                          const float* __restrict__ G2, Rows singles, int nsingles,
-                                                          const float* __restrict__ G1, int nsets,
-                                                          float* __restrict__ y) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
-  const int WR = src.WR;
-  const int t = threadIdx.x, ag = t / 16, ig = t % 16;
-  const int i0 = blockIdx.x * FP, s0 = blockIdx.y * FS;
-  const int ns = min(FS, nsets - s0);
-  for (int idx = t; idx < FS * FP; idx += FT) (&sm.y[0][0])[idx] = 0.f;
+// a box of the 4-D tensor map of G at (b c0, a c1, window c2, set c3)
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                                          int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n"
+      :
+      : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 
-  for (int w = 0; w < npairs; ++w) {
-    const int ja = pairs.v[2 * w], jb = pairs.v[2 * w + 1];
-    __syncthreads();  // the previous window's readers of the tiles are done
-    for (int a0 = 0; a0 < WR; a0 += FA) {
-      // a warp's 8 rows of a: in the last tile of 2P = 64k + r only the
-      // warps of its r rows do FMAs
-      const bool idle = a0 + ag * 4 >= WR;
-      // read only after the first barrier of the b loop below
-      for (int idx = t; idx < FA * FP; idx += FT) {
-        const int ii = idx % FP, aa = idx / FP, a = a0 + aa, i = i0 + ii;
-        sm.L0[aa][ii] = (a < WR && i < n) ? phase<KIND>(src, ja, a, i) : 0.f;
+// A = L1^T of one stage (4 k-steps of 8 b) for this thread's points inner[h]
+// of its 32-point box: float32 split into big / small tf32, bf16 exact
+template <int KIND>
+__device__ __forceinline__ void make_a_fwd(uint32_t (&fa)[4][2][4], const unsigned char* L1, const int (&inner)[2],
+                                           int cq) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v = l0_at<KIND>(L1, 8 * ks + cq + 4 * q, inner[h]);
+        if constexpr (KIND == W_F32) {
+          split_tf32(v, fa[ks][0][h + 2 * q], fa[ks][1][h + 2 * q]);
+        } else {
+          fa[ks][0][h + 2 * q] = __float_as_uint(v);
+        }
       }
-      for (int s = 0; s < ns; ++s) {
-        const float* G = G2 + ((size_t)(s0 + s) * npairs + w) * WR * WR;
-        float acc[4][8] = {};
-        for (int b0 = 0; b0 < WR; b0 += FK) {
-          // 8 consecutive b of 4 rows a warp per instruction: whole sectors,
-          // 32 distinct banks
+}
+
+// One stage's products into d (the first of a set overwrites it): per k-step
+// big * big, small * big and big * small (float32 table), or A * big and
+// A * small (bf16 table: A is exact in tf32)
+template <int KIND, int NT>
+__device__ __forceinline__ void fwd_products(float (&d)[WG_ACC], const uint32_t (&fa)[4][2][4], uint32_t big,
+                                             uint32_t small, int keep) {
+  const uint64_t db = sw128_desc(big), ds = sw128_desc(small);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    wgmma_rows<NT>(d, fa[ks][0], db + 2 * ks, ks > 0 ? 1 : keep);
+    if constexpr (KIND == W_F32) wgmma_rows<NT>(d, fa[ks][1], db + 2 * ks, 1);
+    wgmma_rows<NT>(d, fa[ks][0], ds + 2 * ks, 1);
+  }
+}
+
+// v[h] += sum over the accumulator slice of width W at d[OFF..] (wgmma_rows)
+// of its columns a (cb.. of the tile) times L0[a] at this thread's points
+template <int KIND, int W, int OFF>
+__device__ __forceinline__ void dot_slice(const float (&d)[WG_ACC], const unsigned char* L0, int cb,
+                                          const int (&inner)[2], int cq, float (&v)[2]) {
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) {
+    const int h = (i >> 1) & 1, col = cb + 8 * (i >> 2) + 2 * cq + (i & 1);
+    v[h] = fmaf(d[OFF + i], l0_at<KIND>(L0, col, inner[h]), v[h]);
+  }
+}
+
+// y_s[i] = sum_w sum_a L0_w[a, i] (G_{s,w} L1_w)[a, i] over the block's 128
+// points and up to 32 weight sets.  Per window, per N tile of NT columns a
+// (the L0 tile loaded once), per set: Z^T = L1^T G_s^T on wgmma (M = the
+// points, N = a, K = b in stages of 32), then the epilogue in registers.
+// maps: l0 the table in boxes of 32 points x NT rows, l1 in boxes of 32 x 32
+// rows, g the split weights (b, a, window, set; sets nsets.. the small
+// halves) in boxes of 32 b x NT a.
+template <int KIND, int NT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    wide_forward_wg_kernel(const __grid_constant__ CUtensorMap mapl0, const __grid_constant__ CUtensorMap mapl1,
+                           const __grid_constant__ CUtensorMap mapg, int n, int WR, Rows pairs, int npairs, int nsets,
+                           float* __restrict__ y) {
+  using SM = FwSmem<KIND, NT>;
+  constexpr int ROWB = SM::ROWB, NS = SM::STAGES;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* base = wg_smem + ((1024 - (smem_addr(wg_smem) & 1023)) & 1023);
+  const uint32_t sbase = smem_addr(base);
+  // a barrier a stage each: the loads have landed (full), the consumers
+  // are done with the stage (empty); and the L0 tile's: loaded (l0full),
+  // done with (l0empty)
+  const uint32_t full = sbase + SM::OFF_BAR, empty = full + 8 * NS;
+  const uint32_t l0full = empty + 8 * NS, l0empty = l0full + 8;
+  const int t = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, t / 128, 0);  // uniform to the compiler (as the adjoint's)
+  const int i0 = blockIdx.x * FW_POINTS, s0 = blockIdx.y * FW_SETS;
+  const int ns = min(FW_SETS, nsets - s0);
+  const int ntn = (WR + NT - 1) / NT, nk = (WR + FW_KS - 1) / FW_KS;
+
+  if (t == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);   // the loader lane with the bytes
+      mbar_init(empty + 8 * s, 8);  // the 8 consumer warps
+    }
+    mbar_init(l0full, 1);
+    mbar_init(l0empty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warpgroup (for setmaxnreg): its first warp loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_REGS_PRODUCER));
+    if (t >= WG_CONSUMERS + 32) return;
+    const int lane = t - WG_CONSUMERS;
+    const uint32_t tx = (uint32_t)(2 * NT * 128 + FW_BOXES * FW_KS * ROWB);  // bytes a stage
+    int it = 0, tile = 0;
+    for (int w = 0; w < npairs; ++w) {
+      const int ja = pairs.v[2 * w], jb = pairs.v[2 * w + 1];
+      for (int tn = 0; tn < ntn; ++tn, ++tile) {
+        for (int s = 0; s < ns; ++s) {
+          for (int k = 0; k < nk; ++k, ++it) {
+            const int st = it % NS, u = it / NS;
+            if (u > 0) mbar_wait(empty + 8 * st, (u - 1) & 1);  // stage it - NS is done with the buffers
+            if (lane == 0) mbar_arrive_tx(full + 8 * st, tx);
+            __syncwarp();
+            if (lane < FW_BOXES)
+              tma_load(sbase + SM::OFF_L1 + st * SM::L1 + lane * FW_KS * ROWB, &mapl1, full + 8 * st,
+                       i0 + WG_KS * lane, FW_KS * k, jb);
+            if (lane == FW_BOXES) tma_load4(sbase + st * SM::G, &mapg, full + 8 * st, FW_KS * k, NT * tn, w, s0 + s);
+            if (lane == FW_BOXES + 1)
+              tma_load4(sbase + SM::OFF_GS + st * SM::G, &mapg, full + 8 * st, FW_KS * k, NT * tn, w, nsets + s0 + s);
+            // the tile's L0 once the first stages are on their way: the
+            // consumers need it after a set's last stage, and are done with
+            // the previous tile's before they take these stages
+            if (s == 0 && k == min(nk, NS) - 1) {
+              if (tile > 0) mbar_wait(l0empty, (tile - 1) & 1);
+              if (lane == 0) mbar_arrive_tx(l0full, (uint32_t)(FW_BOXES * NT * ROWB));
+              __syncwarp();
+              if (lane < FW_BOXES)
+                tma_load(sbase + SM::OFF_L0 + lane * NT * ROWB, &mapl0, l0full, i0 + WG_KS * lane, NT * tn, ja);
+            }
+          }
+        }
+      }
+    }
+  } else {  // the two consumer warpgroups, 64 points each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_REGS_CONSUMER));
+    const int wq = (t % 128) / 32, lane = t % 32, g = lane / 4, cq = lane % 4;
+    // M rows 16 wq + g + 8 h of the warpgroup's tile are points inner[h] of
+    // its 32-point box `box`: 16-byte chunks c and c ^ 5 (c = 2 (wq & 1) +
+    // h) of the staged rows for g < 4 and g >= 4, so that the A loads (rows
+    // 4q + cq) and the epilogue's L0 loads (rows 2cq + e) hit 32 distinct
+    // banks under the swizzle
+    const int box = 2 * wg + (wq >> 1);
+    int inner[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) inner[h] = 4 * ((2 * (wq & 1) + h) ^ (5 * (g >> 2))) + (g & 3);
+    float acc[WG_ACC];
+#pragma unroll
+    for (int e = 0; e < WG_ACC; ++e) acc[e] = 0.f;
+    float yr[FW_SETS / 4][2];  // y of sets 4 q + cq at this thread's two points
+#pragma unroll
+    for (int q = 0; q < FW_SETS / 4; ++q) yr[q][0] = yr[q][1] = 0.f;
+    uint32_t fa[4][2][4];
+    const unsigned char* L0 = base + SM::OFF_L0 + box * NT * ROWB;
+    int it = 0, tile = 0;
+    for (int w = 0; w < npairs; ++w) {
+      for (int tn = 0; tn < ntn; ++tn, ++tile) {
+        for (int s = 0; s < ns; ++s) {
+          for (int k = 0; k < nk; ++k, ++it) {
+            const int st = it % NS, par = (it / NS) & 1;
+            mbar_wait(full + 8 * st, par);
+            make_a_fwd<KIND>(fa, base + SM::OFF_L1 + st * SM::L1 + box * FW_KS * ROWB, inner, cq);
+            wgmma_fence();
+            fwd_products<KIND, NT>(acc, fa, sbase + st * SM::G, sbase + SM::OFF_GS + st * SM::G, k > 0);
+            wgmma_commit();
+            wgmma_wait0();
+            fence_acc(acc);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + 8 * st);
+          }
+          if (s == 0) mbar_wait(l0full, tile & 1);
+          // y_s at this thread's points += sum_a L0[a] Z[a]: its columns, then
+          // the four lanes of the quad (butterfly: every lane the same sum)
+          float v[2] = {0.f, 0.f};
+          if constexpr (NT >= 128) {  // the slices of wgmma_rows
+            dot_slice<KIND, 128, 0>(acc, L0, 0, inner, cq, v);
+            if constexpr ((NT & 8) != 0) dot_slice<KIND, 8, 64>(acc, L0, wgmma_cols(NT, 8), inner, cq, v);
+          } else {
+            dot_slice<KIND, 64, 0>(acc, L0, 0, inner, cq, v);
+            if constexpr ((NT & 8) != 0) dot_slice<KIND, 8, 56>(acc, L0, wgmma_cols(NT, 8), inner, cq, v);
+          }
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
+            v[h] += __shfl_xor_sync(0xffffffffu, v[h], 1);
+            v[h] += __shfl_xor_sync(0xffffffffu, v[h], 2);
+          }
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int bb = t % 8 + 8 * q, aa = (t % 32) / 8 + 4 * (t / 32) + 32 * h, a = a0 + aa, b = b0 + bb;
-              sm.G[bb][aa] = (a < WR && b < WR) ? G[(size_t)a * WR + b] : 0.f;
+          for (int q = 0; q < FW_SETS / 4; ++q)
+            if (4 * q + cq == s) {
+              yr[q][0] += v[0];
+              yr[q][1] += v[1];
             }
-          }
-          for (int idx = t; idx < FK * FP; idx += FT) {
-            const int ii = idx % FP, bb = idx / FP, b = b0 + bb, i = i0 + ii;
-            sm.L1[bb][ii] = (b < WR && i < n) ? phase<KIND>(src, jb, b, i) : 0.f;
-          }
-          __syncthreads();
-          // the live rows of b only: 2P = 130 runs 130, not 160
-          const int kend = idle ? 0 : min(FK, WR - b0);
-#pragma unroll 4
-          for (int kk = 0; kk < kend; ++kk) {
-            float g[4], la[4], lb[4];
-            load_vec<4>(g, &sm.G[kk][ag * 4]);
-            load_vec<4>(la, &sm.L1[kk][ig * 4]);
-            load_vec<4>(lb, &sm.L1[kk][FP / 2 + ig * 4]);
-#pragma unroll
-            for (int p = 0; p < 4; ++p) {
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                acc[p][q] = fmaf(g[p], la[q], acc[p][q]);
-                acc[p][4 + q] = fmaf(g[p], lb[q], acc[p][4 + q]);
-              }
-            }
-          }
-          __syncthreads();
         }
-        // y_s[i] += sum_a L0[a, i] Z[a, i]: this thread's 4 rows, then the
-        // 16 a-groups in order
+        __syncwarp();
+        if (lane == 0) mbar_arrive(l0empty);  // every set's epilogue of the tile is done with L0
+      }
+    }
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int col = (q < 4 ? 0 : FP / 2) + ig * 4 + (q & 3);
-          float v = 0.f;
+    for (int q = 0; q < FW_SETS / 4; ++q) {
+      const int s = 4 * q + cq;
 #pragma unroll
-          for (int p = 0; p < 4; ++p) v = fmaf(sm.L0[ag * 4 + p][col], acc[p][q], v);
-          sm.part[ag][col] = v;
-        }
-        __syncthreads();
-        if (t < FP) {
-          float tot = sm.y[s][t];
-#pragma unroll
-          for (int g = 0; g < 16; ++g) tot += sm.part[g][t];
-          sm.y[s][t] = tot;
-        }
-        // part is written again only after the next b loop's first barrier,
-        // L0 only after this barrier's readers are past it
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + WG_KS * box + inner[h];
+        if (s < ns && i < n) y[(size_t)(s0 + s) * n + i] = yr[q][h];
       }
     }
   }
+}
 
+// The N-tile widths of the forward's 2-D windows, one instance each (those
+// of the adjoint but 144: its L0 tile and three stages would not fit)
+constexpr int FW_WIDTHS[] = {64, 72, 128, 136};
+
+template <int KIND>
+auto fw_kernel(int nt) {
+  return nt == 64    ? wide_forward_wg_kernel<KIND, 64>
+         : nt == 72  ? wide_forward_wg_kernel<KIND, 72>
+         : nt == 128 ? wide_forward_wg_kernel<KIND, 128>
+                     : wide_forward_wg_kernel<KIND, 136>;
+}
+
+template <int KIND>
+int fw_smem(int nt) {
+  return nt == 64    ? FwSmem<KIND, 64>::BYTES
+         : nt == 72  ? FwSmem<KIND, 72>::BYTES
+         : nt == 128 ? FwSmem<KIND, 128>::BYTES
+                     : FwSmem<KIND, 136>::BYTES;
+}
+
+// The forward's N tile: WR in ceil(WR / 136) tiles, each the narrowest
+// width of FW_WIDTHS that holds its share (ops/_cuda_build.py
+// `wide_forward_tiles` computes the same)
+int fw_tile(int WR) {
+  const int ntn = (WR + FW_NMAX - 1) / FW_NMAX;
+  const int need = (WR + ntn - 1) / ntn;
+  int nt = FW_NMAX;
+  for (int k = 3; k >= 0; --k)
+    if (FW_WIDTHS[k] >= need) nt = FW_WIDTHS[k];
+  return nt;
+}
+
+// The weights' split, once a call: G2 (nsets, npairs, WR, WR) at element
+// strides (gset, gpair, grow, 1) -> out (2, nsets, npairs, WR, WRp), WRp =
+// WR rounded up to 4 floats (16-byte rows for the TMA copies): [0] big =
+// tf32(G), [1] small = tf32(G - big) (tc_common.cuh split_tf32), zeros in
+// the pad.  One thread an element of out's half.
+__global__ void __launch_bounds__(256) wide_split_weights_kernel(const float* __restrict__ G2, long long gset,
+                                                                 long long gpair, long long grow, int WR, int WRp,
+                                                                 int npairs, long long half, float* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= half) return;
+  const int b = (int)(e % WRp);
+  const long long r = e / WRp;
+  const int a = (int)(r % WR);
+  const long long sw = r / WR;
+  const long long w = sw % npairs, s = sw / npairs;
+  uint32_t big = 0, small = 0;
+  if (b < WR) split_tf32(G2[s * gset + w * gpair + a * grow + b], big, small);
+  out[e] = __uint_as_float(big);
+  out[half + e] = __uint_as_float(small);
+}
+
+int fw_row(int WR) { return (WR + 3) / 4 * 4; }
+
+// The split weights (2 nsets, npairs, WR, WRp) as a 4-D tensor map (b, a,
+// window, set) in boxes of 32 b x `rows` a, float32 with the 128-byte
+// swizzle; reads past WR fill zeros
+bool g_map(CUtensorMap* map, const float* gsplit, int WR, int npairs, int nsets, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t WRp = fw_row(WR);
+  const cuuint64_t dims[4] = {(cuuint64_t)WR, (cuuint64_t)WR, (cuuint64_t)npairs, 2 * (cuuint64_t)nsets};
+  const cuuint64_t strides[3] = {WRp * 4, WR * WRp * 4, npairs * WR * WRp * 4};
+  const cuuint32_t box[4] = {FW_KS, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(gsplit), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// --- forward, 1-D windows: CUDA cores ------------------------------------------------------
+
+constexpr int FT = 256;  // threads
+constexpr int FP = 128;  // points per block
+constexpr int FK = 32;   // rows of a per staged chunk
+constexpr int FS = 32;   // weight sets per block (the grid tiles more)
+
+// y_s[i] (+)= sum_k sum_a L_k[a, i] g_{s,k}[a] over 128 points and up to
+// 32 sets, two threads a point; accumulate: add to y (the 2-D windows'
+// kernel wrote it), else write it.  y is written once, no cross-block sum.
+template <int KIND>
+__global__ void __launch_bounds__(FT) wide_singles_forward_kernel(WideSrc src, int n, Rows singles, int nsingles,
+                                                                  const float* __restrict__ G1, int nsets,
+                                                                  int accumulate, float* __restrict__ y) {
+  __shared__ __align__(16) float L[FK][FP + 4];
+  __shared__ float gs[FK * FS];  // gs[aa FS + s]
+  __shared__ float ys[FS][FP];
+  const int WR = src.WR;
+  const int t = threadIdx.x, ii = t % FP, half = t / FP;
+  const int i0 = blockIdx.x * FP, s0 = blockIdx.y * FS;
+  const int ns = min(FS, nsets - s0);
+  for (int idx = t; idx < FS * FP; idx += FT) (&ys[0][0])[idx] = 0.f;
   for (int k = 0; k < nsingles; ++k) {
     const int j = singles.v[k];
-    __syncthreads();  // the previous window's readers of the tiles are done
-    const int ii = t % FP, half = t / FP;
-    float* gs = &sm.G[0][0];  // gs[aa * FS + s]
     float accs[FS / 2] = {};
     for (int a0 = 0; a0 < WR; a0 += FK) {
-      __syncthreads();
+      __syncthreads();  // the previous chunk's readers of the tiles are done
       for (int idx = t; idx < FK * FP; idx += FT) {
         const int jj = idx % FP, aa = idx / FP, a = a0 + aa, i = i0 + jj;
-        sm.L1[aa][jj] = (a < WR && i < n) ? phase<KIND>(src, j, a, i) : 0.f;
+        L[aa][jj] = (a < WR && i < n) ? phase<KIND>(src, j, a, i) : 0.f;
       }
       for (int idx = t; idx < FK * FS; idx += FT) {
         const int s = idx % FS, aa = idx / FS, a = a0 + aa;
@@ -784,33 +1046,51 @@ __global__ void __launch_bounds__(FT, 2) wide_forward_kernel(WideSrc src, int n,
       }
       __syncthreads();
       for (int aa = 0; aa < FK; ++aa) {
-        const float l = sm.L1[aa][ii];
+        const float l = L[aa][ii];
 #pragma unroll
         for (int q = 0; q < FS / 2; ++q) accs[q] = fmaf(l, gs[aa * FS + 2 * q + half], accs[q]);
       }
     }
 #pragma unroll
     for (int q = 0; q < FS / 2; ++q)
-      if (2 * q + half < ns) sm.y[2 * q + half][ii] += accs[q];
+      if (2 * q + half < ns) ys[2 * q + half][ii] += accs[q];
   }
-
   __syncthreads();
   for (int idx = t; idx < FS * FP; idx += FT) {
     const int s = idx / FP, jj = idx % FP, i = i0 + jj;
-    if (s < ns && i < n) y[(size_t)(s0 + s) * n + i] = sm.y[s][jj];
+    if (s < ns && i < n) {
+      float* out = y + (size_t)(s0 + s) * n + i;
+      *out = accumulate ? *out + ys[s][jj] : ys[s][jj];
+    }
   }
 }
 
 template <int KIND>
-cudaError_t wide_forward(const WideSrc& src, int n, const int* pairs, int npairs, const float* G2, const int* singles,
-                         int nsingles, const float* G1, int nsets, float* y, cudaStream_t st) {
-  const int smem = (int)sizeof(FwdSmem);
-  const cudaError_t e =
-      cudaFuncSetAttribute(wide_forward_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((n + FP - 1) / FP, (nsets + FS - 1) / FS);
-  wide_forward_kernel<KIND><<<grid, FT, smem, st>>>(src, n, make_rows(pairs, 2 * npairs), npairs, G2,
-                                                   make_rows(singles, nsingles), nsingles, G1, nsets, y);
+cudaError_t wide_forward(const WideSrc& src, int n, const int* pairs, int npairs, const float* gsplit,
+                         const int* singles, int nsingles, const float* G1, int nsets, float* y, cudaStream_t st) {
+  const dim3 grid((n + FW_POINTS - 1) / FW_POINTS, (nsets + FW_SETS - 1) / FW_SETS);
+  if (npairs > 0) {
+    int Dtot = 0;
+    for (int k = 0; k < 2 * npairs; ++k) Dtot = pairs[k] + 1 > Dtot ? pairs[k] + 1 : Dtot;
+    const int nt = fw_tile(src.WR);
+    CUtensorMap map0, map1, mapg;
+    if (!tensor_map(&map0, KIND, src.p, src.stride, src.WR, n, Dtot, nt, true) ||
+        !tensor_map(&map1, KIND, src.p, src.stride, src.WR, n, Dtot, FW_KS, true) ||
+        !g_map(&mapg, gsplit, src.WR, npairs, nsets, nt))
+      return cudaErrorInvalidValue;
+    const auto kernel = fw_kernel<KIND>(nt);
+    const int smem = fw_smem<KIND>(nt);
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, WG_THREADS, smem, st>>>(map0, map1, mapg, n, src.WR, make_rows(pairs, 2 * npairs), npairs, nsets,
+                                           y);
+  }
+  if (nsingles > 0) {
+    const cudaError_t e = cudaGetLastError();  // the 2-D windows' launch, before a second one
+    if (e != cudaSuccess) return e;
+    wide_singles_forward_kernel<KIND><<<grid, FT, 0, st>>>(src, n, make_rows(singles, nsingles), nsingles, G1, nsets,
+                                                           npairs > 0, y);
+  }
   return cudaSuccess;
 }
 
@@ -863,15 +1143,36 @@ int wide_adjoint_launch(int kind, const void* src, int stride, const float* alph
   return (int)cudaGetLastError();
 }
 
+// The weights of the forward's 2-D windows split into tf32 halves (see
+// wide_split_weights_kernel): G2 (nsets, npairs, WR, WR) at element
+// strides (gset, gpair, grow, 1), out (2, nsets, npairs, WR, WR rounded up
+// to 4) contiguous.
+int wide_split_weights_launch(const float* G2, long long gset, long long gpair, long long grow, int WR, int npairs,
+                              int nsets, float* out, void* stream) {
+  if (WR < 2 || npairs < 1 || nsets < 1 || gset < 0 || gpair < 0 || grow < WR) return (int)cudaErrorInvalidValue;
+  const long long half = (long long)nsets * npairs * WR * fw_row(WR);
+  wide_split_weights_kernel<<<(unsigned)((half + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      G2, gset, gpair, grow, WR, fw_row(WR), npairs, half, out);
+  return (int)cudaGetLastError();
+}
+
+// gsplit: the weights of the 2-D windows as wide_split_weights_launch
+// writes them, 16-byte aligned; G1: (nsets, nsingles, WR) contiguous.  A
+// launch with 2-D windows refuses a table or split weights off 16-byte
+// boundaries.
 int wide_forward_launch(int kind, const void* src, int stride, int WR, int n, const int* pairs, int npairs,
-                        const float* G2, const int* singles, int nsingles, const float* G1, int nsets, float* y,
+                        const float* gsplit, const int* singles, int nsingles, const float* G1, int nsets, float* y,
                         void* stream) {
-  if (bad_args(kind, WR, n, npairs, nsingles) || nsets < 1) return (int)cudaErrorInvalidValue;
+  const bool misaligned = reinterpret_cast<uintptr_t>(src) % 16 != 0 ||
+                          (size_t)stride * (kind == W_F32 ? 4 : 2) % 16 != 0 ||
+                          reinterpret_cast<uintptr_t>(gsplit) % 16 != 0;
+  if (bad_args(kind, WR, n, npairs, nsingles) || nsets < 1 || nsets > 65535 * FW_SETS || (npairs > 0 && misaligned))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const WideSrc s{src, stride, WR};
   const cudaError_t e = kind == W_F32
-                            ? wide_forward<W_F32>(s, n, pairs, npairs, G2, singles, nsingles, G1, nsets, y, st)
-                            : wide_forward<W_BF16>(s, n, pairs, npairs, G2, singles, nsingles, G1, nsets, y, st);
+                            ? wide_forward<W_F32>(s, n, pairs, npairs, gsplit, singles, nsingles, G1, nsets, y, st)
+                            : wide_forward<W_BF16>(s, n, pairs, npairs, gsplit, singles, nsingles, G1, nsets, y, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

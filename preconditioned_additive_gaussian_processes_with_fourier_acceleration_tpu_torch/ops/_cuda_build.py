@@ -12,10 +12,11 @@ Five shared libraries with a plain C interface, one per source:
   cores in the same kernel;
 - `packed_ndft_wide`: csrc/packed_ndft_wide.cu, the NDFT kernels for every
   even width 2P the three narrow libraries are not built for, on float32
-  and bf16 tables (the adjoint's 2-D windows on the tensor cores, wgmma in
-  3xTF32 fed by TMA copies, csrc/wgmma_tf32.cuh; its 1-D windows and the
-  forward on the CUDA cores), and the kernel that writes the phases of
-  "doubling" and "direct" into a float32 slab for them;
+  and bf16 tables (the 2-D windows of the adjoint and of the forward on
+  the tensor cores, wgmma in 3xTF32 fed by TMA copies, csrc/wgmma_tf32.cuh,
+  the forward's weights split into tf32 halves first; their 1-D windows on
+  the CUDA cores), and the kernel that writes the phases of "doubling" and
+  "direct" into a float32 slab for them;
 - `fused_pcg`: csrc/fused_pcg.cu, the cooperative CG and Lanczos kernels.
 
 Each is compiled at first use with
@@ -80,6 +81,9 @@ _WIDE_TILE = 64
 # wgmma tiles, N tiles of the compiled widths (WG_WIDTHS), at most 144
 _WG_MTILE = 64
 _WG_WIDTHS = (64, 72, 128, 136, 144)
+# the forward's 2-D windows (wide_forward_wg_kernel): N tiles of FW_WIDTHS,
+# at most 136 (its L0 tile and three stages fill shared memory)
+_FW_WIDTHS = (64, 72, 128, 136)
 
 
 def _nvcc() -> str:
@@ -233,6 +237,9 @@ def _ndft_wide_signatures(lib):
     lib.wide_phases_launch.argtypes = [I, P, I, I, I, I, I, P, P]
     lib.wide_phases_launch.restype = I
     lib.wide_adjoint_launch.argtypes = [I, P, I, P, I, I, I, P, I, P, I, P, I, I, P, P]
+    L = ctypes.c_longlong
+    lib.wide_split_weights_launch.argtypes = [P, L, L, L, I, I, I, P, P]
+    lib.wide_split_weights_launch.restype = I
     lib.wide_forward_launch.argtypes = [I, P, I, I, I, P, I, P, P, I, P, I, P, P]
     lib.wide_adjoint_launch.restype = I
     lib.wide_forward_launch.restype = I
@@ -440,6 +447,14 @@ def wide_tiles(WR: int, nv: int) -> tuple[int, int, int]:
     return nt, ntn, -(-(-(-nv * WR // _WG_MTILE)) // 2)
 
 
+def wide_forward_tiles(WR: int) -> tuple[int, int]:
+    """(nt, ntn) of the wide forward's 2-D windows: WR in ceil(WR / 136)
+    N tiles, each the narrowest compiled width that holds its share;
+    fw_tile in csrc/packed_ndft_wide.cu computes the same."""
+    ntn = -(-WR // _FW_WIDTHS[-1])
+    return next(w for w in _FW_WIDTHS if w * ntn >= WR), ntn
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -509,18 +524,40 @@ def adjoint_wide(Tp, alpha, pairs, singles):
     return out[:S2].reshape(nv, np_, WR, WR), out[S2:].reshape(nv, ns, WR)
 
 
+def split_weights_wide(G2):
+    """The wide forward's weight split (csrc/packed_ndft_wide.cu
+    wide_split_weights_kernel) of G2 (nsets, npairs, WR, WR) float32, any
+    strides with a unit last one: (2, nsets, npairs, WR, WRp) float32, big
+    and small tf32 halves, WRp = WR rounded up to 4, zeros in the pad
+    (packed_ndft.split_weights_plain computes the same)."""
+    lib = library("packed_ndft_wide")
+    nsets, npairs, WR, _ = G2.shape
+    if G2.stride(3) != 1:
+        raise ValueError(f"G2 must have unit stride along b, got strides {G2.stride()}")
+    out = torch.empty((2, nsets, npairs, WR, -(-WR // 4) * 4), dtype=torch.float32, device=G2.device)
+    with torch.cuda.device(G2.device):
+        code = lib.wide_split_weights_launch(G2.data_ptr(), *G2.stride()[:3], WR, npairs, nsets, out.data_ptr(),
+                                             _stream(G2))
+    _check(lib, code, "wide weight split")
+    return out
+
+
 def forward_wide(Tp, G2, G1, pairs, singles):
     """Launch the wide forward (csrc/packed_ndft_wide.cu) on a float32 or
-    bf16 table (Dtot, WR, n): (nsets, n) float32."""
+    bf16 table (Dtot, WR, n): (nsets, n) float32.  With 2-D windows the
+    weights' split first (`split_weights_wide`), then the forward; the
+    table's rows start on 16-byte boundaries, or the library refuses the
+    launch.  G1 is contiguous."""
     lib = library("packed_ndft_wide")
     _, WR, n = Tp.shape
     nsets = G2.shape[0]
     y = torch.empty((nsets, n), dtype=torch.float32, device=G2.device)
     pr, sg = _ints(v for pair in pairs for v in pair), _ints(singles)
+    gsplit = split_weights_wide(G2) if pairs else None
     with torch.cuda.device(G2.device):
         code = lib.wide_forward_launch(WIDE_KINDS[Tp.dtype], Tp.data_ptr(), Tp.stride(1), WR, n, pr, len(pairs),
-                                       G2.data_ptr(), sg, len(singles), G1.data_ptr(), nsets, y.data_ptr(),
-                                       _stream(G2))
+                                       None if gsplit is None else gsplit.data_ptr(), sg, len(singles),
+                                       G1.data_ptr(), nsets, y.data_ptr(), _stream(G2))
     _check(lib, code, "wide forward")
     return y
 

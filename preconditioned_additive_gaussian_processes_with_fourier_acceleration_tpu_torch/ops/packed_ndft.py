@@ -465,11 +465,34 @@ def _adjoint_wide(src, a2d, pairs, singles, P=None, phase_gen=None):
     return A2, A1
 
 
+def _tf32(u):
+    """float32 u rounded to tf32 to nearest, ties away from zero, on its bit
+    pattern (tc_common.cuh tf32_rna)."""
+    return ((u.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_weights_plain(G2):
+    """The wide forward's weight split in torch (the plain version of
+    csrc/packed_ndft_wide.cu wide_split_weights_kernel): G2 (nsets, npairs,
+    2P, 2P) float32 -> (2, nsets, npairs, 2P, WRp) float32, WRp = 2P rounded
+    up to 4 floats (16-byte rows for the TMA copies): [0] big = tf32(G2),
+    [1] small = tf32(G2 - big), zeros in the pad; big + small is G2 to about
+    2^-22 relative."""
+    W2 = G2.shape[-1]
+    out = G2.new_zeros((2, *G2.shape[:-1], -(-W2 // 4) * 4))
+    big = _tf32(G2.contiguous())
+    out[0, ..., :W2] = big
+    out[1, ..., :W2] = _tf32(G2 - big)
+    return out
+
+
 def _forward_wide(src, G2c, G1c, pairs, singles, P=None, phase_gen=None):
     """The wide forward on a table src (phase_gen None), or on regenerated
-    phases range by range as `_adjoint_wide`."""
+    phases range by range as `_adjoint_wide`; the table's rows on 16-byte
+    boundaries (`_aligned_table`)."""
     if phase_gen is None:
-        return grouped_forward(_counted(lambda g2, g1, pr, sg: _cuda_build.forward_wide(src, g2, g1, pr, sg),
+        T = _aligned_table(src)
+        return grouped_forward(_counted(lambda g2, g1, pr, sg: _cuda_build.forward_wide(T, g2, g1, pr, sg),
                                         WIDE_FORWARD, f"2P={src.shape[1]} nsets={G2c.shape[0]}"),
                                G2c, G1c, pairs, singles)
     ranges = _point_ranges(src, 2 * P)

@@ -33,20 +33,23 @@ problem (GPProblem(matern12, WINDOWS_FUSED, fastsum_fused=True)) at
 n = 2e5, whose `ndft_kernels_ms` gives the forward's card time in it.
 
 --kernels wide: an earlier OLD/csrc/packed_ndft_wide.cu against the
-current wide pair (the adjoint's 2-D windows on wgmma in 3xTF32): one
+current wide pair (the 2-D windows of both on wgmma in 3xTF32): one
 whose GEMMs regenerate the phases of "doubling" and "direct"
 inside every tile (source kinds 2 and 3, the coordinates as their source),
-or one with a phase slab of its own (wide_phases_launch; its adjoint chunked
-by its own rule, `_old_wide_chunks`), at chip_smoke.py's
+or one with a phase slab of its own (wide_phases_launch; the current
+library writes the slab for it; its adjoint chunked by its own rule,
+`_old_wide_chunks`); its forward's interface is read from its source (the
+current split weights, the first wgmma forward's strided G2, or the
+CUDA-core forward's contiguous G2), at chip_smoke.py's
 [wide-train] shapes (the first N_WIDE_TRAIN = 1e5 points, WINDOWS, 2P =
 130, both phase sources): the adjoint at nv = 1, 10, the forward at
 nsets = 1, 2, 10, 20; the bf16 table at 2P = 128; and the float32 table
 at [afn-pcg-256]'s shape (the window [0, 1], 2P = 256, adjoint nv = 1,
-10, forward nsets = 1).  Then one profiled
+10, forward nsets = 1, 2, 10, 20).  Then one profiled
 loss-and-gradient step of [wide-train]'s problem at n = 1e5 on the stream
 engine and one on the fused engine, with the wide kernels' device time, and
 one AFN-PCG solve of [afn-pcg-256] (ms per iteration, the wide kernels'
-share), after the whole solve timed with the old adjoint in place of the
+share), after the whole solve timed with the old forward in place of the
 new one and with the new, in turns (host clock: the solve is host-bound).
 
 --kernels wide-chunks: the current wide adjoint alone at the shapes of its
@@ -90,16 +93,22 @@ def _old_regen_signatures(lib):
     lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, I, I, I, P, P]
 
 
-def _old_wide_signatures(lib):
-    """An earlier packed_ndft_wide.cu: wide_adjoint_launch /
-    wide_forward_launch as the current ones; wide_phases_launch where it
-    has one."""
-    P, I = ctypes.c_void_p, ctypes.c_int
-    if hasattr(lib, "wide_phases_launch"):
-        lib.wide_phases_launch.argtypes = [I, P, I, I, I, I, P, P]
-        lib.wide_phases_launch.restype = I
+def _old_wide_signatures(lib, forward):
+    """An earlier packed_ndft_wide.cu: wide_adjoint_launch as the current
+    one; its forward's interface (`forward`): "split", as the current one
+    (the weights split by wide_split_weights_launch first); "strided", G2
+    with its strides, split inside the kernel (the first wgmma forward);
+    "contiguous", G2 contiguous (the CUDA-core forward before it)."""
+    from nfft4gp_torch.ops import _cuda_build
+
+    if forward == "split":
+        _cuda_build._ndft_wide_signatures(lib)
+        return
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.wide_adjoint_launch.argtypes = [I, P, I, P, I, I, I, P, I, P, I, P, I, I, P, P]
-    lib.wide_forward_launch.argtypes = [I, P, I, I, I, P, I, P, P, I, P, I, P, P]
+    lib.wide_forward_launch.argtypes = (
+        [I, P, I, I, I, P, I, P, L, L, L, P, I, P, I, P, P] if forward == "strided"
+        else [I, P, I, I, I, P, I, P, P, I, P, I, P, P])
     lib.wide_adjoint_launch.restype = I
     lib.wide_forward_launch.restype = I
 
@@ -116,8 +125,13 @@ def build_old(csrc: Path, source: str) -> ctypes.CDLL:
     subprocess.run([_cuda_build._nvcc(), *_cuda_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(out),
                     str(csrc / source)], check=True)
     lib = ctypes.CDLL(str(out))
-    {"packed_ndft_regen.cu": _old_regen_signatures, "packed_ndft_wide.cu": _old_wide_signatures}.get(
-        source, _cuda_build._ndft_signatures)(lib)
+    if source == "packed_ndft_wide.cu":
+        text = (csrc / source).read_text()
+        lib.forward = ("split" if "wide_split_weights_launch" in text
+                       else "strided" if "long long gset" in text else "contiguous")
+        _old_wide_signatures(lib, lib.forward)
+    else:
+        {"packed_ndft_regen.cu": _old_regen_signatures}.get(source, _cuda_build._ndft_signatures)(lib)
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
@@ -269,8 +283,10 @@ def _old_wide_chunks(WR, nv, n, npairs):
 def old_wide_calls(lib, src, kind, WR, pairs):
     """The earlier wide kernels' adjoint(alpha) -> (nv, npairs, WR, WR) and
     forward(G2) -> (nsets, n) on a table (Dtot, WR, n) or coordinates
-    (Dtot, n), chunked as their wrapper chunked them; a library with a
-    phase slab writes it each call and runs its float32-table GEMMs on it."""
+    (Dtot, n), chunked as their wrapper chunked them; for a library with a
+    phase slab (its own wide_phases_launch) the current library writes the
+    slab each call (the same formulas; its interface changed between
+    builds) and the old kernels run their float32-table GEMMs on it."""
     from nfft4gp_torch.ops import _cuda_build as cb
 
     n = src.shape[-1]
@@ -282,11 +298,8 @@ def old_wide_calls(lib, src, kind, WR, pairs):
         """(kind code, pointer, row stride) of one call's phase source."""
         if not slab:
             return OLD_WIDE_KINDS[kind], src, stride
-        ph = torch.empty((src.shape[0], WR, n), device=src.device)
-        code = lib.wide_phases_launch(cb.PHASE_GEN_CODES[kind], src.data_ptr(), stride, src.shape[0], WR // 2, n,
-                                      ph.data_ptr(), cb._stream(src))
-        assert code == 0, code
-        return 0, ph, n
+        ph = cb.phases_wide(src, WR // 2, kind)
+        return 0, ph, ph.stride(1)
 
     def adj(alpha):
         nv = alpha.shape[0]
@@ -304,8 +317,24 @@ def old_wide_calls(lib, src, kind, WR, pairs):
         y = torch.empty((G2.shape[0], n), device=G2.device)
         g1 = torch.zeros(1, device=G2.device)
         k, ph, st = source()
-        code = lib.wide_forward_launch(k, ph.data_ptr(), st, WR, n, pr, len(pairs), G2.data_ptr(), sg, 0,
-                                       g1.data_ptr(), G2.shape[0], y.data_ptr(), cb._stream(G2))
+        if lib.forward == "split":
+            gs = torch.empty((2, *G2.shape[:3], -(-WR // 4) * 4), device=G2.device)
+            code = lib.wide_split_weights_launch(G2.data_ptr(), *G2.stride()[:3], WR, len(pairs), G2.shape[0],
+                                                 gs.data_ptr(), cb._stream(G2))
+            assert code == 0, code
+            code = lib.wide_forward_launch(k, ph.data_ptr(), st, WR, n, pr, len(pairs), gs.data_ptr(), sg, 0,
+                                           g1.data_ptr(), G2.shape[0], y.data_ptr(), cb._stream(G2))
+        elif lib.forward == "strided":
+            rows = G2
+            if WR % 4:  # 16-byte rows, as its wrapper padded them
+                rows = G2.new_zeros((*G2.shape[:3], -(-WR // 4) * 4))[..., :WR]
+                rows.copy_(G2)
+            code = lib.wide_forward_launch(k, ph.data_ptr(), st, WR, n, pr, len(pairs), rows.data_ptr(),
+                                           *rows.stride()[:3], sg, 0, g1.data_ptr(), G2.shape[0], y.data_ptr(),
+                                           cb._stream(G2))
+        else:
+            code = lib.wide_forward_launch(k, ph.data_ptr(), st, WR, n, pr, len(pairs), G2.data_ptr(), sg, 0,
+                                           g1.data_ptr(), G2.shape[0], y.data_ptr(), cb._stream(G2))
         assert code == 0, code
         return y
 
@@ -333,11 +362,12 @@ def ab_wide(old_lib, X):
                             (lambda a: lambda: pk.packed_adjoint(pa.Tp, a, pairs=pa.pairs))(alpha),
                             (lambda a: lambda: old_adj(a))(alpha) if old_lib else None,
                             lambda r: torch.stack(r[0], 1).reshape(-1), lambda r: r.reshape(-1)))
-    G2 = torch.randn((1, 1, 256, 256), generator=gen, device=X.device)
-    rows.append(_ab_row("forward table_f32@2P=256 nsets=1",
-                        lambda: pk.packed_forward(pa.Tp, list(torch.unbind(G2, 1)), pairs=pa.pairs),
-                        (lambda: old_fwd(G2)) if old_lib else None,
-                        lambda r: torch.stack(r).reshape(-1), lambda r: r.reshape(-1)))
+    for nsets in NSETS:
+        G2 = torch.randn((nsets, 1, 256, 256), generator=gen, device=X.device)
+        rows.append(_ab_row(f"forward table_f32@2P=256 nsets={nsets}",
+                            (lambda g: lambda: pk.packed_forward(pa.Tp, list(torch.unbind(g, 1)), pairs=pa.pairs))(G2),
+                            (lambda g: lambda: old_fwd(g))(G2) if old_lib else None,
+                            lambda r: torch.stack(r).reshape(-1), lambda r: r.reshape(-1)))
     for kind in ("table_bf16", *pk.PHASE_GENS):
         src = pn.Tp if kind == "table_bf16" else lay.xT
         pairs = pn.pairs if kind == "table_bf16" else lay.pairs
@@ -454,7 +484,7 @@ def _device_summary(prof, wall_ms):
 def afn_pcg_256(old_lib):
     """chip_smoke.py's [afn-pcg-256] AFN-PCG solve (AFN_PCG.md section 3's
     row through scripts/torch_afn_pcg_bench.py), set up once.  Times the
-    whole solve (host clock, synchronized) with the current wide adjoint
+    whole solve (host clock, synchronized) with the current wide forward
     and, given old_lib, with the old one in its place (the same operator
     otherwise), in turns old, new, new, old three times; then profiles one
     solve with the current kernels (`profile_afn_pcg_256`)."""
@@ -469,14 +499,14 @@ def afn_pcg_256(old_lib):
     windows = make_windows(bench.windows_of(args.d))
     mv, _ = bench.build_operator(args, X, params, windows, log=lambda m: None)
     (_, _, pre, _), = bench.preconditioners(args, X, params, windows, ["afn"])
-    new_adjoint = cb.adjoint_wide
+    new_forward = cb.forward_wide
 
-    def old_adjoint(Tp, alpha, pairs, singles):
-        adj, _ = old_wide_calls(old_lib, Tp, "table_f32", Tp.shape[1], pairs)
-        return adj(alpha), alpha.new_zeros((alpha.shape[0], 0, Tp.shape[1]))
+    def old_forward(Tp, G2, G1, pairs, singles):
+        _, fwd = old_wide_calls(old_lib, Tp, "table_f32", Tp.shape[1], pairs)
+        return fwd(G2.contiguous())
 
-    def timed(adjoint):
-        cb.adjoint_wide = adjoint
+    def timed(forward):
+        cb.forward_wide = forward
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -484,13 +514,13 @@ def afn_pcg_256(old_lib):
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e3, int(res.niter)
         finally:
-            cb.adjoint_wide = new_adjoint
+            cb.forward_wide = new_forward
 
-    row = {"call": "afn-pcg-256 AFN-PCG solve, ms per iteration (host clock)"}
-    timed(new_adjoint)
+    row = {"call": "afn-pcg-256 AFN-PCG solve, ms per iteration (host clock), old and new wide forward"}
+    timed(new_forward)
     if old_lib is not None:
-        timed(old_adjoint)
-        runs = [timed(f) for _ in range(3) for f in (old_adjoint, new_adjoint, new_adjoint, old_adjoint)]
+        timed(old_forward)
+        runs = [timed(f) for _ in range(3) for f in (old_forward, new_forward, new_forward, old_forward)]
         old = [ms / it for k, (ms, it) in enumerate(runs) if k % 4 in (0, 3)]
         new = [ms / it for k, (ms, it) in enumerate(runs) if k % 4 in (1, 2)]
         row.update(iterations=sorted({it for _, it in runs}), old_ms=old, new_ms=new,

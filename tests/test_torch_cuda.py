@@ -50,7 +50,14 @@ wrappers' routes by width (2P = 1028 to the wide pair: no width cap); and
 products on bf16 tables) are held at 2P = 2 to 2050 (every compiled N-tile
 width, 64, 72, 128, 136 and 144, one tile or several, one or two runs of
 L0 rows a block), nv = 1 to 17 and n = 1 to 100003,
-every phase source, at 1e-4 against the plain versions.  Its regenerating sources are held against the
+every phase source, at 1e-4 against the plain versions.  Its forward's 2-D
+windows (wgmma, 3xTF32, the points as M; two products on bf16 tables) are
+held at the same widths (N tiles of 64, 72, 128 and 136), nsets = 1 to 33
+(two 32-set blocks) and n = 1 to 100003, every phase source, at 1e-4; a
+table at an unpadded stride reaches it through a padded copy, strided
+weights at 2P = 130 through its weight split (bitwise the plain split),
+and its C entry point refuses misaligned pointers and strides.
+Its regenerating sources are held against the
 plain versions in float64 with 1e-4: a float32 coordinate's phase
 2 pi p x errs by about p |x| 2^-22 (3e-5 at p = 512).
 
@@ -1073,7 +1080,7 @@ def test_wide_kernels_at_afn_pcg_256_shape(dev):
 
 # --- the wide adjoint's 2-D windows on wgmma (3xTF32), and calls past one launch's windows ---
 
-WG_WIDTHS = [2, 8, 16, 30, 32, 64, 66, 128, 130, 136, 144, 146, 256, 258, 1026, 1028, 1030, 2050]
+WG_WIDTHS = [2, 8, 16, 30, 32, 64, 66, 72, 128, 130, 136, 144, 146, 256, 258, 1026, 1028, 1030, 2050]
 # (nv, n): every nv and every n at least once; n = 1, below and above one
 # 32-point stage, past a chunk's 64-point tiles, [afn-pcg-256]'s size
 WG_NV_N = [(1, 1), (3, 31), (10, 33), (16, 4097), (17, 100_003), (1, 100_003), (10, 4097)]
@@ -1113,6 +1120,97 @@ def test_wide_adjoint_wgmma_matches_plain(dev, source, W2, nv, n):
     assert torch.equal(got, again)
     W2w, W1w = _wide_adjoint_want(src, alpha, P, pairs, singles, name)
     assert _rel(got, torch.cat([W2w.reshape(-1), W1w.reshape(-1)])) <= WG_RTOL
+
+
+# (nsets, n) of the wgmma forward: one set block and two (33), n = 1, below
+# one 32-point box, past a 128-point block, [afn-pcg-256]'s size
+FW_NSETS_N = [(1, 1), (2, 31), (20, 997), (33, 997), (3, 4097), (1, 100_003)]
+
+
+@pytest.mark.parametrize("nsets,n", FW_NSETS_N)
+@pytest.mark.parametrize("W2", WG_WIDTHS)
+@pytest.mark.parametrize("source", WIDE_SOURCES)
+def test_wide_forward_wgmma_matches_plain(dev, source, W2, nsets, n):
+    """The wide forward (its 2-D windows on wgmma in 3xTF32, two products on
+    bf16 tables; its 1-D window on the CUDA cores) at every width class of
+    its N tiles (2P = 2 to 2050: one tile of each compiled width, 64, 72,
+    128 and 136, rounded up from the width, and several past 136; K = 2P in
+    stages of 32 b with a ragged last one), every phase source, nsets in one
+    32-set block and two, n = 1 to 100003: relative Frobenius 1e-4 against
+    the plain version (the regenerating sources against it in float64: at
+    2P = 1026 and 2050 this also bounds the tensor cores' float32
+    accumulation over K = 2P), a second launch bitwise equal, every launch
+    counted (the table kernels' own widths 16 and 32 through the wide
+    entry).  The weights come from a seeded torch generator on the card
+    (numpy would take seconds for 2 x 33 x 2050^2 of them)."""
+    pairs, singles = LAYOUTS["mixed"]
+    src, P, name, _ = _wide_src(dev, n, W2, source, seed=W2 + n)
+    gen = torch.Generator(device=dev).manual_seed(W2 + nsets)
+    G2 = [torch.randn((nsets, W2, W2), generator=gen, device=dev) for _ in pairs]
+    G1 = [torch.randn((nsets, W2), generator=gen, device=dev) for _ in singles]
+    direct = name == "table" and W2 in pk.KERNEL_WIDTHS
+
+    def call():
+        if direct:
+            G2c, G1c = pk._dense_stacks(torch.stack(G2, 1), torch.stack(G1, 1), W2, dev)
+            return pk._forward_wide(src, G2c, G1c, pairs, singles)
+        return torch.stack(_wide_forward(src, G2, G1, pairs, singles, name, P))
+
+    key = f"2P={W2} nsets={nsets}"
+    before = pk.WIDE_FORWARD.launches_by_shape.get(key, 0)
+    ys, again = call(), call()
+    torch.cuda.synchronize()
+    ranges = 1 if name == "table" else len(pk._point_ranges(src, W2))
+    assert pk.WIDE_FORWARD.launches_by_shape[key] == before + 2 * ranges
+    assert torch.equal(ys, again) and tuple(ys.shape) == (nsets, n)
+    assert _rel(ys, _wide_forward_want(src, G2, G1, P, pairs, singles, name)) <= WG_RTOL
+
+
+@pytest.mark.parametrize("source", ["f32", "bf16"])
+def test_wide_forward_unaligned_inputs(dev, source):
+    """What the forward's TMA copies cannot read as given reaches them
+    through copies: a table held at stride n = 997 (rows off 16-byte
+    boundaries) through `_aligned_table`, and weights at 2P = 130 (520-byte
+    rows) given as a strided view through the weight split, whose output
+    is bitwise the plain split's (tf32 halves, rows padded to 132 floats,
+    zeros in the pad); the result equals the plain version."""
+    n, W2 = 997, 130
+    Tp, P, _, rng = _wide_src(dev, n, W2, source)
+    Tp = Tp.contiguous()
+    assert Tp.stride(1) == n and pk._aligned_table(Tp).stride(1) % 16 == 0
+    pairs = LAYOUTS["pairs"][0]
+    wide = torch.from_numpy(rng.normal(size=(3, len(pairs), W2, W2 + 7)).astype(np.float32)).to(dev)
+    G2s = wide[..., 3:W2 + 3]
+    split = _cuda_build.split_weights_wide(G2s)
+    assert split.shape[-1] == 132 and torch.equal(split, pk.split_weights_plain(G2s))
+    before = pk.WIDE_FORWARD.launches
+    ys = torch.stack(pk.packed_forward(Tp, list(torch.unbind(G2s, 1)), pairs=pairs))
+    assert pk.WIDE_FORWARD.launches == before + 1
+    assert _rel(ys, pk.packed_forward_plain(Tp, G2s, None, pairs, ())) <= KERNEL_RTOL
+
+
+@pytest.mark.parametrize("case", ["split_pointer", "table_pointer", "table_stride"])
+def test_wide_forward_refuses_misaligned(dev, case):
+    """The C entry point refuses what its TMA copies cannot read (split
+    weights or a table off 16-byte boundaries, a table's row stride not a
+    multiple of 16 bytes): the launch returns cudaErrorInvalidValue (1)
+    and the launcher raises."""
+    n, W2 = 997, 128
+    Tp, _, _, _ = _wide_src(dev, n, W2, "f32")
+    gsplit = torch.zeros(2 * W2 * W2 + 1, device=dev)
+    gsplit = gsplit[1:] if case == "split_pointer" else gsplit[:-1]
+    if case == "table_pointer":
+        Tp = torch.ones((5, W2, n + 7), device=dev)[:, :, 1:n + 1]
+    elif case == "table_stride":
+        Tp = Tp.contiguous()
+    G1, y = torch.zeros(1, device=dev), torch.empty((1, n), device=dev)
+    lib = _cuda_build.library("packed_ndft_wide")
+    code = lib.wide_forward_launch(0, Tp.data_ptr(), Tp.stride(1), W2, n, _cuda_build._ints((0, 1)), 1,
+                                   gsplit.data_ptr(), _cuda_build._ints(()), 0, G1.data_ptr(), 1, y.data_ptr(),
+                                   _cuda_build._stream(y))
+    assert code == 1
+    with pytest.raises(RuntimeError, match="wide forward launch failed"):
+        _cuda_build._check(lib, code, "wide forward")
 
 
 MANY_PAIRS = tuple((2 * w, 2 * w + 1) for w in range(33))

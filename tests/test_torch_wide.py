@@ -9,6 +9,9 @@ on CPU, float64:
   against the JAX Pallas kernels in interpret mode (block=128);
 - the wrapper's routes: on CPU tensors the plain versions serve every even
   width up to 258 and no kernel launch is counted;
+- the wide kernels' N tiles (adjoint and forward) and the forward's split
+  weights (`split_weights_plain`: tf32 halves in 16-byte rows, zeros in the
+  pad, the plain forward unchanged on them to 1e-6);
 - `psd_clip` (fastsum_coeffs, additive_fastsum_coeffs, one matvec) at
   matern12, N = 32 and 64, l = 0.1 (where these points give no negative
   coefficient) and l = 0.5 (where some are clipped);
@@ -192,6 +195,45 @@ def test_wide_adjoint_tiles_are_compiled_widths():
         assert mblocks == -(-(-(-3 * W2 // 64)) // 2)
     assert [cb.wide_tiles(W2, 1)[:2] for W2 in (2, 66, 130, 144, 146, 256, 258, 1030)] == [
         (64, 1), (72, 1), (136, 1), (144, 1), (128, 2), (128, 2), (136, 2), (136, 8)]
+
+
+def test_wide_forward_tiles_are_compiled_widths():
+    """The wide forward's N tiles (`wide_forward_tiles`, as
+    csrc/packed_ndft_wide.cu fw_tile) at every even 2P to 4096: ceil(2P /
+    136) tiles, each the narrowest compiled width (64, 72, 128, 136) that
+    covers 2P with them."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    widths = (64, 72, 128, 136)
+    for W2 in range(2, 4098, 2):
+        nt, ntn = cb.wide_forward_tiles(W2)
+        assert ntn == -(-W2 // 136) == -(-W2 // nt)
+        assert nt == min(w for w in widths if w * ntn >= W2)
+    assert [cb.wide_forward_tiles(W2) for W2 in (2, 66, 130, 136, 138, 144, 146, 256, 258, 1030, 2050)] == [
+        (64, 1), (72, 1), (136, 1), (136, 1), (72, 2), (72, 2), (128, 2), (128, 2), (136, 2), (136, 8), (136, 16)]
+
+
+@pytest.mark.parametrize("W2", [8, 64, 128, 130, 258])
+def test_split_weight_stacks(rows, W2):
+    """`split_weights_plain` (the wide forward's weights as its kernel reads
+    them, the plain version of its split kernel): rows padded to 4 floats
+    with zeros in the pad, big and small tf32 (13 low bits zero), big +
+    small = G to 2^-21 relative, and the plain forward on big + small equal
+    to the plain forward on G to 1e-6."""
+    xT, rng = rows
+    P = W2 // 2
+    Tp = tpn.pack_phase_table(torch.tensor(xT, dtype=torch.float32), P)
+    G2 = torch.tensor(rng.normal(size=(3, len(PAIRS), W2, W2)), dtype=torch.float32)
+    split = tpn.split_weights_plain(G2)
+    assert tuple(split.shape) == (2, 3, len(PAIRS), W2, -(-W2 // 4) * 4)
+    assert not split[..., W2:].any()
+    assert not (split.view(torch.int32) & 0x1FFF).any()
+    big, small = split[0, ..., :W2].double(), split[1, ..., :W2].double()
+    assert float(((big + small - G2.double()).abs() - 2.0 ** -21 * G2.double().abs()).max()) <= 0
+    assert float((small.abs() - 2.0 ** -10 * big.abs()).max()) <= 0
+    y = tpn.packed_forward_plain(Tp, (big + small).float(), None, PAIRS, ())
+    want = tpn.packed_forward_plain(Tp, G2, None, PAIRS, ())
+    assert float(torch.linalg.norm(y - want) / torch.linalg.norm(want)) <= 1e-6
 
 
 @pytest.mark.parametrize("kind", ["adjoint", "forward"])

@@ -14,11 +14,19 @@ Phases, one line each (any failure raises and exits non-zero):
      card at the training shapes (n = 2e5, d = 10, five 2-D windows, N = 32,
      bf16 table; nv = 1, 10 and nsets = 1, 2, 10, 20, the launch mix of an
      Adam step), plus a case with a 1-D window, plus the fused layout's
-     windows trimmed to 2P = 32; and the float32-table kernels (the CUDA-core
-     adjoint and forward of csrc/packed_ndft.cu) at [afn-pcg]'s shape
-     (n = 1e5, the window [0, 1], 2P = 32, nv = 1, nsets = 1); a second
-     launch of each must be bitwise equal to the first, and each prints its
-     share of its bound;
+     windows trimmed to 2P = 32; and the float32-table kernels through the
+     wrappers (csrc/packed_ndft.cu, CUDA cores fed by a TMA ring, or the
+     wide pair where `table_route` sends the count) at 2P = 16 and 32, at
+     [afn-pcg]'s one pair and at the AFN-PCG bench's default five pairs
+     (n = 1e5, d = 10), adjoint nv = 1, 10 and forward nsets = 1, 2, 10,
+     20, each bound on the units of the kernel the route picks, the wide
+     pair on the same inputs beside each (held against the plain version,
+     bitwise on a second launch, and timed) and one read of the table
+     (torch.sum, the cold-read yardstick) timed beside; the shapes
+     bound by bytes whose inputs fit the 50 MB L2 are timed cold too
+     (`cuda_ms(cold=True)`: the L2 flushed before every call, an event pair
+     a call), and their share is the cold one; a second launch of each must
+     be bitwise equal to the first, and each prints its share of its bound;
   4. kernels-regen: the phase-regenerating kernels against their plain
      versions at the fused layout WINDOWS_FUSED (its 2-D and 1-D windows;
      N = 32, untrimmed 2P = 34), both phase sources ("doubling", "direct"),
@@ -40,7 +48,8 @@ Phases, one line each (any failure raises and exits non-zero):
      more than the kernel); at WINDOWS ([wide-train]'s shape) the bf16
      table at 2P = 128 and both regenerating sources at 2P = 130 (nv = 1,
      10; nsets = 1, 2, 10, 20); and at 2P = 32 the wide pair beside the
-     narrow kernels on the same inputs; a second launch of each must be
+     narrow bf16-table kernels on the same inputs (the float32 table's are
+     in 3); a second launch of each must be
      bitwise equal, and no narrow kernel may serve a wide width; bound: the
      2-D products 3 x (bf16 tables 2 x) at the TF32 peak beside the 1-D
      windows' flops (and the forward's epilogue over a) at the float32
@@ -145,11 +154,12 @@ Phases, one line each (any failure raises and exits non-zero):
      1.3e-5 and gradient entries within 1e-6 (PERF.md);
  17. afn-pcg: K x = y by the port's pcg to relres 1e-2 (at most 400
      iterations) on matern12, the first two features and the window
-     [0, 1], (f, l, mu) = (1, 0.1, 0.01), n = 1e5, float32 tables (the
-     CUDA-core kernels): no
+     [0, 1], (f, l, mu) = (1, 0.1, 0.01), n = 1e5, float32 tables
+     (csrc/packed_ndft.cu): no
      preconditioner, Nystrom (200 landmarks), AFN (maxrank 200, lfil 16);
      iterations, final relres, set-up and solve seconds; AFN must converge,
-     and the float32-table kernels' launches of its solve are read;
+     and the float32-table kernels' launches of its solve are read and
+     printed by shape;
  17b. afn-pcg-256: AFN_PCG.md section 3's row at its full size through
      scripts/torch_afn_pcg_bench.py's functions: n = 1e5, d = 2, matern12,
      (f, l, mu) = (1, 0.1, 0.01), N = 256 (float32 tables at 2P = 256 on the
@@ -199,13 +209,18 @@ ones and the wide pair; twice for the wide pair on a bf16 table,
 whose values are exact in tf32); their CUDA-core flops (the 1-D windows,
 the forwards' epilogue) over the 67 TFLOP/s float32 peak run beside them,
 so the operations take the larger of the two times; the other kernels'
-flops count over the float32 peak; the H100 SXM's published peaks at 700
-W.  Each entry of the kernels JSON names the units its operations run on
+flops count over the float32 peak (on the CUDA cores alone, the sum); the
+H100 SXM's published peaks at 700 W.  Each entry of the kernels JSON names
+the units its operations run on
 (`engine`); the wide pair's entries are its float32-table cases at
 [afn-pcg-256]'s shape (2P = 256, nv = nsets = 1) with that solve's
 launches, its launches by shape in [wide-train] and its times at
 [wide-train]'s shapes in [kernels-wide]; the narrow bf16-table and
-regenerating pairs' also carry their launches in [many-windows].
+regenerating pairs' also carry their launches in [many-windows]; the
+float32-table pair's are its [afn-pcg] shape (one pair, 2P = 32, nv =
+nsets = 1; ms cold, ms_warm and the table's cold read beside) with that
+solve's launches, and its times and the wide pair's at every [kernels]
+float32 shape.
 
 A `[done]` line gives the script's wall seconds from its start to the
 summary, and each phase's.  The line before the last is a JSON summary of the kernels; the
@@ -249,9 +264,13 @@ HBM_PEAK = 3.35e12
 # the units a kernel's operations run on, and their rate: the CUDA cores, or
 # three passes on the tensor cores (bf16: the three-term split of a float32
 # operand; tf32: 3xTF32, big*big + big*small + small*big)
-PEAKS = {"f32": F32_PEAK, "bf16x3": BF16_PEAK / 3, "tf32x3": TF32_PEAK / 3,
+PEAKS = {"f32": F32_PEAK, "f32_tma": F32_PEAK, "bf16x3": BF16_PEAK / 3, "tf32x3": TF32_PEAK / 3,
          "wgmma_tf32x3": TF32_PEAK / 3, "wgmma_tf32x2": TF32_PEAK / 2}
-ENGINES = {"f32": "CUDA cores", "bf16x3": "tensor cores, mma.sync bf16, 3-term split of the float32 operand",
+CUDA_CORE_UNITS = ("f32", "f32_tma")
+ENGINES = {"f32": "CUDA cores",
+           "f32_tma": "CUDA cores fed by a TMA ring, every consumer warp busy at one right-hand side or weight set "
+                      "(csrc/packed_ndft.cu); the 1-D windows of the adjoint on a CUDA-core template",
+           "bf16x3": "tensor cores, mma.sync bf16, 3-term split of the float32 operand",
            "tf32x3": "tensor cores, mma.sync m16n8k8 3xTF32; the Nyquist mode's columns (adjoint) or rows "
                      "(forward), the forward's epilogue and the 1-D windows on the CUDA cores",
            "wgmma_tf32x3": "tensor cores, wgmma m64nNk8 3xTF32 fed by TMA (2-D windows); the 1-D windows on the "
@@ -265,6 +284,9 @@ SLQ_NV, SLQ_ITS = 10, 10
 # clock cycles of the sleep kernel that holds the stream while a timed batch
 # is enqueued (about 20 ms on an H100)
 SLEEP_CYCLES = 40_000_000
+# bytes of each of the two scratch buffers of a cold timing (cuda_ms(cold=True)):
+# past the H100's 50 MB L2
+FLUSH_BYTES = 64 << 20
 
 
 def nvidia_smi() -> str:
@@ -282,14 +304,35 @@ def make_data(n, seed=0):
     return torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
 
 
-def cuda_ms(fn, reps=10, warmup=2, batches=3):
+def cuda_ms(fn, reps=10, warmup=2, batches=3, cold=False):
     """Milliseconds of one fn() on the card: the median over `batches` of
     CUDA events around `reps` back-to-back calls, enqueued behind a sleep
     kernel so that the host's time to issue them does not count (where fn
-    itself waits for the card, its host time still shows)."""
+    itself waits for the card, its host time still shows).
+
+    cold: the 50 MB L2 is flushed before every call -- FLUSH_BYTES of
+    scratch written, then another FLUSH_BYTES read, so that the call finds
+    none of its inputs in L2 and no dirty line of the flush is left to be
+    written back while it runs -- and each call has its own event pair, so
+    the flush is not timed: the median over all calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if cold:
+        flush = [torch.ones(FLUSH_BYTES // 4, device="cuda") for _ in range(2)]
+        times = []
+        for _ in range(batches):
+            events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)] for _ in range(reps)]
+            torch.cuda._sleep(SLEEP_CYCLES)
+            for start, stop in events:
+                flush[0].zero_()
+                flush[1].sum()
+                start.record()
+                fn()
+                stop.record()
+            torch.cuda.synchronize()
+            times += [start.elapsed_time(stop) for start, stop in events]
+        return float(np.median(times))
     times = []
     for _ in range(batches):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -313,8 +356,12 @@ def _rel_err(got, want):
 def bound(flops, nbytes, unit="f32", f32_flops=0.0):
     """(ms, "operations" | "bytes"): the least time the card could take;
     flops on `unit` (a key of PEAKS) and f32_flops on the CUDA cores, each
-    over its own peak: the two units run side by side, so the larger time."""
-    t_ops = max(flops / PEAKS[unit], f32_flops / F32_PEAK) * 1e3
+    over its own peak: two units run side by side, so the larger time; on
+    the CUDA cores alone the sum."""
+    if unit in CUDA_CORE_UNITS:
+        t_ops = (flops + f32_flops) / F32_PEAK * 1e3
+    else:
+        t_ops = max(flops / PEAKS[unit], f32_flops / F32_PEAK) * 1e3
     t_bytes = nbytes / HBM_PEAK * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -339,7 +386,8 @@ def library_calls(T, pairs, singles):
 
 
 def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets_list, timed, T32, src_bytes,
-               units=("f32", "f32"), repeat=False, label=None, adj_ref=None, fwd_ref=None):
+               units=("f32", "f32"), repeat=False, label=None, adj_ref=None, fwd_ref=None, cold=False,
+               beside=None, route=None, read=None):
     """One adjoint kernel and one forward kernel against their plain versions.
 
     adj(alpha) / fwd(G2, G1) are the wrappers on one layout; adj_plain /
@@ -347,19 +395,30 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
     the library yardstick; src_bytes the bytes of the kernels' phase source
     (table or coordinates); units: the PEAKS keys of the adjoint's and of
     the forward's 2-D window products (the adjoint's 1-D windows, the
-    forward's epilogue over a and its 1-D windows count on the CUDA cores);
+    forward's epilogue over a and its 1-D windows count on the CUDA cores),
+    or units(op, count) -> the key of the kernel that runs the case;
     repeat: a second launch must be bitwise equal to the first; label: the
     printed phase tag; adj_ref / fwd_ref: the references of the error when
     they are not the plain versions (the regenerating kernels' plain
-    versions in float64).
-    Returns per-case dicts (kernel, mode, shape, rel, max_abs, ms, plain_ms,
-    library_ms, bound_ms, bound_by, bitwise, engine)."""
+    versions in float64); cold: where the bytes bound a case and its inputs
+    fit the L2, its times are also taken with the L2 flushed before every
+    call (`cuda_ms(cold=True)`), and ms and the share are those (ms_warm
+    the warm time); beside: (adjoint, forward) of another kernel on the
+    same inputs, returning the plain versions' outputs (stacked), held
+    against the same reference and repeated bitwise as the case, then timed
+    as the case (beside_ms); route(op, count): the kernel the wrappers'
+    route rule picks, printed; read: a library call that reads the phase
+    source once (a yardstick of the cold read), timed as the case (read_ms).
+    Returns per-case dicts (kernel, mode, shape, rel, max_abs, ms, ms_warm,
+    plain_ms, library_ms, beside_ms, beside_rel, read_ms, bound_ms,
+    bound_by, bitwise, engine, route)."""
     n, dev = X.shape[0], X.device
     W2 = 2 * P
     npairs, nsingles = len(lay.pairs), len(lay.singles)
     lib_adj, lib_fwd = library_calls(T32, lay.pairs, lay.singles)
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
+    unit = units if callable(units) else lambda op, count: units[op == "forward"]
     for nv in nvs:
         alpha = torch.randn((nv, n), generator=gen, device=dev)
         got = adj(alpha)
@@ -370,15 +429,18 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         want_flat = [w for w in want if w.numel()]
         rel, mx = _rel_err([torch.stack(g, dim=1) for g in got if g], want_flat)
         lib_rel, _ = _rel_err([w for w in lib_adj(alpha) if w.numel()], want_flat)
-        ms = cuda_ms(lambda: adj(alpha)) if timed else None
-        pms = cuda_ms(lambda: adj_plain(alpha)) if timed else None
-        lms = cuda_ms(lambda: lib_adj(alpha)) if timed else None
+        side = None if beside is None else _beside_check(lambda: [w for w in beside[0](alpha) if w.numel()],
+                                                         want_flat)
         out = nv * (npairs * W2 * W2 + nsingles * W2)
-        b_ms, b_by = bound(2.0 * n * nv * npairs * W2 * W2, src_bytes + 4 * (nv * n + out), units[0],
-                           f32_flops=2.0 * n * nv * nsingles * W2)
-        cases.append(dict(kernel=names[0], shape=f"nv={nv}", rel=rel, max_abs=mx, lib_rel=lib_rel, ms=ms,
-                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by, bitwise=bitwise,
-                          engine=ENGINES[units[0]]))
+        nbytes = src_bytes + 4 * (nv * n + out)
+        u = unit("adjoint", nv)
+        b_ms, b_by = bound(2.0 * n * nv * npairs * W2 * W2, nbytes, u, f32_flops=2.0 * n * nv * nsingles * W2)
+        times = _case_times(timed, cold and b_by == "bytes" and nbytes <= L2_BYTES,
+                            [lambda: adj(alpha), lambda: adj_plain(alpha), lambda: lib_adj(alpha),
+                             None if beside is None else lambda: beside[0](alpha), read])
+        cases.append(dict(kernel=names[0], shape=f"nv={nv}", rel=rel, max_abs=mx, lib_rel=lib_rel, **times,
+                          bound_ms=b_ms, bound_by=b_by, bitwise=bitwise, engine=ENGINES[u], beside=side,
+                          route=route("adjoint", nv) if route else None))
 
     # realistic combined weights: K and dK/dl sets of real adjoint outputs
     from nfft4gp_torch.ops import fastsum as fs
@@ -401,15 +463,18 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
         want = (fwd_ref or fwd_plain)(G2s, G1s)
         rel, mx = _rel_err(got, [want])
         lib_rel, _ = _rel_err([lib_fwd(G2s, G1s)], [want])
-        ms = cuda_ms(lambda: fwd(G2, G1)) if timed else None
-        pms = cuda_ms(lambda: fwd_plain(G2s, G1s)) if timed else None
-        lms = cuda_ms(lambda: lib_fwd(G2s, G1s)) if timed else None
+        side = None if beside is None else _beside_check(lambda: [beside[1](G2s, G1s)], [want])
         weights = nsets * (npairs * W2 * W2 + nsingles * W2)
-        b_ms, b_by = bound(2.0 * nsets * n * npairs * W2 * W2, src_bytes + 4 * (weights + nsets * n), units[1],
+        nbytes = src_bytes + 4 * (weights + nsets * n)
+        u = unit("forward", nsets)
+        b_ms, b_by = bound(2.0 * nsets * n * npairs * W2 * W2, nbytes, u,
                            f32_flops=2.0 * nsets * n * (npairs + nsingles) * W2)
-        cases.append(dict(kernel=names[1], shape=f"nsets={nsets}", rel=rel, max_abs=mx, lib_rel=lib_rel, ms=ms,
-                          plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by, bitwise=bitwise,
-                          engine=ENGINES[units[1]]))
+        times = _case_times(timed, cold and b_by == "bytes" and nbytes <= L2_BYTES,
+                            [lambda: fwd(G2, G1), lambda: fwd_plain(G2s, G1s), lambda: lib_fwd(G2s, G1s),
+                             None if beside is None else lambda: beside[1](G2s, G1s), read])
+        cases.append(dict(kernel=names[1], shape=f"nsets={nsets}", rel=rel, max_abs=mx, lib_rel=lib_rel, **times,
+                          bound_ms=b_ms, bound_by=b_by, bitwise=bitwise, engine=ENGINES[u], beside=side,
+                          route=route("forward", nsets) if route else None))
 
     for c in cases:
         c["mode"], c["tag"] = tag.split(" ")[0], tag
@@ -418,15 +483,51 @@ def check_pair(tag, names, adj, adj_plain, fwd, fwd_plain, lay, P, X, nvs, nsets
               f"plain_ms={c['plain_ms']} library_ms={c['library_ms']} (einsum rel_err={c['lib_rel']:.1e}) "
               f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})"
               + (f" share_of_bound={c['bound_ms'] / c['ms']:.3f}" if c["ms"] else "")
+              + (f" (L2 flushed; warm ms={c['ms_warm']})" if c["ms_warm"] is not None else "")
+              + (f" beside_ms={c['beside_ms']}" if c["beside_ms"] is not None else "")
+              + (f" beside_rel_err={c['beside'][0]:.3e} beside_bitwise_repeat={c['beside'][1]}" if c["beside"] else "")
+              + (f" read_ms={c['read_ms']}" if c["read_ms"] is not None else "")
+              + (f" route={c['route']}" if c["route"] else "")
               + (f" bitwise_repeat={c['bitwise']}" if repeat else ""), flush=True)
         if not c["bitwise"]:
             raise AssertionError(f"{c['kernel']} {tag} {c['shape']}: a second launch differs")
         if not c["rel"] <= KERNEL_RTOL:
             raise AssertionError(f"{c['kernel']} {tag} {c['shape']} disagrees with its plain version: {c['rel']}")
+        if c["beside"] and not (c["beside"][0] <= KERNEL_RTOL and c["beside"][1]):
+            raise AssertionError(f"the kernel beside {c['kernel']} {tag} {c['shape']} disagrees with the plain "
+                                 f"version or with its second launch: {c['beside']}")
         if not c["lib_rel"] <= KERNEL_RTOL:
             raise AssertionError(f"the einsum yardstick of {c['kernel']} {tag} {c['shape']} computes "
                                  f"another function: {c['lib_rel']}")
     return cases
+
+
+# bytes of the H100's L2: inputs up to it are also timed cold in check_pair
+L2_BYTES = 50e6
+
+
+def _beside_check(call, want):
+    """(relative error against want, bitwise equal on a second call) of
+    the kernel beside a check_pair case."""
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    return _rel_err(got, want)[0], all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+def _case_times(timed, cold, fns):
+    """ms, ms_warm, plain_ms, library_ms, beside_ms, read_ms of one
+    check_pair case from fns = [kernel, plain, library, beside or None, read
+    or None]: cuda_ms warm, and for the kernel, beside and read cold instead
+    when `cold` (ms_warm then the kernel's warm time)."""
+    if not timed:
+        return dict(ms=None, ms_warm=None, plain_ms=None, library_ms=None, beside_ms=None, read_ms=None)
+    kern, plain, lib, other, read = fns
+    out = dict(ms=cuda_ms(kern), ms_warm=None, plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib))
+    if cold:
+        out.update(ms_warm=out["ms"], ms=cuda_ms(kern, cold=True))
+    for key, fn in (("beside_ms", other), ("read_ms", read)):
+        out[key] = None if fn is None else cuda_ms(fn, cold=cold)
+    return out
 
 
 def _plan(X, windows, N=FASTSUM_N):
@@ -437,24 +538,70 @@ def _plan(X, windows, N=FASTSUM_N):
     return fs.additive_fastsum_build("gaussian", params, X, make_windows(windows), N=N)
 
 
-def check_kernels(X, windows, nvs, nsets_list, timed=True, table_dtype=torch.bfloat16):
-    """The table kernels against their plain versions (2P = 32): the
-    tensor-core ones of a bf16 table, or the CUDA-core ones of a float32
-    table (csrc/packed_ndft.cu)."""
+def check_kernels(X, windows, nvs, nsets_list, timed=True):
+    """The bf16-table kernels (the tensor-core ones of csrc/packed_ndft_tc.cu)
+    against their plain versions (2P = 32)."""
     from nfft4gp_torch.ops import fastsum as fs
     from nfft4gp_torch.ops import packed_ndft as pk
 
-    tc = table_dtype == torch.bfloat16
-    pn = fs.packed_ndft_plan(_plan(X, windows), table_dtype=table_dtype)
+    pn = fs.packed_ndft_plan(_plan(X, windows), table_dtype=torch.bfloat16)
     Tp, pairs, singles = pn.Tp, pn.pairs, pn.singles
     return check_pair(
-        f"table-{'bf16' if tc else 'f32'} windows={windows} n={X.shape[0]}", ("packed_adjoint", "packed_forward"),
+        f"table-bf16 windows={windows} n={X.shape[0]}", ("packed_adjoint", "packed_forward"),
         lambda a: pk.packed_adjoint(Tp, a, pairs=pairs, singles=singles),
         lambda a: pk.packed_adjoint_plain(Tp, a, pairs, singles),
         lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles),
         lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles),
         pn, pn.P, X, nvs, nsets_list, timed, Tp.float(), Tp.numel() * Tp.element_size(),
-        units=("bf16x3", "bf16x3") if tc else ("f32", "f32"), repeat=True)
+        units=("bf16x3", "bf16x3"), repeat=True)
+
+
+# the float32-table cases ([kernels]): 2P, the layouts at n = N_AFN_PCG
+# ([afn-pcg]'s one pair; the AFN-PCG bench's default d = 10, five 2-D
+# windows) and the adjoint's right-hand sides / the forward's weight sets
+F32_WIDTHS = (16, 32)
+F32_LAYOUTS = {"1pair": [[0, 1]], "5pairs": WINDOWS}
+F32_NVS, F32_NSETS = (1, 10), (1, 2, 10, 20)
+# the unit (PEAKS) of each kernel that `table_route` may pick for them
+F32_UNITS = {"f32": "f32_tma", "wide": "wgmma_tf32x3"}
+
+
+def check_f32_kernels(X):
+    """The float32-table kernels through the wrappers (`packed_adjoint` /
+    `packed_forward`: csrc/packed_ndft.cu, or the wide pair where
+    `table_route` sends a count past its cut-over) against their plain
+    versions at 2P = 16 and 32, one pair and five, n = N_AFN_PCG: nv = 1,
+    10 and nsets = 1, 2, 10, 20; a second launch bitwise equal; the shapes
+    bound by bytes whose inputs fit the L2 timed cold; each case's bound
+    and engine those of the kernel the route picks (CUDA cores, or the wide
+    pair's wgmma in 3xTF32); the wide pair on the same inputs beside each
+    case, held against the plain version and timed (beside_ms); a sum of
+    the table (torch.sum, one read of it) timed as the case (read_ms).
+    Returns the case dicts, mode "table-f32@2P=..-<layout>"."""
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    Xn = X[:N_AFN_PCG]
+    cases = []
+    for lname, windows in F32_LAYOUTS.items():
+        d = 1 + max(max(w) for w in windows)
+        for W2 in F32_WIDTHS:
+            pn = fs.packed_ndft_plan(_plan(Xn[:, :d].contiguous(), windows, N=W2), table_dtype=torch.float32)
+            Tp, pairs = pn.Tp, pn.pairs
+            cases += check_pair(
+                f"table-f32@2P={W2}-{lname} windows={windows} n={Xn.shape[0]}", ("packed_adjoint", "packed_forward"),
+                lambda a: pk.packed_adjoint(Tp, a, pairs=pairs),
+                lambda a: pk.packed_adjoint_plain(Tp, a, pairs, ()),
+                lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs),
+                lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, ()),
+                pn, pn.P, Xn, F32_NVS, F32_NSETS, True, Tp, Tp.numel() * Tp.element_size(),
+                units=lambda op, count: F32_UNITS[pk.table_route(W2, torch.float32, op, count)],
+                repeat=True, cold=True,
+                beside=(lambda a: pk._adjoint_wide(Tp, a, pairs, ()),
+                        lambda G2s, G1s: pk._forward_wide(Tp, *pk._dense_stacks(G2s, None, W2, Tp.device), pairs,
+                                                          ())),
+                route=lambda op, count: pk.table_route(W2, torch.float32, op, count), read=Tp.sum)
+    return cases
 
 
 def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20)):
@@ -563,11 +710,12 @@ def check_wide_kernels(X):
         cases += regen(Xt, WINDOWS, WIDE_TRAIN_N + 2, gen, (1, 10), (1, 2, 10, 20))
     if [fn.launches for fn in narrow] != narrow_before:
         raise AssertionError("kernels-wide: a narrow kernel served a wide width")
-    # 2P = 32: the wide pair and the narrow kernels on the same inputs
-    for dtype in (torch.float32, torch.bfloat16):
+    # 2P = 32: the wide pair and the narrow bf16-table kernels on the same
+    # inputs (the float32 table's are in [kernels])
+    for dtype in (torch.bfloat16,):
         pn = fs.packed_ndft_plan(_plan(Xa, [[0, 1]], N=32), table_dtype=dtype)
         Tp, pairs = pn.Tp, pn.pairs
-        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        kind = "bf16"
         wide = check_pair(
             f"table-{kind}@2P=32 windows=[[0, 1]] n={Xa.shape[0]}", names,
             lambda a: pk._adjoint_outputs(*pk._adjoint_wide(Tp, a, pairs, ()), True, len(pairs), 0),
@@ -1139,6 +1287,10 @@ def check_afn_pcg(X, y):
     print(f"[afn-pcg] n={X.shape[0]} d=2 matern12 windows={windows} (f, l, mu) = (1, 0.1, 0.01) N={FASTSUM_N} "
           f"float32 tables, tol 1e-2, maxits 400 (operator set-up {s_op:.2f} s): {rows} launches of the AFN "
           f"solve={counts}", flush=True)
+    by_shape = counts["by_shape"]
+    print(f"[afn-pcg] the float32-table route's launches in the AFN solve by shape: csrc/packed_ndft.cu adjoint "
+          f"{by_shape.get('packed_adjoint', {})} forward {by_shape.get('packed_forward', {})}; wide pair adjoint "
+          f"{by_shape.get('packed_adjoint_wide', {})} forward {by_shape.get('packed_forward_wide', {})}", flush=True)
     if not (rows["afn"]["niter"] <= 400 and rows["afn"]["relres"] <= 1e-2):
         raise AssertionError(f"afn-pcg: AFN-PCG did not reach 1e-2 in 400 iterations: {rows['afn']}")
     if min(counts["packed_adjoint"], counts["packed_forward"]) <= 0:
@@ -1498,9 +1650,7 @@ def main():
     cases = check_kernels(X, WINDOWS, nvs=(1, 10), nsets_list=(1, 2, 10, 20))
     cases += check_kernels(X, WINDOWS_1D, nvs=(1, 10), nsets_list=(1, 2, 10, 20), timed=False)
     check_kernels(X, WINDOWS_FUSED, nvs=(1, 10), nsets_list=(1, 2, 10, 20))
-    # the float32-table kernels at [afn-pcg]'s shape
-    f32 = check_kernels(X[:N_AFN_PCG, :2].contiguous(), [[0, 1]], nvs=(1,), nsets_list=(1,),
-                        table_dtype=torch.float32)
+    f32 = check_f32_kernels(X)
     regen = check_regen_kernels(X)
     mark("kernels")
     wide = check_wide_kernels(X)
@@ -1564,8 +1714,8 @@ def main():
 
     summary = [_summary("packed_adjoint", "table", "table-bf16", cases, "nv=10", counts),
                _summary("packed_forward", "table", "table-bf16", cases, "nsets=20", counts),
-               _summary("packed_adjoint", "table_f32", "table-f32", f32, "nv=1", pcounts),
-               _summary("packed_forward", "table_f32", "table-f32", f32, "nsets=1", pcounts),
+               _summary("packed_adjoint", "table_f32", "table-f32@2P=32-1pair", f32, "nv=1", pcounts),
+               _summary("packed_forward", "table_f32", "table-f32@2P=32-1pair", f32, "nsets=1", pcounts),
                _summary("packed_adjoint_regen", "regen", "doubling", regen, "nv=10", fcounts),
                _summary("packed_forward_regen", "regen", "doubling", regen, "nsets=20", fcounts),
                _summary("packed_adjoint_wide", "wide", "table-f32@2P=256", wide, "nv=1", wcounts),
@@ -1580,6 +1730,10 @@ def main():
         k["launches_by_shape_afn"] = acounts["by_shape"][k["name"]]
     for k in summary[2:4]:
         k["pcg_iterations"] = pcounts["iterations"]
+        case = next(c for c in f32 if c["kernel"] == k["name"] and c["mode"] == k["mode"] and c["shape"] == k["shape"])
+        k["ms_warm"], k["table_read_ms"] = case["ms_warm"], case["read_ms"]
+        k["ms_by_shape"] = {f"{c['mode']} {c['shape']}": c["ms"] for c in f32 if c["kernel"] == k["name"]}
+        k["wide_ms_by_shape"] = {f"{c['mode']} {c['shape']}": c["beside_ms"] for c in f32 if c["kernel"] == k["name"]}
     for k, engine in ((summary[0], "stream"), (summary[1], "stream"), (summary[4], "fused"), (summary[5], "fused")):
         k[f"launches_by_shape_many_windows_{engine}"] = mcounts[engine]["by_shape"][k["name"]]
     for k in summary[6:8]:

@@ -132,11 +132,12 @@
 
 #include "packed_ndft.cuh"
 #include "tc_common.cuh"
+#include "tma_common.cuh"
 #include "wgmma_tf32.cuh"
 
 namespace {
 
-enum WideKind { W_F32 = 0, W_BF16 = 1 };
+enum WideKind { W_F32 = 0, W_BF16 = 1 };  // the kinds of tma_common.cuh tensor_map
 enum PhaseGen { G_DOUBLING = 0, G_DIRECT = 1 };  // PHASE_GEN_CODES of ops/_cuda_build.py
 
 constexpr int ROT = 20;  // rotators e^{i 2^k theta}, k < ROT: modes p < 2^20
@@ -215,6 +216,7 @@ constexpr int WG_REGS_CONSUMER = 224;            // setmaxnreg: 2 x 128 x 224 + 
 constexpr int WG_REGS_PRODUCER = 56;
 constexpr int WG_ROWS = 128;                     // M rows a block
 constexpr int WG_KS = 32;                        // points a stage: one 128-byte float32 row
+static_assert(WG_KS == TMA_POINTS, "a stage is one box of the table's tensor map");
 constexpr int WG_NMAX = WGMMA_ROWS_MAX;          // the widest N tile: 144 (two accumulators in registers)
 constexpr int WG_ACC = WGMMA_ROWS_ACC;           // registers of one accumulator
 constexpr int WG_STAGES = 3;                     // the ring
@@ -233,35 +235,6 @@ constexpr int WG_SMEM = WG_OFF_BAR + 24 * WG_STAGES + 1024;  // three barriers a
 static_assert(WG_L1_BYTES % 1024 == 0 && WG_L0_BYTES % 1024 == 0, "stage buffers must stay 1024-byte aligned");
 static_assert(WG_SMEM <= 232448, "more shared memory than a block can have");
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-// until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// a box of the 3-D tensor map at (point c0, mode row c1, coordinate row c2)
-// into shared memory, its bytes counted on the barrier
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :
-      : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
 // the consumers' generic writes of shared memory, seen by wgmma (the async proxy)
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 // keeps the accumulator's registers out of reach of the compiler's
@@ -550,46 +523,6 @@ WgTiles wg_tiles(int WR, int nv) {
     if (WG_WIDTHS[k] >= need) nt = WG_WIDTHS[k];
   const long long mtiles = ((long long)nv * WR + 63) / 64;
   return {nt, ntn, (int)((mtiles + 1) / 2)};
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, through the runtime's entry-point
-// query (no link to libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The table (Dtot, WR, stride) as a 3-D tensor map (points, mode rows,
-// coordinate rows) in boxes of 32 points x `rows` rows: float32 with the
-// 128-byte swizzle; bf16 with the 64-byte swizzle (l0) or none.  Reads past
-// n or WR fill zeros.
-bool tensor_map(CUtensorMap* map, int kind, const void* src, int stride, int WR, int n, int Dtot, int rows, bool l0) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t esz = kind == W_F32 ? 4 : 2;
-  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)WR, (cuuint64_t)Dtot};
-  const cuuint64_t strides[2] = {(cuuint64_t)stride * esz, (cuuint64_t)stride * esz * WR};
-  const cuuint32_t box[3] = {WG_KS, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  const CUtensorMapSwizzle sw = kind == W_F32 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                              : (l0 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE);
-  return enc(map, kind == W_F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<void*>(src), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // --- adjoint, 1-D windows: CUDA cores ----------------------------------------------------

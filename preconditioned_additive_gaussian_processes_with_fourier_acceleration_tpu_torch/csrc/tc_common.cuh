@@ -42,9 +42,13 @@ constexpr int RED_X = 32, RED_Y = 16;  // outputs x slice groups per reduce bloc
 // out[o] = sum over the nchunks slices of part[c][o] in a fixed order: slice
 // group y adds slices y, y + RED_Y, ... and the groups are added in order
 // (RED_Y independent load streams per output instead of one long one)
+// (AFTER: launched as a programmatic dependent of the kernel that wrote
+// part, it first waits for that grid to complete and flush)
+template <bool AFTER = false>
 __global__ void __launch_bounds__(RED_X * RED_Y) reduce_slices_kernel(const float* __restrict__ part,
                                                                       int nchunks, size_t S,
                                                                       float* __restrict__ out) {
+  if constexpr (AFTER) asm volatile("griddepcontrol.wait;\n" ::: "memory");
   __shared__ float red[RED_Y][RED_X];
   const size_t o = (size_t)blockIdx.x * RED_X + threadIdx.x;
   float s = 0.f;
@@ -83,8 +87,8 @@ __device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4], u
 }
 
 void launch_reduce_slices(const float* part, int nchunks, size_t S, float* out, cudaStream_t st) {
-  reduce_slices_kernel<<<(unsigned)((S + RED_X - 1) / RED_X), dim3(RED_X, RED_Y), 0, st>>>(part, nchunks, S,
-                                                                                         out);
+  reduce_slices_kernel<false><<<(unsigned)((S + RED_X - 1) / RED_X), dim3(RED_X, RED_Y), 0, st>>>(part, nchunks,
+                                                                                                   S, out);
 }
 
 }  // namespace

@@ -4,8 +4,9 @@ Five shared libraries with a plain C interface, one per source:
 
 - `packed_ndft_tc`: csrc/packed_ndft_tc.cu, the tensor-core NDFT kernels for
   bf16 tables (the training path);
-- `packed_ndft`: csrc/packed_ndft.cu, the CUDA-core NDFT kernels (templates
-  of csrc/packed_ndft.cuh) on a float32 table;
+- `packed_ndft`: csrc/packed_ndft.cu, the NDFT kernels for float32 tables
+  at 2P = 16 and 32 (CUDA cores fed by a TMA ring, csrc/tma_common.cuh; the
+  1-D windows of the adjoint on csrc/packed_ndft.cuh's template);
 - `packed_ndft_regen`: csrc/packed_ndft_regen.cu, the phase-regenerating
   kernels ("doubling", "direct"), both on the tensor cores in 3xTF32 with
   the Nyquist mode's two rows or columns and the 1-D windows on the CUDA
@@ -55,9 +56,10 @@ SOURCES = {"packed_ndft_tc": CSRC / "packed_ndft_tc.cu",
            "fused_pcg": CSRC / "fused_pcg.cu"}
 # the headers of csrc/ each source includes: part of its build key
 HEADERS = {"packed_ndft_tc": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
-           "packed_ndft": (CSRC / "packed_ndft.cuh",),
+           "packed_ndft": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh", CSRC / "tma_common.cuh"),
            "packed_ndft_regen": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
-           "packed_ndft_wide": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh", CSRC / "wgmma_tf32.cuh"),
+           "packed_ndft_wide": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh", CSRC / "tma_common.cuh",
+                                CSRC / "wgmma_tf32.cuh"),
            "fused_pcg": ()}
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,6 +69,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _TILE = 64
 # aim for a few blocks per SM of an H100 (132 SMs) in the adjoint
 _TARGET_BLOCKS = 528
+# the float32-table kernels (csrc/packed_ndft.cu): a stage holds 16 KB of
+# each table operand, 4096 / 2P points (F32Tile::TP); their forward's limits
+# (weight sets a pass, points a block) come from the library
+# (forward_max_sets, forward_max_chunk)
+_F32_STAGE_FLOATS = 4096
 # rows (right-hand sides x 2P) per block of the tensor-core adjoints: 32 tiles of 16
 _TC_ROWS = 512
 # phase_gen codes of packed_ndft_regen.cu
@@ -184,25 +191,32 @@ def ptxas_notes(name: str) -> list[str]:
 
 
 def _ndft_signatures(lib):
-    """adjoint_launch / forward_launch, their first two arguments being the
-    phase source (table pointer and row stride, or coordinates and phase_gen
-    code)."""
+    """The float32-table library: adjoint_launch (table, row stride, alpha,
+    WR, n, nv, pairs, npairs, singles, nsingles, rhs per block, part,
+    nchunks, chunk, out, stream) and forward_launch (table, row stride, WR,
+    n, pairs, npairs, G2, singles, nsingles, G1, nsets, chunk, y, stream);
+    its forward's limits per pass and per block at a width WR."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, P, P]
-    lib.adjoint_launch.restype = I
-    lib.forward_launch.argtypes = [P, I, I, I, P, I, P, P, I, P, I, P, P]
-    lib.forward_launch.restype = I
+    lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, I, P, I, I, P, P]
+    lib.forward_launch.argtypes = [P, I, I, I, P, I, P, P, I, P, I, I, P, P]
+    for fn in (lib.adjoint_launch, lib.forward_launch, lib.forward_max_sets, lib.forward_max_chunk):
+        fn.restype = I
+    lib.forward_max_sets.argtypes = [I]
+    lib.forward_max_chunk.argtypes = [I]
 
 
 def _ndft_regen_signatures(lib):
-    """As _ndft_signatures; the adjoint also takes the tensor-core launch
-    configuration (nw, wk, mpw) before out, as tc_adjoint_launch does, and
-    the forward (one pass) the split-weight scratch before y; the library
-    gives the forward's pass limit and scratch size."""
-    _ndft_signatures(lib)
+    """adjoint_launch / forward_launch, their first two arguments the phase
+    source (coordinates and phase_gen code); the adjoint takes the
+    tensor-core launch configuration (nw, wk, mpw) before out, as
+    tc_adjoint_launch does, and the forward (one pass) the split-weight
+    scratch before y; the library gives the forward's pass limit and
+    scratch size."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, I, I, I, P, P]
     lib.forward_launch.argtypes = [P, I, I, I, P, I, P, P, I, P, I, P, P, P]
+    lib.adjoint_launch.restype = I
+    lib.forward_launch.restype = I
     lib.forward_max_sets.argtypes = []
     lib.forward_max_sets.restype = I
     lib.forward_scratch_words.argtypes = [I, I, I]
@@ -277,13 +291,6 @@ def _stream(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def rhs_per_block(WR: int) -> int:
-    """RB of AdjCfg<WR> in the header: right-hand sides per adjoint block."""
-    wrp = -(-WR // 4) * 4
-    tiles = (wrp // 4) * (wrp // (2 if wrp == 16 else 4))
-    return min(8, 256 // tiles)
-
-
 def _chunks(n, per_chunk, target=_TARGET_BLOCKS):
     """(nchunks, chunk): whole 64-point tiles per chunk, at most `target`
     blocks for `per_chunk` blocks per chunk (four per SM of an H100 by
@@ -294,44 +301,84 @@ def _chunks(n, per_chunk, target=_TARGET_BLOCKS):
     return -(-n // chunk), chunk
 
 
-def _adjoint(lib, what, src, src_flag, alpha, WR, n, pairs, singles):
+def f32_stage_points(WR: int) -> int:
+    """Points of one stage of the float32-table kernels (F32Tile::TP):
+    128 at 2P = 32, 256 at 16; their chunks are whole stages."""
+    return _F32_STAGE_FLOATS // WR
+
+
+def f32_rhs_per_block(WR: int, nv: int) -> int:
+    """Right-hand sides of one block of the float32-table adjoint (the
+    compiled instances of f32_adjoint_kernel: 1 or 2 at 2P = 32, their
+    outputs in the registers of every consumer warp; 1, 2 or 4 at 16)."""
+    return 1 if nv == 1 else 2 if nv == 2 or WR == 32 else 4
+
+
+def f32_adjoint_chunks(WR: int, nv: int, n: int, npairs: int, nsingles: int, sms: int) -> tuple[int, int]:
+    """(nchunks, chunk) of the float32-table adjoint: chunks of whole
+    stages.  With 2-D windows about one block an SM (a block streams its
+    chunk through a four-stage ring, one block fits an SM): the most chunks
+    whose (chunk, window, right-hand-side group) blocks do not pass `sms`;
+    without, the 1-D windows' 256-thread blocks at about four an SM."""
+    tp = f32_stage_points(WR)
+    tiles = -(-n // tp)
+    if npairs:
+        want = sms // (npairs * -(-nv // f32_rhs_per_block(WR, nv)))
+    else:
+        want = _TARGET_BLOCKS // (nsingles * -(-nv // (256 // WR)))
+    nchunks = max(1, min(tiles, want))
+    chunk = -(-tiles // nchunks) * tp
+    return -(-n // chunk), chunk
+
+
+def f32_forward_chunk(WR: int, n: int, sms: int, max_chunk: int) -> int:
+    """Points of one block of the float32-table forward: whole stages,
+    about one block an SM, at most max_chunk (the library's
+    forward_max_chunk(WR): its y in shared memory)."""
+    tp = f32_stage_points(WR)
+    return min(max_chunk, -(-(-(-n // tp)) // sms) * tp)
+
+
+def adjoint(Tp, alpha, pairs, singles):
+    """Launch the float32-table adjoint (csrc/packed_ndft.cu) on a table
+    (Dtot, WR, n) whose rows start on 16-byte boundaries: ((nv, npairs, WR,
+    WR), (nv, nsingles, WR))."""
+    lib = library("packed_ndft")
+    _, WR, n = Tp.shape
     nv = alpha.shape[0]
     np_, ns = len(pairs), len(singles)
-    nchunks, chunk = _chunks(n, np_ * -(-nv // rhs_per_block(WR)) + ns)
+    nchunks, chunk = f32_adjoint_chunks(WR, nv, n, np_, ns, _sm_count(alpha.device))
     S2 = nv * np_ * WR * WR
     S = S2 + nv * ns * WR
     part = torch.empty((nchunks, S), dtype=torch.float32, device=alpha.device)
     out = torch.empty(S, dtype=torch.float32, device=alpha.device)
     pr, sg = _ints(v for pair in pairs for v in pair), _ints(singles)
-    code = lib.adjoint_launch(src.data_ptr(), src_flag, alpha.data_ptr(), WR, n, nv, pr, np_, sg,
-                              ns, part.data_ptr(), nchunks, chunk, out.data_ptr(), _stream(alpha))
-    _check(lib, code, what)
+    with torch.cuda.device(alpha.device):
+        code = lib.adjoint_launch(Tp.data_ptr(), Tp.stride(1), alpha.data_ptr(), WR, n, nv, pr, np_, sg, ns,
+                                  f32_rhs_per_block(WR, nv), part.data_ptr(), nchunks, chunk, out.data_ptr(),
+                                  _stream(alpha))
+    _check(lib, code, "packed_adjoint")
     return out[:S2].reshape(nv, np_, WR, WR), out[S2:].reshape(nv, ns, WR)
 
 
-def _forward(lib, what, src, src_flag, G2, G1, WR, n, pairs, singles):
+def forward(Tp, G2, G1, pairs, singles):
+    """Launch the float32-table forward (csrc/packed_ndft.cu) on a table
+    (Dtot, WR, n) whose rows start on 16-byte boundaries, one launch per
+    pass of at most the library's forward_max_sets(WR) weight sets
+    (`forward_regen_split`); G2 and G1 contiguous and 16-byte aligned:
+    (nsets, n) float32."""
+    lib = library("packed_ndft")
+    _, WR, n = Tp.shape
     nsets = G2.shape[0]
     y = torch.empty((nsets, n), dtype=torch.float32, device=G2.device)
+    chunk = f32_forward_chunk(WR, n, _sm_count(G2.device), lib.forward_max_chunk(WR))
     pr, sg = _ints(v for pair in pairs for v in pair), _ints(singles)
-    code = lib.forward_launch(src.data_ptr(), src_flag, WR, n, pr, len(pairs), G2.data_ptr(), sg,
-                              len(singles), G1.data_ptr(), nsets, y.data_ptr(), _stream(G2))
-    _check(lib, code, what)
+    with torch.cuda.device(G2.device):
+        for s0, ns in forward_regen_split(nsets, lib.forward_max_sets(WR)):
+            code = lib.forward_launch(Tp.data_ptr(), Tp.stride(1), WR, n, pr, len(pairs), G2[s0:].data_ptr(), sg,
+                                      len(singles), G1[s0:].data_ptr(), ns, chunk, y[s0:].data_ptr(), _stream(G2))
+            _check(lib, code, "packed_forward")
     return y
-
-
-def adjoint(Tp, alpha, pairs, singles):
-    """Launch the float32-table adjoint kernels: ((nv, npairs, WR, WR),
-    (nv, nsingles, WR))."""
-    _, WR, n = Tp.shape
-    return _adjoint(library("packed_ndft"), "packed_adjoint", Tp, Tp.stride(1), alpha, WR, n, pairs,
-                    singles)
-
-
-def forward(Tp, G2, G1, pairs, singles):
-    """Launch the float32-table forward kernel: (nsets, n) float32."""
-    _, WR, n = Tp.shape
-    return _forward(library("packed_ndft"), "packed_forward", Tp, Tp.stride(1), G2, G1, WR, n, pairs,
-                    singles)
 
 
 def adjoint_tc_split(WR: int, nv: int) -> tuple[int, int, int]:
@@ -410,9 +457,10 @@ def adjoint_regen(xT, alpha, WR, pairs, singles, phase_gen):
 
 
 def forward_regen_split(nsets: int, max_sets: int) -> list:
-    """The passes [(s0, ns)] of the regenerating forward: consecutive runs
-    of at most max_sets weight sets (the library's forward_max_sets()), one
-    launch pair (weight split, forward) each."""
+    """The passes [(s0, ns)] of the regenerating forward and of the
+    float32-table forward: consecutive runs of at most max_sets weight sets
+    (the library's forward_max_sets()), one launch (pair: weight split,
+    forward) each."""
     return [(s0, min(max_sets, nsets - s0)) for s0 in range(0, nsets, max_sets)]
 
 

@@ -24,8 +24,10 @@ kernel launches in its `launches` attribute, and by shape in
 `launches_by_shape`.
 
 Widths on CUDA tensors: the narrow kernels below serve 2P in KERNEL_WIDTHS
-(tables) and REGEN_KERNEL_WIDTHS (regenerating); every other even 2P goes,
-with the same phase source, to the wide pair of csrc/packed_ndft_wide.cu
+(tables; `table_route` also sends float32 tables with many right-hand
+sides or weight sets to the wide pair) and REGEN_KERNEL_WIDTHS
+(regenerating); every other even 2P goes, with the same phase source, to
+the wide pair of csrc/packed_ndft_wide.cu
 (the adjoint's 2-D windows on the tensor cores, wgmma in 3xTF32; its 1-D
 windows and the forward on the CUDA cores; the regenerating sources first
 write their phases into a float32 slab, at most SLAB_BYTES at a time),
@@ -42,18 +44,20 @@ A bf16 table (the training path's) goes to the tensor-core kernels of
 csrc/packed_ndft_tc.cu: alpha * L0 and the combined weights are split into
 three bf16 terms that hold their float32 significand exactly, so the
 products are those of float32 arithmetic and the sums are float32.  A
-float32 table goes to the CUDA-core kernels of csrc/packed_ndft.cu.  alpha
-and the weights are float32.  The regenerating kernels take float32
-coordinates and run on the tensor cores in 3xTF32 (each float32 operand
-split into two tf32 parts, three products), the Nyquist mode's rows or
-columns and the 1-D windows on the CUDA cores in the same launch
-(csrc/packed_ndft_regen.cu).
+float32 table goes to the kernels of csrc/packed_ndft.cu (CUDA cores fed
+by a TMA ring, both bound by the table's bytes at one right-hand side or
+weight set) up to F32_MAX_NV / F32_MAX_NSETS, past them to the wide pair
+(`table_route`).  alpha and the weights are float32.  The regenerating
+kernels take float32 coordinates and run on the tensor cores in 3xTF32
+(each float32 operand split into two tf32 parts, three products), the
+Nyquist mode's rows or columns and the 1-D windows on the CUDA cores in
+the same launch (csrc/packed_ndft_regen.cu).
 
 `pack_phase_table` pads the table's storage along the points to a multiple
-of 64 and returns the view of its first n columns: the tensor-core kernels
-copy 16-byte rows asynchronously, so a bf16 table's row stride must be a
-multiple of 8 elements (a table without it is copied into padded storage
-first).
+of 64 and returns the view of its first n columns: the kernels copy
+16-byte rows asynchronously, so a table's row stride must be a multiple of
+16 bytes (a table without it is copied into padded storage first,
+`_aligned_table`).
 
 What bounds them on an H100: at n = 2e5, five 2-D windows and 2P = 32 a
 table pass reads 128 MB of bf16 table (38 us at 3.35 TB/s), and the
@@ -188,8 +192,8 @@ def _check_table(Tp, pairs, singles):
 
 def _aligned_table(Tp):
     """A table whose rows start on 16-byte boundaries, as the asynchronous
-    copies of the tensor-core kernels (bf16 tables) and of the wide adjoint
-    need: Tp itself, or a copy into padded storage."""
+    copies of every table kernel need: Tp itself, or a copy into padded
+    storage."""
     if Tp.stride(1) * Tp.element_size() % 16 == 0 and Tp.data_ptr() % 16 == 0:
         return Tp
     n = Tp.shape[2]
@@ -215,9 +219,33 @@ def _route(width, narrow):
                      f"kernels), got {width}")
 
 
-def _check_cuda(src, others, src_dtypes, width, widths, table=False):
-    """Shape/dtype rules of the CUDA kernels beyond those of the plain path;
-    returns the route (`_route`) of the width."""
+# By 2P, the most right-hand sides (adjoint) and weight sets (forward) of a
+# call that the float32-table kernels (csrc/packed_ndft.cu) take; past them
+# the wide pair's wgmma kernels are faster; None: no cut-over.  Measured by
+# scripts/torch_table_kernels_ab.py --kernels f32 (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md): at 2P = 16 the float32-table kernels won at every
+# count (nv 1-16, nsets 1-20); at 32 the adjoint through nv = 10 (the wide
+# one 5% faster at nv = 4 on five pairs, faster from nv = 16), the forward
+# at nsets = 1 only.
+F32_MAX_NV = {16: None, 32: 10}
+F32_MAX_NSETS = {16: None, 32: 1}
+
+
+def table_route(width, dtype, op, count):
+    """The kernel of a table call on CUDA tensors: "f32" (csrc/packed_ndft.cu),
+    "bf16" (csrc/packed_ndft_tc.cu) or "wide" (csrc/packed_ndft_wide.cu), by
+    the width 2P, the table's dtype, op ("adjoint" or "forward") and count
+    (its right-hand sides or weight sets); raises for an odd width."""
+    if _route(width, KERNEL_WIDTHS) == "wide":
+        return "wide"
+    if dtype == torch.bfloat16:
+        return "bf16"
+    cut = (F32_MAX_NV if op == "adjoint" else F32_MAX_NSETS)[width]
+    return "f32" if cut is None or count <= cut else "wide"
+
+
+def _check_cuda(src, others, src_dtypes, table=False):
+    """Shape/dtype rules of the CUDA kernels beyond those of the plain path."""
     for t in others:
         if t.device != src.device:
             raise ValueError(f"tensors on {t.device} and {src.device}")
@@ -226,7 +254,6 @@ def _check_cuda(src, others, src_dtypes, width, widths, table=False):
     if src.dtype not in src_dtypes or not (table or src.is_contiguous()):
         raise ValueError(f"the CUDA kernels take {src_dtypes} tables or contiguous coordinates, "
                          f"got {src.dtype}")
-    return _route(width, widths)
 
 
 def window_groups(npairs: int, nsingles: int) -> list:
@@ -295,13 +322,14 @@ def _weight_stacks(G2_sets, G1_sets, W2, pairs, singles):
 
 
 def _dense_stacks(G2, G1, W2, device):
-    """Contiguous stacks for the kernels; an empty stack for no windows."""
+    """Contiguous stacks for the kernels, 16-byte aligned (the asynchronous
+    copies of the weights); an empty stack for no windows."""
     nsets = (G2 if G2 is not None else G1).shape[0]
     G2c = G2.contiguous() if G2 is not None else torch.zeros(
         (nsets, 0, W2, W2), dtype=torch.float32, device=device)
     G1c = G1.contiguous() if G1 is not None else torch.zeros(
         (nsets, 0, W2), dtype=torch.float32, device=device)
-    return G2c, G1c
+    return tuple(g if g.data_ptr() % 16 == 0 else g.clone() for g in (G2c, G1c))
 
 
 def packed_adjoint(Tp, alpha, *, pairs: tuple, singles: tuple = ()):
@@ -318,11 +346,12 @@ def packed_adjoint(Tp, alpha, *, pairs: tuple, singles: tuple = ()):
     if a2d.device.type == "cpu" and Tp.device.type == "cpu":
         A2, A1 = packed_adjoint_plain(Tp, a2d, pairs, singles)
     elif a2d.is_cuda and Tp.is_cuda:
-        if _check_cuda(Tp, [a2d], _TABLE_DTYPES, Tp.shape[1], KERNEL_WIDTHS, table=True) == "wide":
+        _check_cuda(Tp, [a2d], _TABLE_DTYPES, table=True)
+        route = table_route(Tp.shape[1], Tp.dtype, "adjoint", a2d.shape[0])
+        if route == "wide":
             A2, A1 = _adjoint_wide(Tp, a2d, pairs, singles)
         else:
-            tc = Tp.dtype == torch.bfloat16
-            T, kernel = (_aligned_table(Tp), _cuda_build.adjoint_tc) if tc else (Tp, _cuda_build.adjoint)
+            T, kernel = _aligned_table(Tp), _cuda_build.adjoint_tc if route == "bf16" else _cuda_build.adjoint
             A2, A1 = grouped_adjoint(_counted(lambda pr, sg: kernel(T, a2d, pr, sg), packed_adjoint,
                                               f"nv={a2d.shape[0]}"), pairs, singles)
     else:
@@ -346,11 +375,12 @@ def packed_forward(Tp, G2_sets, G1_sets=(), *, pairs: tuple, singles: tuple = ()
         y = packed_forward_plain(Tp, G2, G1, pairs, singles)
     elif ref.is_cuda and Tp.is_cuda:
         G2c, G1c = _dense_stacks(G2, G1, W2, Tp.device)
-        if _check_cuda(Tp, [G2c, G1c], _TABLE_DTYPES, W2, KERNEL_WIDTHS, table=True) == "wide":
+        _check_cuda(Tp, [G2c, G1c], _TABLE_DTYPES, table=True)
+        route = table_route(W2, Tp.dtype, "forward", G2c.shape[0])
+        if route == "wide":
             y = _forward_wide(Tp, G2c, G1c, pairs, singles)
         else:
-            tc = Tp.dtype == torch.bfloat16
-            T, kernel = (_aligned_table(Tp), _cuda_build.forward_tc) if tc else (Tp, _cuda_build.forward)
+            T, kernel = _aligned_table(Tp), _cuda_build.forward_tc if route == "bf16" else _cuda_build.forward
             y = grouped_forward(_counted(lambda g2, g1, pr, sg: kernel(T, g2, g1, pr, sg), packed_forward,
                                          f"nsets={G2c.shape[0]}"), G2c, G1c, pairs, singles)
     else:
@@ -379,7 +409,8 @@ def packed_adjoint_regen(xT, alpha, *, P: int, pairs: tuple, singles: tuple = ()
     if a2d.device.type == "cpu" and xT.device.type == "cpu":
         A2, A1 = packed_adjoint_regen_plain(xT, a2d, P, pairs, singles, phase_gen)
     elif a2d.is_cuda and xT.is_cuda:
-        if _check_cuda(xT, [a2d], (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS) == "wide":
+        _check_cuda(xT, [a2d], (torch.float32,))
+        if _route(2 * P, REGEN_KERNEL_WIDTHS) == "wide":
             A2, A1 = _adjoint_wide(xT, a2d, pairs, singles, P, phase_gen)
         else:
             A2, A1 = grouped_adjoint(_counted(lambda pr, sg: _cuda_build.adjoint_regen(xT, a2d, 2 * P, pr, sg,
@@ -413,7 +444,8 @@ def packed_forward_regen(xT, G2_sets, G1_sets=(), *, P: int, pairs: tuple, singl
         y = packed_forward_regen_plain(xT, G2, G1, P, pairs, singles, phase_gen)
     elif ref.is_cuda and xT.is_cuda:
         G2c, G1c = _dense_stacks(G2, G1, 2 * P, xT.device)
-        if _check_cuda(xT, [G2c, G1c], (torch.float32,), 2 * P, REGEN_KERNEL_WIDTHS) == "wide":
+        _check_cuda(xT, [G2c, G1c], (torch.float32,))
+        if _route(2 * P, REGEN_KERNEL_WIDTHS) == "wide":
             y = _forward_wide(xT, G2c, G1c, pairs, singles, P, phase_gen)
         else:
             y = grouped_forward(_counted(lambda g2, g1, pr, sg: _cuda_build.forward_regen(xT, g2, g1, 2 * P, pr, sg,

@@ -5,6 +5,7 @@ profile one loss step, on one NVIDIA GPU.
     python3 scripts/torch_table_kernels_ab.py --kernels regen --old-csrc OLD/csrc
     python3 scripts/torch_table_kernels_ab.py --kernels wide --old-csrc OLD/csrc
     python3 scripts/torch_table_kernels_ab.py --kernels wide-chunks
+    python3 scripts/torch_table_kernels_ab.py --kernels f32 --old-csrc OLD/csrc [--old-tree OLD]
 
 OLD/csrc is an earlier `csrc/` (unpack it from an earlier commit with
 `git archive`).  The script builds one of its sources with nvcc into
@@ -57,6 +58,28 @@ bounds table (chip_smoke.py WIDE_BOUND_SHAPES, nv = 1, 10), its chunk
 count from `wide_chunks` against simple rules (the most chunks whose blocks
 fit one wave, or four, of one block an SM), in turns; no profile.
 
+--kernels f32: an earlier OLD/csrc/packed_ndft.cu (the CUDA-core
+float32-table kernels before the TMA-fed ones, interface `_old_f32_signatures`,
+chunked by their wrapper's rule) against the current one (its launchers
+called directly), with the wide pair (csrc/packed_ndft_wide.cu, called
+directly) and the einsum yardstick beside them, at 2P = 16 and 32 on one
+pair ([afn-pcg]'s window [0, 1]) and on the AFN-PCG bench's default five
+(d = 10), n = 1e5: the adjoint at nv = 1, 2, 4, 10, 16, the forward at nsets =
+1, 2, 4, 10, 20 (random weights).  Each row checks every kernel against the
+plain version, times them in turns (old, f32, wide, einsum, then the
+yardsticks of the table's read: the current kernels built with
+F32_STREAM_ONLY=1, whose consumers free each stage unread, torch.sum and
+torch.clone of the table; then reversed) warm and, where the inputs fit the
+50 MB L2, cold (`cuda_ms(cold=True)`), gives each kernel's bound on its own
+units (bytes, float32 flops on the CUDA cores, or the wide pair's 3xTF32
+products on the tensor cores, as chip_smoke.py) and its share, and names
+the kernel the route rule picks (`table_route`).  With --old-tree
+OLD (an earlier checkout, unpacked with `git archive`), then [afn-pcg]'s
+solve at N = 32 on float32 tables (scripts/torch_afn_pcg_trees.py with
+--N 32: AFN_PCG.md section 3's row at N = 32) with OLD's package and this
+checkout's, each in its own process, in turns: ms per iteration on the host
+clock (the solve is host-bound).  No profile.
+
 The profile (torch.profiler, after a warm-up step): wall time, device-busy
 time (the union of the device kernels' intervals) and its share of the wall
 time, and the device time by kernel.  Prints one JSON line at the end.
@@ -88,7 +111,7 @@ def _old_regen_signatures(lib):
     forward_launch as the float32-table library's."""
     from nfft4gp_torch.ops import _cuda_build
 
-    _cuda_build._ndft_signatures(lib)
+    _old_f32_signatures(lib)
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, I, I, I, P, P]
 
@@ -113,6 +136,39 @@ def _old_wide_signatures(lib, forward):
     lib.wide_forward_launch.restype = I
 
 
+def _old_f32_signatures(lib):
+    """An earlier packed_ndft.cu (the CUDA-core templates): adjoint_launch(table, its flag or row stride, alpha, WR, n,
+    nv, pairs, npairs, singles, nsingles, part, nchunks, chunk, out, stream), forward_launch(table, flag
+    or stride, WR, n, pairs, npairs, G2, singles, nsingles, G1, nsets, y, stream)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.adjoint_launch.argtypes = [P, I, P, I, I, I, P, I, P, I, P, I, I, P, P]
+    lib.adjoint_launch.restype = I
+    lib.forward_launch.argtypes = [P, I, I, I, P, I, P, P, I, P, I, P, P]
+    lib.forward_launch.restype = I
+
+
+def _old_rhs_per_block(WR: int) -> int:
+    """Right-hand sides per block of the earlier CUDA-core adjoint
+    (AdjCfg<WR>::RB of that packed_ndft.cuh), by which its wrapper chunked."""
+    wrp = -(-WR // 4) * 4
+    tiles = (wrp // 4) * (wrp // (2 if wrp == 16 else 4))
+    return min(8, 256 // tiles)
+
+
+def _old_forward(lib, what, src, src_flag, G2, G1, WR, n, pairs, singles):
+    """One launch of an earlier forward_launch of the interface of
+    `_old_f32_signatures` (phase source, its flag or stride, ...): (nsets, n)."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    nsets = G2.shape[0]
+    y = torch.empty((nsets, n), dtype=torch.float32, device=G2.device)
+    pr, sg = cb._ints(v for pair in pairs for v in pair), cb._ints(singles)
+    code = lib.forward_launch(src.data_ptr(), src_flag, WR, n, pr, len(pairs), G2.data_ptr(), sg, len(singles),
+                              G1.data_ptr(), nsets, y.data_ptr(), cb._stream(G2))
+    cb._check(lib, code, what)
+    return y
+
+
 def build_old(csrc: Path, source: str) -> ctypes.CDLL:
     """The earlier `source` of csrc, built and loaded: packed_ndft.cu's
     adjoint_launch / forward_launch take (phase source, its flag, ...)
@@ -131,29 +187,32 @@ def build_old(csrc: Path, source: str) -> ctypes.CDLL:
                        else "strided" if "long long gset" in text else "contiguous")
         _old_wide_signatures(lib, lib.forward)
     else:
-        {"packed_ndft_regen.cu": _old_regen_signatures}.get(source, _cuda_build._ndft_signatures)(lib)
+        {"packed_ndft_regen.cu": _old_regen_signatures}.get(source, _old_f32_signatures)(lib)
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
 
 
-def old_calls(lib, Tp, pairs):
-    """The earlier kernels' adjoint(alpha) and forward(G2) on a contiguous
-    bf16 table, chunked as their wrapper chunked them."""
+def old_calls(lib, Tp, pairs, flag=1):
+    """The earlier kernels' adjoint(alpha) and forward(G2) on a table,
+    chunked as their wrapper chunked them: a contiguous bf16 table with the
+    bf16 flag (the earliest interface), or, with flag None, a float32 table
+    with its row stride (the later one)."""
     from nfft4gp_torch.ops import _cuda_build as cb
 
-    T = Tp.contiguous()
+    T = Tp.contiguous() if flag is not None else Tp
+    flag = T.stride(1) if flag is None else flag
     _, WR, n = T.shape
     pr = cb._ints(v for p in pairs for v in p)
     sg = cb._ints(())
 
     def adj(alpha):
         nv = alpha.shape[0]
-        nchunks, chunk = cb._chunks(n, len(pairs) * -(-nv // cb.rhs_per_block(WR)))
+        nchunks, chunk = cb._chunks(n, len(pairs) * -(-nv // _old_rhs_per_block(WR)))
         S = nv * len(pairs) * WR * WR
         part = torch.empty((nchunks, S), device=alpha.device)
         out = torch.empty(S, device=alpha.device)
-        code = lib.adjoint_launch(T.data_ptr(), 1, alpha.data_ptr(), WR, n, nv, pr, len(pairs), sg, 0,
+        code = lib.adjoint_launch(T.data_ptr(), flag, alpha.data_ptr(), WR, n, nv, pr, len(pairs), sg, 0,
                                   part.data_ptr(), nchunks, chunk, out.data_ptr(), cb._stream(alpha))
         assert code == 0, code
         return out.reshape(nv, len(pairs), WR, WR)
@@ -161,7 +220,7 @@ def old_calls(lib, Tp, pairs):
     def fwd(G2):
         y = torch.empty((G2.shape[0], n), device=G2.device)
         g1 = torch.zeros(1, device=G2.device)
-        code = lib.forward_launch(T.data_ptr(), 1, WR, n, pr, len(pairs), G2.data_ptr(), sg, 0, g1.data_ptr(),
+        code = lib.forward_launch(T.data_ptr(), flag, WR, n, pr, len(pairs), G2.data_ptr(), sg, 0, g1.data_ptr(),
                                   G2.shape[0], y.data_ptr(), cb._stream(G2))
         assert code == 0, code
         return y
@@ -258,7 +317,7 @@ def ab_regen(old_lib, X):
                                                pairs=pairs, singles=singles, phase_gen=phase_gen)
 
             def old(G2=G2, G1=G1, code=code):
-                return cb._forward(old_lib, "old packed_forward_regen", xT, code, G2, G1, W2, n, pairs, singles)
+                return _old_forward(old_lib, "old packed_forward_regen", xT, code, G2, G1, W2, n, pairs, singles)
 
             rows.append(_ab_row(f"forward_regen {phase_gen} nsets={nsets}", new, old if old_lib else None,
                                 lambda r: torch.stack(r).reshape(-1), lambda r: r.reshape(-1)))
@@ -395,6 +454,173 @@ def ab_wide(old_lib, X):
             rows.append(_ab_row(f"forward {kind}@2P={W2} nsets={nsets}", new, old,
                                 lambda r: torch.stack(r).reshape(-1), lambda r: r.reshape(-1)))
     return rows
+
+
+# the float32-table shapes: 2P, the adjoint's right-hand sides and the
+# forward's weight sets, and the layouts at n = N_AFN_PCG: [afn-pcg]'s one
+# pair and the AFN-PCG bench's default (d = 10: five 2-D windows)
+F32_WIDTHS = (16, 32)
+F32_NVS = (1, 2, 4, 10, 16)
+F32_NSETS = (1, 2, 4, 10, 20)
+F32_LAYOUTS = {"1 pair": [[0, 1]], "5 pairs": cs.WINDOWS}
+# the tables that fit the H100's 50 MB L2 are also timed cold
+L2_BYTES = 50e6
+
+
+def _turns(fns, cold):
+    """{name: [ms, ms]}: each fn timed twice, in turns (the order of fns,
+    then reversed), by cuda_ms (cold: the L2 flushed before every call)."""
+    times = {}
+    for name in list(fns) + list(fns)[::-1]:
+        times.setdefault(name, []).append(cs.cuda_ms(fns[name], cold=cold))
+    return times
+
+
+def _f32_row(call, fns, yardsticks, want, flat, flops, f32_flops, nbytes, route):
+    """One [f32] row: every kernel of fns against the plain version (relative
+    Frobenius), then the kernels and the yardsticks (timed only: their
+    outputs are not the function's) timed warm and, where the inputs fit L2,
+    cold, in turns.  The bound of each kernel on the units it runs on (as
+    chip_smoke.py `bound`: bytes of the whole table, alpha or y and the
+    outputs, or its operations: flops of the 2-D window products plus
+    f32_flops, all at the 67 TFLOP/s float32 peak on the CUDA cores; the wide
+    pair's products in 3xTF32 at a third of the 495 TFLOP/s TF32 peak beside
+    f32_flops on the CUDA cores) and its share of it, from its cold time
+    where there is one."""
+    row = {"call": call, "route": route,
+           "rel_err": {k: float(torch.linalg.norm((flat(f()) - want).double()) / torch.linalg.norm(want.double()))
+                       for k, f in fns.items()}}
+    timed = {**fns, **yardsticks}
+    warm = _turns(timed, False)
+    cold = _turns(timed, True) if nbytes <= L2_BYTES else None
+    bounds = {k: cs.bound(flops, nbytes, F32_UNITS.get(k, "f32"), f32_flops=f32_flops) for k in fns}
+    row.update(warm_ms=warm, cold_ms=cold, bound_ms={k: b[0] for k, b in bounds.items()},
+               bound_by={k: b[1] for k, b in bounds.items()},
+               median_ms={k: float(np.median((cold or warm)[k])) for k in timed})
+    row["share"] = {k: bounds[k][0] / row["median_ms"][k] for k in fns}
+    print(f"[f32] {json.dumps(row)}", flush=True)
+    return row
+
+
+# the units (chip_smoke.py PEAKS) of the f32 rows' kernels other than the
+# CUDA-core ones
+F32_UNITS = {"wide": "wgmma_tf32x3"}
+
+
+def build_stream_only() -> ctypes.CDLL:
+    """The current csrc/packed_ndft.cu built with F32_STREAM_ONLY=1 (its
+    consumers free each stage unread: the kernels' data path alone), with
+    the current library's interface."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    out = ROOT / "_chip_scratch" / "ab_build" / "libpacked_ndft_stream_only.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cb._nvcc(), *cb.NVCC_FLAGS, "-DF32_STREAM_ONLY=1", "-I", str(cb.CSRC), "-o", str(out),
+                    str(cb.SOURCES["packed_ndft"])], check=True)
+    lib = ctypes.CDLL(str(out))
+    cb._ndft_signatures(lib)
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _with_library(cb, lib, fn):
+    """fn run with `lib` in place of the packed_ndft library."""
+    def call():
+        real = cb.library
+        cb.library = lambda name: lib if name == "packed_ndft" else real(name)
+        try:
+            return fn()
+        finally:
+            cb.library = real
+    return call
+
+
+def ab_f32(old_lib, X):
+    """The float32-table adjoint and forward at 2P = 16 and 32: the
+    current float32-table kernels ("f32", csrc/packed_ndft.cu, called
+    directly) and the wide pair ("wide", csrc/packed_ndft_wide.cu, called
+    directly), the einsum yardstick and, given old_lib, an earlier
+    csrc/packed_ndft.cu ("old"), at the shapes of F32_LAYOUTS, F32_NVS and
+    F32_NSETS (random weights for the forward); each row names the kernel
+    that the wrappers' route rule picks (`table_route`).  Beside them, timed
+    only, the yardsticks of the table's read: "stream_only" (the current
+    kernels built with F32_STREAM_ONLY=1), "table_sum" (torch.sum: one read
+    of the table) and "table_clone" (a read and a write)."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+    from nfft4gp_torch.ops import fastsum as fs
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    stream_lib = build_stream_only()
+    Xn = X[:cs.N_AFN_PCG]
+    n = Xn.shape[0]
+    gen = torch.Generator(device=X.device).manual_seed(13)
+    rows = []
+    for lname, windows in F32_LAYOUTS.items():
+        d = 1 + max(max(w) for w in windows)
+        for W2 in F32_WIDTHS:
+            pn = fs.packed_ndft_plan(cs._plan(Xn[:, :d].contiguous(), windows, N=W2), table_dtype=torch.float32)
+            Tp, pairs = pn.Tp, pn.pairs
+            npairs, tbytes = len(pairs), Tp.numel() * 4
+            old_adj, old_fwd = old_calls(old_lib, Tp, pairs, flag=None) if old_lib else (None, None)
+            lib_adj, lib_fwd = cs.library_calls(Tp, pairs, ())
+            reads = {"table_sum": Tp.sum, "table_clone": Tp.clone}
+            for nv in F32_NVS:
+                alpha = torch.randn((nv, n), generator=gen, device=X.device)
+                fns = {"f32": lambda a=alpha: cb.adjoint(Tp, a, pairs, ())[0],
+                       "wide": lambda a=alpha: pk._adjoint_wide(Tp, a, pairs, ())[0],
+                       "einsum": lambda a=alpha: lib_adj(a)[0]}
+                if old_lib:
+                    fns = {"old": lambda a=alpha: old_adj(a), **fns}
+                yard = {"stream_only": _with_library(cb, stream_lib, lambda a=alpha: cb.adjoint(Tp, a, pairs, ())),
+                        **reads}
+                rows.append(_f32_row(f"adjoint {lname} 2P={W2} nv={nv}", fns, yard,
+                                     pk.packed_adjoint_plain(Tp, alpha, pairs, ())[0].reshape(-1),
+                                     lambda r: r.reshape(-1), 2.0 * n * nv * npairs * W2 * W2, 0.0,
+                                     tbytes + 4 * (nv * n + nv * npairs * W2 * W2),
+                                     _route_name(pk, W2, "adjoint", nv)))
+            for nsets in F32_NSETS:
+                G2 = torch.randn((nsets, npairs, W2, W2), generator=gen, device=X.device)
+                G1 = torch.zeros((nsets, 0, W2), device=X.device)
+                fns = {"f32": lambda g=G2, g1=G1: cb.forward(Tp, g, g1, pairs, ()),
+                       "wide": lambda g=G2, g1=G1: pk._forward_wide(Tp, g, g1, pairs, ()),
+                       "einsum": lambda g=G2: lib_fwd(g, None)}
+                if old_lib:
+                    fns = {"old": lambda g=G2: old_fwd(g), **fns}
+                yard = {"stream_only": _with_library(cb, stream_lib,
+                                                     lambda g=G2, g1=G1: cb.forward(Tp, g, g1, pairs, ())),
+                        **reads}
+                rows.append(_f32_row(f"forward {lname} 2P={W2} nsets={nsets}", fns, yard,
+                                     pk.packed_forward_plain(Tp, G2, None, pairs, ()).reshape(-1),
+                                     lambda r: r.reshape(-1), 2.0 * nsets * n * npairs * W2 * W2,
+                                     2.0 * nsets * n * npairs * W2,
+                                     tbytes + 4 * (nsets * npairs * W2 * W2 + nsets * n),
+                                     _route_name(pk, W2, "forward", nsets)))
+    return rows
+
+
+def _route_name(pk, W2, op, count):
+    """The kernel the wrappers' route rule picks for a float32 table."""
+    return pk.table_route(W2, torch.float32, op, count)
+
+
+def trees_f32(old_tree):
+    """[afn-pcg]'s solve at N = 32 on float32 tables, AFN-PCG through
+    scripts/torch_afn_pcg_trees.py (AFN_PCG.md section 3's row with --N 32),
+    with the package of old_tree and of this checkout, each in its own
+    process, in turns (old, this, this, old): ms per iteration, host clock."""
+    script = ROOT / "scripts" / "torch_afn_pcg_trees.py"
+    runs = []
+    for label, tree in (("old", old_tree), ("this", ROOT), ("this", ROOT), ("old", old_tree)):
+        out = subprocess.run([sys.executable, str(script), "--tree", str(tree), "--label", label, "--", "--N", "32"],
+                             capture_output=True, text=True, check=True).stdout
+        runs.append(json.loads(out.strip().splitlines()[-1]))
+        print(f"[trees] {json.dumps(runs[-1])}", flush=True)
+    med = {k: [r["median_ms_per_iteration"] for r in runs if r["label"] == k] for k in ("old", "this")}
+    row = {"call": "afn-pcg N=32 float32 tables, AFN-PCG ms per iteration (host clock; the solve is host-bound)",
+           "iterations": sorted({it for r in runs for it in r["iterations"]}), "median_ms_per_iteration": med}
+    print(f"[ab] {json.dumps(row)}", flush=True)
+    return row
 
 
 # the simple rules the wide adjoint's chunk count (`wide_chunks`) is held
@@ -593,7 +819,8 @@ def profile_step(X, y, kernels):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--old-csrc", type=Path, default=None)
-    ap.add_argument("--kernels", choices=("table", "regen", "wide", "wide-chunks"), default="table")
+    ap.add_argument("--kernels", choices=("table", "regen", "wide", "wide-chunks", "f32"), default="table")
+    ap.add_argument("--old-tree", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_table_kernels_ab: no CUDA device")
@@ -605,6 +832,12 @@ def main():
     X, y = cs.make_data(cs.N_POINTS)
     if args.kernels == "wide-chunks":
         print(json.dumps({"chunks": ab_chunks(X)}), flush=True)
+        return
+    if args.kernels == "f32":
+        rows = ab_f32(old_lib, X)
+        if args.old_tree is not None:
+            rows.append(trees_f32(args.old_tree.resolve()))
+        print(json.dumps({"ab": rows}), flush=True)
         return
     rows = {"regen": ab_regen, "wide": ab_wide}.get(args.kernels, ab)(old_lib, X)
     if args.kernels == "wide":

@@ -863,6 +863,177 @@ def test_f32_table_kernels_at_afn_pcg_shape(dev):
     assert _rel(y, want) <= 1e-4
 
 
+# --- the float32-table kernels at 2P = 16, 32 (csrc/packed_ndft.cu) ---------------------------------
+
+F32_NS = [1, 63, 64, 65, 4099, 20000]
+
+
+def _f32_pair(dev, n, P, nv, nsets, layout="mixed", seed=0):
+    """A float32 table of pack_phase_table, alpha (nv, n) and weight stacks
+    G2 (nsets, npairs, 2P, 2P), G1 (nsets, nsingles, 2P) from one seed."""
+    pairs, singles = LAYOUTS[layout]
+    Tp, rng = _table(dev, n, P, torch.float32, seed)
+    alpha = torch.from_numpy(rng.normal(size=(nv, n)).astype(np.float32)).to(dev)
+    G2 = torch.from_numpy(rng.normal(size=(nsets, len(pairs), 2 * P, 2 * P)).astype(np.float32)).to(dev)
+    G1 = torch.from_numpy(rng.normal(size=(nsets, len(singles), 2 * P)).astype(np.float32)).to(dev)
+    return Tp, alpha, G2, G1, pairs, singles
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("n", F32_NS)
+@pytest.mark.parametrize("P", [8, 16])
+@pytest.mark.parametrize("nv", [1, 2, 10])
+def test_f32_adjoint_kernel(dev, layout, n, P, nv):
+    """The float32-table adjoint (its launcher called directly, whatever
+    the route picks) at ragged n around its 128- and 256-point stages, every
+    right-hand-side group (1, 2, 4 a block): against the plain version, a
+    second launch bitwise equal."""
+    Tp, alpha, _, _, pairs, singles = _f32_pair(dev, n, P, nv, 1, layout)
+    got = [torch.cat([a.reshape(-1) for a in _cuda_build.adjoint(Tp, alpha, pairs, singles)]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    W2, W1 = pk.packed_adjoint_plain(Tp, alpha, pairs, singles)
+    assert _rel(got[0], torch.cat([W2.reshape(-1), W1.reshape(-1)])) <= KERNEL_RTOL
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("n", F32_NS)
+@pytest.mark.parametrize("P", [8, 16])
+@pytest.mark.parametrize("nsets", [1, 2, 17, 32])
+def test_f32_forward_kernel(dev, layout, n, P, nsets):
+    """The float32-table forward (its launcher called directly, whatever
+    the route picks) at ragged n, one pass and several (at most 16 weight
+    sets a pass at 2P = 16, one at 32): against the plain version, a second
+    launch bitwise equal."""
+    Tp, _, G2, G1, pairs, singles = _f32_pair(dev, n, P, 1, nsets, layout)
+    ys = [_cuda_build.forward(Tp, G2, G1, pairs, singles) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and tuple(ys[0].shape) == (nsets, n)
+    want = pk.packed_forward_plain(Tp, G2 if pairs else None, G1 if singles else None, pairs, singles)
+    assert _rel(ys[0], want) <= KERNEL_RTOL
+
+
+@pytest.mark.parametrize("W2", [16, 32])
+def test_f32_library_limits(dev, W2):
+    """The forward's limits in C (sets a pass, points a block), which the
+    launcher reads, are those the CPU planner tests take: 16 sets at 2P =
+    16 and one at 32 (several go to the wide pair), whole stages a block;
+    the chunk the planner gives at them stays within the block."""
+    lib = _cuda_build.library("packed_ndft")
+    sets, cap = lib.forward_max_sets(W2), lib.forward_max_chunk(W2)
+    assert (sets, cap) == {16: (16, 1024), 32: (1, 2048)}[W2] and cap % _cuda_build.f32_stage_points(W2) == 0
+    assert _cuda_build.f32_forward_chunk(W2, 10 ** 6, _cuda_build._sm_count(dev), cap) <= cap
+
+
+@pytest.mark.parametrize("case", ["stride", "pointer"])
+@pytest.mark.parametrize("n", [63, 4099])
+def test_f32_unaligned_tables(dev, case, n):
+    """The TMA copies read 16-byte rows: a table whose row stride is not a
+    multiple of 4 floats ("stride": a contiguous table at odd n), or whose
+    rows start off 16 bytes ("pointer"), reaches the kernels through the
+    wrappers' padded copy, with the plain version's results; the C entry
+    points refuse it (cudaErrorInvalidValue, 1)."""
+    Tp, alpha, G2, G1, pairs, singles = _f32_pair(dev, n, 16, 2, 3)
+    if case == "stride":
+        Tp = Tp.contiguous()
+        assert Tp.stride(1) % 4 != 0
+    else:
+        store = torch.zeros((Tp.shape[0], 32, 4 * (-(-(n + 1) // 4) + 1)), device=dev)
+        store[:, :, 1:n + 1] = Tp
+        Tp = store[:, :, 1:n + 1]
+        assert Tp.data_ptr() % 16 != 0 and Tp.stride(1) % 4 == 0
+    A2, A1 = pk.packed_adjoint(Tp, alpha, pairs=pairs, singles=singles)
+    W2, W1 = pk.packed_adjoint_plain(Tp, alpha, pairs, singles)
+    assert _rel(torch.cat([torch.stack(A2, 1).reshape(-1), torch.stack(A1, 1).reshape(-1)]),
+                torch.cat([W2.reshape(-1), W1.reshape(-1)])) <= KERNEL_RTOL
+    ys = torch.stack(pk.packed_forward(Tp, list(torch.unbind(G2, 1)), list(torch.unbind(G1, 1)), pairs=pairs,
+                                       singles=singles))
+    assert _rel(ys, pk.packed_forward_plain(Tp, G2, G1, pairs, singles)) <= KERNEL_RTOL
+    lib = _cuda_build.library("packed_ndft")
+    pr, sg = _cuda_build._ints(v for p in pairs for v in p), _cuda_build._ints(singles)
+    part, out, y = (torch.empty(k, device=dev) for k in (10 ** 6, 10 ** 5, (3, n)))
+    code = lib.adjoint_launch(Tp.data_ptr(), Tp.stride(1), alpha.data_ptr(), 32, n, 2, pr, len(pairs), sg,
+                              len(singles), 2, part.data_ptr(), 1, 4096 * -(-n // 4096), out.data_ptr(),
+                              _cuda_build._stream(alpha))
+    assert code == 1
+    code = lib.forward_launch(Tp.data_ptr(), Tp.stride(1), 32, n, pr, len(pairs), G2.data_ptr(), sg, len(singles),
+                              G1.data_ptr(), 3, 128, y.data_ptr(), _cuda_build._stream(y))
+    assert code == 1
+    with pytest.raises(RuntimeError, match="packed_forward launch failed"):
+        _cuda_build._check(lib, code, "packed_forward")
+
+
+def test_f32_forward_refuses_unaligned_weights(dev):
+    """The forward copies the weights in 16-byte pieces: its C entry point
+    refuses G2 off 16 bytes; the wrappers' stacks are aligned (a clone)."""
+    n = 997
+    Tp, _, G2, G1, pairs, singles = _f32_pair(dev, n, 16, 1, 2)
+    off = torch.empty(G2.numel() + 1, device=dev)[1:].view(G2.shape)
+    off.copy_(G2)
+    lib = _cuda_build.library("packed_ndft")
+    y = torch.empty((2, n), device=dev)
+    code = lib.forward_launch(Tp.data_ptr(), Tp.stride(1), 32, n, _cuda_build._ints(v for p in pairs for v in p),
+                              len(pairs), off.data_ptr(), _cuda_build._ints(singles), len(singles), G1.data_ptr(), 2,
+                              128, y.data_ptr(), _cuda_build._stream(y))
+    assert code == 1
+    G2c, _ = pk._dense_stacks(off, G1, 32, dev)
+    assert G2c.data_ptr() % 16 == 0 and torch.equal(G2c, G2)
+
+
+@pytest.mark.parametrize("P", [8, 16])
+@pytest.mark.parametrize("op", ["adjoint", "forward"])
+def test_f32_route_at_its_cut_over(dev, P, op):
+    """Through the wrappers, a float32 table at its width's cut-over count
+    (nv or nsets = F32_MAX_NV / F32_MAX_NSETS) launches csrc/packed_ndft.cu
+    (packed_adjoint / packed_forward counted by shape) and one more takes
+    the wide pair (counted by "2P=.. nv=.."); at a width without a cut-over,
+    20 still launches csrc/packed_ndft.cu; each against the plain versions."""
+    name = "nv" if op == "adjoint" else "nsets"
+    cut = (pk.F32_MAX_NV if op == "adjoint" else pk.F32_MAX_NSETS)[2 * P]
+    narrow = pk.packed_adjoint if op == "adjoint" else pk.packed_forward
+    wide = pk.WIDE_ADJOINT if op == "adjoint" else pk.WIDE_FORWARD
+    sides = ([(20, narrow, f"{name}=20")] if cut is None else
+             [(cut, narrow, f"{name}={cut}"), (cut + 1, wide, f"2P={2 * P} {name}={cut + 1}")])
+    for count, counter, key in sides:
+        assert pk.table_route(2 * P, torch.float32, op, count) == ("f32" if counter is narrow else "wide")
+        Tp, alpha, G2, G1, pairs, singles = _f32_pair(dev, 4099, P, count, count)
+        before = counter.launches_by_shape.get(key, 0)
+        if op == "adjoint":
+            A2, A1 = pk.packed_adjoint(Tp, alpha, pairs=pairs, singles=singles)
+            W2, W1 = pk.packed_adjoint_plain(Tp, alpha, pairs, singles)
+            err = _rel(torch.cat([torch.stack(A2, 1).reshape(-1), torch.stack(A1, 1).reshape(-1)]),
+                       torch.cat([W2.reshape(-1), W1.reshape(-1)]))
+        else:
+            ys = torch.stack(pk.packed_forward(Tp, list(torch.unbind(G2, 1)), list(torch.unbind(G1, 1)),
+                                               pairs=pairs, singles=singles))
+            err = _rel(ys, pk.packed_forward_plain(Tp, G2, G1, pairs, singles))
+        assert counter.launches_by_shape[key] == before + 1 and err <= KERNEL_RTOL
+
+
+@pytest.mark.parametrize("P", [8, 16])
+def test_f32_many_windows(dev, P):
+    """33 pairs and 65 singles in one call on the float32-table kernels (nv
+    and nsets 1): two launches each, outputs against the plain versions, a
+    second call bitwise equal."""
+    n = 4099
+    rng = np.random.default_rng(P)
+    x = torch.from_numpy(rng.uniform(-0.25, 0.25, size=(66, n)).astype(np.float32)).to(dev)
+    Tp = pk.pack_phase_table(x, P, table_dtype=torch.float32)
+    alpha = torch.from_numpy(rng.normal(size=(1, n)).astype(np.float32)).to(dev)
+    G2 = [torch.from_numpy(rng.normal(size=(1, 2 * P, 2 * P)).astype(np.float32)).to(dev) for _ in MANY_PAIRS]
+    G1 = [torch.from_numpy(rng.normal(size=(1, 2 * P)).astype(np.float32)).to(dev) for _ in MANY_SINGLES]
+    before = (pk.packed_adjoint.launches, pk.packed_forward.launches)
+    runs = [_flat(*pk.packed_adjoint(Tp, alpha, pairs=MANY_PAIRS, singles=MANY_SINGLES), alpha) for _ in range(2)]
+    ys = [torch.stack(pk.packed_forward(Tp, G2, G1, pairs=MANY_PAIRS, singles=MANY_SINGLES)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (pk.packed_adjoint.launches, pk.packed_forward.launches) == (before[0] + 4, before[1] + 4)
+    assert torch.equal(runs[0], runs[1]) and torch.equal(ys[0], ys[1])
+    W2, W1 = pk.packed_adjoint_plain(Tp, alpha, MANY_PAIRS, MANY_SINGLES)
+    assert _rel(runs[0], torch.cat([W2.reshape(-1), W1.reshape(-1)])) <= KERNEL_RTOL
+    want = pk.packed_forward_plain(Tp, torch.stack(G2, 1), torch.stack(G1, 1), MANY_PAIRS, MANY_SINGLES)
+    assert _rel(ys[0], want) <= KERNEL_RTOL
+
+
 # --- the wide pair (csrc/packed_ndft_wide.cu): every even 2P the narrow kernels lack ---------
 
 WIDE_WIDTHS = [2, 8, 48, 64, 130, 256, 258, 600, 1026]
@@ -1222,10 +1393,11 @@ MANY_SINGLES = tuple(range(65))
 def test_many_windows_every_route(dev, route):
     """33 pairs and 65 singles in one call, on every route (the narrow
     float32-table, bf16-table and regenerating kernels, the wide pair on
-    each phase source): two launches of the adjoint and two of the forward
-    per call, their outputs concatenated / summed in order equal to the
-    plain versions (tables: KERNEL_RTOL; regenerating: 1e-4 against float64)
-    and a second call bitwise equal."""
+    each phase source; a table's kernel by `table_route`, so at 2P = 32 the
+    float32 table's three weight sets take the wide pair): two launches of
+    the adjoint and two of the forward per call, their outputs concatenated
+    / summed in order equal to the plain versions (tables: KERNEL_RTOL;
+    regenerating: 1e-4 against float64) and a second call bitwise equal."""
     source, W2 = route.split("@")
     W2, n, nv, nsets = int(W2), 997, 3, 3
     rng = np.random.default_rng(W2)
@@ -1237,9 +1409,14 @@ def test_many_windows_every_route(dev, route):
         name, tol = "table", KERNEL_RTOL
     else:
         src, name, tol = x, source, 1e-4
-    narrow = W2 in (pk.KERNEL_WIDTHS if table else pk.REGEN_KERNEL_WIDTHS)
-    adj_counter = (pk.packed_adjoint if table else pk.packed_adjoint_regen) if narrow else pk.WIDE_ADJOINT
-    fwd_counter = (pk.packed_forward if table else pk.packed_forward_regen) if narrow else pk.WIDE_FORWARD
+    if table:  # the route rule of tables: by width, table type and count
+        dtype = torch.float32 if source == "f32" else torch.bfloat16
+        adj_counter = pk.packed_adjoint if pk.table_route(W2, dtype, "adjoint", nv) != "wide" else pk.WIDE_ADJOINT
+        fwd_counter = pk.packed_forward if pk.table_route(W2, dtype, "forward", nsets) != "wide" else pk.WIDE_FORWARD
+    else:
+        narrow = W2 in pk.REGEN_KERNEL_WIDTHS
+        adj_counter = pk.packed_adjoint_regen if narrow else pk.WIDE_ADJOINT
+        fwd_counter = pk.packed_forward_regen if narrow else pk.WIDE_FORWARD
     alpha = torch.from_numpy(rng.normal(size=(nv, n)).astype(np.float32)).to(dev)
     before = (adj_counter.launches, fwd_counter.launches)
     runs = [_flat(*_wide_adjoint(src, alpha, MANY_PAIRS, MANY_SINGLES, name, P), alpha) for _ in range(2)]

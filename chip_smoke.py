@@ -102,7 +102,13 @@ Phases, one line each (any failure raises and exits non-zero):
      products over n = 4096 and 10 steps of CGS2 in other orders), and the
      SLQ logdet from its tridiagonals within 1e-4 relative of the port's
      slq_logdet on the same probes.  A second launch of each is bitwise
-     equal to the first;
+     equal to the first.  Each line also gives the launch plan's bytes of
+     K held in shared memory and streamed a step, the grid barriers a step
+     (CG 1, Lanczos 3), the measured microseconds of one (the counter barrier
+     the kernels use, `barrier_us`, one block an SM at the plan's shared
+     memory) and the barrier floor (steps x barriers a step x that), the
+     torch engines' time (`engine_ms`: solvers/pcg.py, lanczos_batch) and,
+     for Lanczos, "product alone": steps x one torch.mm of (nv, n) x (n, n);
  10. dense-fit: GPProblem(gaussian, WINDOWS, operator="dense",
      precond="chol").fit for 3 Adam steps at n = 4096; every loss finite;
  11. stream-m12: GPProblem(matern12, WINDOWS_FUSED) with no engine argument
@@ -845,6 +851,7 @@ def check_dense_kernels(X, y):
     """The cooperative CG and Lanczos kernels at n = 2048 and 4096 (module
     docstring, phase 9).  Returns (per-kernel case dicts, launch counts of
     the entry points' run)."""
+    from nfft4gp_torch.ops import _cuda_build
     from nfft4gp_torch.ops.kernels import KernelParams, additive_kernel_matrix, make_windows
     from nfft4gp_torch.solvers import fused_pcg as fp
     from nfft4gp_torch.solvers.lanczos import lanczos_batch, rademacher_probes, slq_logdet
@@ -869,6 +876,20 @@ def check_dense_kernels(X, y):
     if min(launches.values()) <= 0:
         raise AssertionError(f"a dense kernel was not launched: {launches}")
 
+    sms, smem = _cuda_build.device_limits(dev)
+    # one grid barrier of each kernel, at its threads and shared memory
+    barrier = {}
+    for n in DENSE_NS:
+        cg, lz = fp.dense_plan(n, SLQ_NV, sms, smem, SLQ_ITS)
+        # the CG kernel has a producer warp only where rows stream
+        barrier["pcg", n] = _cuda_build.barrier_us(dev, 1, threads=fp.CG_CONS + (32 if cg.stages else 0),
+                                                   smem=cg.smem)[0]
+        barrier["lanczos", n] = _cuda_build.barrier_us(dev, 1, threads=fp.LZ_CONS + 32, smem=lz.smem)[0]
+    gs_us = _cuda_build.barrier_us(dev, 0)[0]
+    print(f"[dense-kernels] one grid barrier, one block an SM ({sms} SMs): the kernels' counter barrier "
+          f"{ {f'{k} n={n}': round(v, 3) for (k, n), v in barrier.items()} } us; cooperative groups' grid.sync() "
+          f"{gs_us:.3f} us (160 KB of shared memory, 288 threads)", flush=True)
+
     cases = []
     for (n, mu), (K, b) in probs.items():
         x, rr, it = sols[n, mu]
@@ -882,14 +903,20 @@ def check_dense_kernels(X, y):
         lms = cuda_ms(lambda: torch.linalg.solve(K, b))
         ems = cuda_ms(lambda: pcg(lambda v: K @ v, b, tol=PCG_TOL, maxits=PCG_MAXITS), reps=3, warmup=1)
         b_ms, b_by = bound(it * (2.0 * n * n + 10.0 * n), 4.0 * (n * n + 2 * n))
+        plan = fp.cg_plan(n, sms, smem)
+        floor_ms = it * 1 * barrier["pcg", n] * 1e-3
         c = dict(kernel="fused_pcg_dense", shape=f"n={n} mu={mu}", max_abs=float((x - xp).abs().max()), ms=ms,
-                 plain_ms=pms, library_ms=lms, engine_ms=ems, bound_ms=b_ms, bound_by=b_by, engine=ENGINES["f32"])
+                 plain_ms=pms, library_ms=lms, engine_ms=ems, bound_ms=b_ms, bound_by=b_by, engine=ENGINES["f32"],
+                 steps=it, barriers_per_step=1, barrier_us=barrier["pcg", n], barrier_floor_ms=floor_ms,
+                 k_resident_bytes=plan.resident_bytes, k_streamed_bytes_per_step=plan.streamed_bytes)
         cases.append(c)
         print(f"[dense-kernels] fused_pcg_dense n={n} (f, l, mu)=(1, 0.5, {mu}): niter={it} (plain {itp}) "
               f"relres={rr:.3e} (plain {rp:.3e}) true_relres_f64={true:.3e} (plain {true_p:.3e}) "
               f"max_abs_err={c['max_abs']:.3e} bitwise_repeat={bitwise} ms={ms:.4f} plain_ms={pms:.4f} "
-              f"library_ms(linalg.solve)={lms:.4f} engine_ms(pcg)={ems:.4f} bound_ms={b_ms:.4f} ({b_by})",
-              flush=True)
+              f"library_ms(linalg.solve)={lms:.4f} engine_ms(pcg)={ems:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"share={b_ms / ms:.3f} barriers/step=1 barrier_us={barrier['pcg', n]:.3f} "
+              f"barrier_floor_ms={floor_ms:.4f} blocks={plan.blocks} K resident={plan.resident_bytes} B "
+              f"streamed/step={plan.streamed_bytes} B", flush=True)
         if not bitwise:
             raise AssertionError(f"fused_pcg_dense n={n} mu={mu}: a second launch differs")
         if itp < PCG_MAXITS:
@@ -918,16 +945,26 @@ def check_dense_kernels(X, y):
         # steps the launch ran: until every probe stopped (V's later rows stay 0)
         live = int(((V != 0).any(dim=2).sum(dim=1) - 1).max())
         steps = min(SLQ_ITS, live + 1)
+        V0 = V[:, 0].contiguous()
+        mm_ms = steps * cuda_ms(lambda: torch.mm(V0, K))
         flops = 2.0 * SLQ_NV * n * n * steps + 4.0 * SLQ_NV * n * steps * (steps + 1)
         b_ms, b_by = bound(flops, 4.0 * (n * n + SLQ_NV * n * (SLQ_ITS + 2) + SLQ_NV * 2 * SLQ_ITS))
         max_abs = max(coef_err, float((V - Vp).abs().max()))
+        plan = fp.lanczos_plan(n, SLQ_NV, sms, smem, SLQ_ITS)
+        floor_ms = steps * 3 * barrier["lanczos", n] * 1e-3
         cases.append(dict(kernel="fused_lanczos_dense", shape=f"n={n} mu={DENSE_MUS[0]}", max_abs=max_abs, ms=ms,
-                          plain_ms=pms, library_ms=None, engine_ms=ems, bound_ms=b_ms, bound_by=b_by,
-                          engine=ENGINES["f32"]))
+                          plain_ms=pms, library_ms=None, engine_ms=ems, product_alone_ms=mm_ms, bound_ms=b_ms,
+                          bound_by=b_by, engine=ENGINES["f32"], steps=steps, barriers_per_step=3,
+                          barrier_us=barrier["lanczos", n], barrier_floor_ms=floor_ms,
+                          k_resident_bytes=plan.resident_bytes, k_streamed_bytes_per_step=plan.streamed_bytes))
         print(f"[dense-kernels] fused_lanczos_dense n={n} nv={SLQ_NV} maxits={SLQ_ITS}: coef_err/max|alpha|="
               f"{coef_err / scale:.3e} V_rel_err={v_rel:.3e} logdet/n={est:.8e} (slq_logdet {ref:.8e}) "
               f"bitwise_repeat={bitwise} ms={ms:.4f} plain_ms={pms:.4f} library_ms=None "
-              f"engine_ms(lanczos_batch)={ems:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+              f"engine_ms(lanczos_batch)={ems:.4f} product_alone_ms({steps} x torch.mm)={mm_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) share={b_ms / ms:.3f} barriers/step=3 "
+              f"barrier_us={barrier['lanczos', n]:.3f} barrier_floor_ms={floor_ms:.4f} blocks={plan.blocks} "
+              f"panel={plan.width} K resident={plan.resident_bytes} B streamed/step={plan.streamed_bytes} B",
+              flush=True)
         if not bitwise:
             raise AssertionError(f"fused_lanczos_dense n={n}: a second launch differs")
         if not (coef_err <= 1e-4 * scale and v_rel <= 1e-3 and abs(est - ref) <= 1e-4 * abs(ref)):
@@ -1639,6 +1676,9 @@ def main():
     print(f"[build] ptxas, csrc/packed_ndft_wide.cu, its notes on the wgmma adjoint and forward (registers: the "
           f"entry count; their consumer warpgroups run at 224 after setmaxnreg): "
           f"{_cuda_build.ptxas_notes('packed_ndft_wide')}", flush=True)
+    print(f"[build] ptxas, csrc/fused_pcg.cu (pcg_kernel<float4 chunks of r a thread>, "
+          f"lanczos_kernel<probes>): {_cuda_build.ptxas_report('fused_pcg')} "
+          f"notes: {_cuda_build.ptxas_notes('fused_pcg')}", flush=True)
     blocks, total = _cuda_build.grid_sync_probe(torch.device("cuda:0"))
     print(f"[build] grid.sync() over {blocks} resident blocks: sum {total} "
           f"(expected {blocks * (blocks + 1) // 2})", flush=True)
@@ -1742,6 +1782,13 @@ def main():
             k[f"launches_by_shape_wide_train_{engine}"] = counts["by_shape"][k["name"]]
         k["ms_by_shape_wide_train"] = {f"{c['mode']} {c['shape']}": c["ms"] for c in wide
                                        if c["kernel"] == k["name"] and f"windows={WINDOWS}" in c["tag"]}
+    for k in summary[8:10]:
+        c = next(c for c in dense if c["kernel"] == k["name"] and c["shape"] == k["shape"])
+        for key in ("engine_ms", "product_alone_ms", "steps", "barriers_per_step", "barrier_us", "barrier_floor_ms",
+                    "k_resident_bytes", "k_streamed_bytes_per_step"):
+            if key in c:
+                k[key] = c[key]
+        k["ms_by_shape"] = {d["shape"]: d["ms"] for d in dense if d["kernel"] == k["name"]}
     print(f"[done] wall seconds from the start of chip_smoke.py to its summary: "
           f"{time.perf_counter() - _T0:.1f}; seconds by phase (the first from the script's start): {phase_s}",
           flush=True)

@@ -18,7 +18,10 @@ Five shared libraries with a plain C interface, one per source:
   the forward's weights split into tf32 halves first; their 1-D windows on
   the CUDA cores), and the kernel that writes the phases of "doubling" and
   "direct" into a float32 slab for them;
-- `fused_pcg`: csrc/fused_pcg.cu, the cooperative CG and Lanczos kernels.
+- `fused_pcg`: csrc/fused_pcg.cu, the cooperative CG and Lanczos kernels
+  (one block an SM, K held in shared memory across steps, the rest
+  streamed by TMA, csrc/tma_common.cuh), launched under the plans of
+  solvers/fused_pcg.py, and the timed grid-barrier probe.
 
 Each is compiled at first use with
 
@@ -60,7 +63,7 @@ HEADERS = {"packed_ndft_tc": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
            "packed_ndft_regen": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh"),
            "packed_ndft_wide": (CSRC / "packed_ndft.cuh", CSRC / "tc_common.cuh", CSRC / "tma_common.cuh",
                                 CSRC / "wgmma_tf32.cuh"),
-           "fused_pcg": ()}
+           "fused_pcg": (CSRC / "tma_common.cuh",)}
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -232,15 +235,17 @@ def _ndft_tc_signatures(lib):
 
 
 def _fused_pcg_signatures(lib):
-    P, I, IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    lib.fused_pcg_grid.argtypes = [I, IP]
-    lib.fused_pcg_launch.argtypes = [P, P, I, I, ctypes.c_float, I, P, P, P, P, P]
-    lib.fused_lanczos_grid.argtypes = [I, IP]
-    lib.fused_lanczos_launch.argtypes = [P, P, I, I, I, I, P, P, P, P, P, P]
-    lib.grid_sync_probe.argtypes = [P, IP, P]
-    lib.probe_grid_size.argtypes = [IP]
-    for fn in (lib.fused_pcg_grid, lib.fused_pcg_launch, lib.fused_lanczos_grid,
-               lib.fused_lanczos_launch, lib.grid_sync_probe, lib.probe_grid_size):
+    P, I, F, IP = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_int)
+    lib.fused_device_limits.argtypes = [IP, IP]
+    lib.fused_constants.argtypes = [IP]
+    lib.fused_constants.restype = None
+    lib.fused_pcg_launch.argtypes = [P, I, P, I, I, F, I, IP, IP, I, I, P, P, P, P, P, P]
+    lib.fused_lanczos_launch.argtypes = [P, I, P, I, I, I, I, I, I, I, IP, IP, I, I, P, P, P, P, P, P, P, P]
+    lib.barrier_probe_launch.argtypes = [I, I, I, I, P, P, IP, IP, P]
+    lib.reread_probe_launch.argtypes = [P, ctypes.c_longlong, I, P, P]
+    lib.fused_phase_times.argtypes = [P, I]
+    for fn in (lib.fused_device_limits, lib.fused_pcg_launch, lib.fused_lanczos_launch,
+               lib.barrier_probe_launch, lib.reread_probe_launch, lib.fused_phase_times):
         fn.restype = I
 
 
@@ -611,64 +616,178 @@ def forward_wide(Tp, G2, G1, pairs, singles):
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(query: str, n: int, device: torch.device) -> int:
-    """Blocks of a cooperative launch of n on `device`, from the occupancy
-    query (`fused_pcg_grid` or `fused_lanczos_grid`): asked once per (kernel,
-    n, card), so a launch pays no host query."""
+def device_limits(device: torch.device) -> tuple[int, int]:
+    """(SMs, opt-in shared memory bytes a block) of the card: the plans' inputs."""
     lib = library("fused_pcg")
-    g = ctypes.c_int(0)
+    sms, smem = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        _check(lib, getattr(lib, query)(n, ctypes.byref(g)), query)
-    return g.value
+        _check(lib, lib.fused_device_limits(ctypes.byref(sms), ctypes.byref(smem)), "fused_device_limits")
+    return sms.value, smem.value
 
 
-def fused_pcg(K, b, maxits: int, tol: float):
+def fused_constants() -> dict:
+    """The layout constants of csrc/fused_pcg.cu that solvers/fused_pcg.py's
+    plans mirror, by name."""
+    out = (ctypes.c_int * 8)()
+    library("fused_pcg").fused_constants(out)
+    names = ("MAX_BLOCKS", "SMEM_SLACK", "CG_CONS", "CG_FIXED", "LZ_CONS", "LZ_FIXED", "LZ_MAX_C", "MAX_STAGES")
+    return dict(zip(names, out))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(kind: str, n: int, device: torch.device, nv: int = 1, maxits: int = 10):
+    """The launch plan of kind "pcg" or "lanczos" at (n, nv, maxits) on
+    `device` (solvers/fused_pcg.py `cg_plan` / `lanczos_plan` at the card's
+    SMs and shared memory) with its per-block arrays as ctypes ints: made
+    once per (kind, n, nv, maxits, card), so a launch pays no host query."""
+    from ..solvers import fused_pcg as fp
+
+    sms, smem = device_limits(device)
+    if kind == "pcg":
+        plan = fp.cg_plan(n, sms, smem)
+        return plan, _ints(plan.starts), _ints(plan.resident)
+    plan = fp.lanczos_plan(n, nv, sms, smem, maxits)
+    return plan, _ints(plan.pstarts), _ints(plan.resident)
+
+
+def _padded_rows(K):
+    """K with a row stride of a multiple of 4 floats at a 16-byte aligned
+    address (a zero-padded copy if it has neither), and that stride."""
+    n = K.shape[0]
+    ld = -(-n // 4) * 4
+    if ld == n and K.data_ptr() % 16 == 0:
+        return K, ld
+    Kp = torch.zeros((n, ld), dtype=torch.float32, device=K.device)
+    Kp[:, :n] = K
+    return Kp, ld
+
+
+def fused_pcg(K, b, maxits: int, tol: float, plan=None):
     """Launch the cooperative CG kernel on b's card: (x (n,), relres (),
-    niter () int32)."""
+    niter () int32).  plan: a solvers/fused_pcg.py `CgPlan` in place of the
+    card's own (the C entry point checks it)."""
     lib = library("fused_pcg")
     n, dev = b.shape[0], b.device
-    G = _grid("fused_pcg_grid", n, dev)
+    if plan is None:
+        plan, starts, res = _grid("pcg", n, dev)
+    else:
+        starts, res = _ints(plan.starts), _ints(plan.resident)
+    Kp, ld = _padded_rows(K)
+    G = plan.blocks
     x = torch.empty(n, dtype=torch.float32, device=dev)
-    scratch = torch.empty(3 * n + 2 * G, dtype=torch.float32, device=dev)
+    # the grid barrier's counter (16 bytes), then q for two steps (2 ld floats): zero
+    scratch = torch.zeros(4 + 2 * ld, dtype=torch.float32, device=dev)
     relres = torch.empty((), dtype=torch.float32, device=dev)
     niter = torch.empty((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        code = lib.fused_pcg_launch(K.data_ptr(), b.data_ptr(), n, maxits, float(tol * tol), G,
-                                    x.data_ptr(), scratch.data_ptr(), relres.data_ptr(),
+        code = lib.fused_pcg_launch(Kp.data_ptr(), ld, b.data_ptr(), n, maxits, float(tol * tol), G, starts, res,
+                                    plan.stages, plan.smem, x.data_ptr(),
+                                    scratch.data_ptr() + 16, scratch.data_ptr(), relres.data_ptr(),
                                     niter.data_ptr(), _stream(b))
     _check(lib, code, "fused_pcg")
     return x, relres, niter
 
 
-def fused_lanczos(K, Z, maxits: int):
+def fused_lanczos(K, Z, maxits: int, plan=None):
     """Launch the cooperative Lanczos kernel on Z's card: (alpha, beta, V,
-    beta0)."""
+    beta0).  plan: a solvers/fused_pcg.py `LanczosPlan` in place of the
+    card's own (the C entry point checks it)."""
     lib = library("fused_pcg")
     nv, n = Z.shape
     dev = Z.device
-    G = _grid("fused_lanczos_grid", n, dev)
+    if plan is None:
+        plan, pstarts, res = _grid("lanczos", n, dev, nv, maxits)
+    else:
+        pstarts, res = _ints(plan.pstarts), _ints(plan.resident)
+    Kp, ld = _padded_rows(K)
+    G, nvp4 = plan.blocks, -(-nv // 4) * 4
     alpha = torch.ones((nv, maxits), dtype=torch.float32, device=dev)
     beta = torch.zeros((nv, maxits - 1), dtype=torch.float32, device=dev)
     V = torch.zeros((nv, maxits + 1, n), dtype=torch.float32, device=dev)
     beta0 = torch.empty(nv, dtype=torch.float32, device=dev)
-    scratch = torch.empty(nv * n + G * nv * (2 * maxits + 3), dtype=torch.float32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)  # the grid barrier's
+    # v_it / w transposed for two steps, then the blocks' partial sums for two barriers
+    scratch = torch.empty(2 * n * nvp4 + 2 * 16 * 65 * G, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        code = lib.fused_lanczos_launch(K.data_ptr(), Z.data_ptr(), n, nv, maxits, G,
-                                        alpha.data_ptr(), beta.data_ptr(), V.data_ptr(),
-                                        beta0.data_ptr(), scratch.data_ptr(), _stream(Z))
+        code = lib.fused_lanczos_launch(Kp.data_ptr(), ld, Z.data_ptr(), n, nv, maxits, G, plan.width,
+                                        plan.chunk_rows, plan.stages, pstarts, res, int(plan.own), plan.smem,
+                                        alpha.data_ptr(),
+                                        beta.data_ptr(), V.data_ptr(), beta0.data_ptr(), scratch.data_ptr(),
+                                        scratch.data_ptr() + 8 * n * nvp4, counter.data_ptr(), _stream(Z))
     _check(lib, code, "fused_lanczos")
     return alpha, beta, V, beta0
 
 
-def grid_sync_probe(device) -> tuple[int, int]:
-    """Run the grid-wide barrier check: (blocks, the sum block 0 read after
-    grid.sync(), which must be blocks (blocks + 1) / 2)."""
+def barrier_probe(device, kind: int = 0, iters: int = 1, threads: int = 288, smem: int = 160 * 1024):
+    """One launch of the barrier probe: `iters` grid-wide barriers (kind 0
+    cooperative groups' grid.sync(), kind 1 the fused kernels' counter
+    barrier) over one block an SM, then one more, after which block 0 adds
+    every block's index + 1.  Returns (blocks, blocks an SM could hold at
+    that shared memory, that sum: blocks (blocks + 1) / 2 if the barrier
+    held)."""
     lib = library("fused_pcg")
-    g = ctypes.c_int(0)
+    sms, _ = device_limits(device)
+    counter = torch.zeros(1, dtype=torch.int32, device=device)
+    check = torch.zeros(1 + sms, dtype=torch.int32, device=device)
+    g, per_sm = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        _check(lib, lib.probe_grid_size(ctypes.byref(g)), "probe_grid_size")
-        out = torch.zeros(1 + g.value, dtype=torch.int32, device=device)
-        code = lib.grid_sync_probe(out.data_ptr(), ctypes.byref(g),
-                                   ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    _check(lib, code, "grid_sync_probe")
-    return g.value, int(out[0])
+        code = lib.barrier_probe_launch(kind, iters, threads, smem, counter.data_ptr(), check.data_ptr(),
+                                        ctypes.byref(g), ctypes.byref(per_sm),
+                                        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    _check(lib, code, "barrier_probe")
+    return g.value, per_sm.value, int(check[0])
+
+
+def grid_sync_probe(device) -> tuple[int, int]:
+    """The grid-wide barrier check: (blocks, the sum block 0 read after
+    grid.sync(), which must be blocks (blocks + 1) / 2)."""
+    blocks, _, total = barrier_probe(device, kind=0, iters=1)
+    return blocks, total
+
+
+def barrier_us(device, kind: int = 1, iters: int = 200, threads: int = 288, smem: int = 160 * 1024,
+               reps: int = 5) -> tuple[float, int, int]:
+    """Microseconds of one grid-wide barrier on the card: CUDA events around
+    launches of the probe with 1 and with 1 + iters barriers, the median of
+    `reps` each, the difference over iters.  Returns (us, blocks, blocks an
+    SM could hold)."""
+    def timed(k):
+        times = []
+        for _ in range(reps + 1):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            blocks, per_sm, _ = barrier_probe(device, kind, k, threads, smem)
+            stop.record()
+            torch.cuda.synchronize(device)
+            times.append(start.elapsed_time(stop))
+        return sorted(times[1:])[reps // 2], blocks, per_sm
+
+    t1, blocks, per_sm = timed(1)
+    tk, _, _ = timed(1 + iters)
+    return (tk - t1) * 1e3 / iters, blocks, per_sm
+
+
+def reread_GBps(device, mbytes: float, passes: int = 10, reps: int = 5) -> float:
+    """GB/s of a cyclic re-read of an `mbytes` MB buffer on the card (the
+    probe kernel's passes, 16-byte loads through L2): CUDA events around
+    launches of 1 and 1 + passes passes, the median of `reps` each."""
+    lib = library("fused_pcg")
+    n4 = int(mbytes * 1e6) // 16
+    buf = torch.ones(4 * n4, dtype=torch.float32, device=device)
+    out = torch.zeros(1, dtype=torch.float32, device=device)
+
+    def timed(k):
+        times = []
+        for _ in range(reps + 1):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            with torch.cuda.device(device):
+                _check(lib, lib.reread_probe_launch(buf.data_ptr(), n4, k, out.data_ptr(), _stream(buf)),
+                       "reread_probe")
+            stop.record()
+            torch.cuda.synchronize(device)
+            times.append(start.elapsed_time(stop))
+        return sorted(times[1:])[reps // 2]
+
+    return 16 * n4 * passes / ((timed(1 + passes) - timed(1)) * 1e6)
+

@@ -5,7 +5,7 @@ For a dense SPD K of n up to a few thousand (the multiclass and small
 regression problems) a Krylov step is one matvec and a few dots, so a
 solver that launches each op separately is bound by launch and host
 latency, not by work.  The two kernels of csrc/fused_pcg.cu run every step
-in one persistent cooperative launch:
+in one persistent cooperative launch, one block an SM:
 
 - `fused_pcg_dense`: unpreconditioned CG on K x = b (replaces
   `_pcg_kernel`), returning (x, relres, niter);
@@ -16,12 +16,20 @@ in one persistent cooperative launch:
 Neither is wired into `gp_loss` (nor is its JAX counterpart): the shipped
 solvers are solvers/pcg.py and solvers/lanczos.py.
 
+Which rows (CG) or columns (Lanczos) of K each block owns, how many of them
+stay in shared memory for the whole launch and how many stream through a
+ring every step is decided here, by the pure functions `cg_plan`,
+`lanczos_plan` and `dense_plan`; the C entry points check a plan and refuse
+one that does not cover K exactly once or does not fit the card.
+
 Both work in float32, as the JAX functions cast; x comes back in b's
 dtype.  Each has a plain torch version beside it.  The wrapper follows one
 rule: a CPU tensor goes to the plain version; a CUDA tensor launches the
 hand-written kernel (built at first use by ops/_cuda_build.py) and raises
 if it cannot.  Each wrapper counts its launches in `.launches`.
 """
+
+from dataclasses import dataclass
 
 import torch
 
@@ -34,6 +42,224 @@ MAX_N = 16384
 MAX_NV = 16
 MAX_ITS = 64
 _EPS32 = torch.finfo(torch.float32).eps
+
+
+# --- the launch plans (mirrored by the checks of csrc/fused_pcg.cu) ------------
+
+# blocks a plan may hold (the C side's per-block arrays)
+MAX_BLOCKS = 256
+# dynamic shared memory is aligned to 1024 bytes inside the kernels
+SMEM_SLACK = 1024
+# CG: consumer threads (a producer warp beside them when rows stream), the
+# bytes ahead of p (mbarriers, reduction buffers, broadcast slots), and the
+# bytes of the ring of one-row stages the streamed rows arrive through
+# (two to MAX_STAGES stages)
+CG_CONS = 512
+CG_FIXED = 4096
+CG_RING_BYTES = 32768
+MAX_STAGES = 8
+# Lanczos: consumer threads, the bytes ahead of the ring (mbarriers, the
+# coefficients, the cross-warp sums of a panel: 128 columns x 16 probes),
+# the panel widths; chunks of LZ_STREAM_ROWS (resident plans:
+# LZ_RESIDENT_ROWS) rows a consumer column group, at most 256 (one TMA
+# box); the ring's stages where K streams (few, large copies: two stages
+# of 256 rows beat four of 64 at n = 2200 to 4096 on an H100, though less
+# of K stays resident), and the most where it all stays (its stages then
+# carry v_it alone)
+LZ_CONS = 256
+LZ_FIXED = 18432
+LZ_WIDTHS = (4, 8, 16, 32, 64, 128)
+LZ_STREAM_ROWS = 8
+LZ_RESIDENT_ROWS = 4
+LZ_STAGES = (2,)
+LZ_MAX_STAGES = 8
+# the most bytes a block keeps of its own columns of w and of the V history
+# (nv rounded up to 4 + nv (maxits + 1) floats a column) in shared memory;
+# past it they stay in global memory
+LZ_OWN_MAX = 49152
+
+
+def _ld(n: int) -> int:
+    """K's row stride in the kernels: n rounded up to 16 bytes."""
+    return -(-n // 4) * 4
+
+
+def _nvp4(nv: int) -> int:
+    """Probes per row of the transposed Lanczos vectors: nv rounded up to 4."""
+    return -(-nv // 4) * 4
+
+
+@dataclass(frozen=True)
+class CgPlan:
+    """Block b owns rows starts[b]:starts[b + 1] of K; the first resident[b]
+    of them are copied to its shared memory once a launch, the rest stream
+    every step through a ring of `stages` one-row stages."""
+    n: int
+    blocks: int
+    starts: tuple
+    resident: tuple
+    stages: int
+    smem: int
+
+    @property
+    def row_bytes(self) -> int:
+        return 4 * _ld(self.n)
+
+    @property
+    def resident_bytes(self) -> int:
+        return sum(self.resident) * self.row_bytes
+
+    @property
+    def streamed_bytes(self) -> int:
+        """Bytes of K that stream every step."""
+        return (self.n - sum(self.resident)) * self.row_bytes
+
+
+@dataclass(frozen=True)
+class LanczosPlan:
+    """K's columns in panels of `width`; block b owns panels
+    pstarts[b]:pstarts[b + 1], and of each panel the first resident[b]
+    chunks of `chunk_rows` rows stay in shared memory for the launch, the
+    rest stream every step through a ring of `stages` stages, each holding
+    a chunk of the transposed v_it and, where some chunk streams, of the
+    panel."""
+    n: int
+    nv: int
+    maxits: int
+    blocks: int
+    width: int
+    chunk_rows: int
+    pstarts: tuple
+    resident: tuple
+    stages: int
+    own: bool
+    smem: int
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.n // self.chunk_rows)
+
+    @property
+    def chunk_bytes(self) -> int:
+        return 4 * self.chunk_rows * self.width
+
+    @property
+    def streams(self) -> bool:
+        return any(r < self.chunks for r in self.resident)
+
+    @property
+    def stage_bytes(self) -> int:
+        return 4 * self.chunk_rows * (_nvp4(self.nv) + (self.width if self.streams else 0))
+
+    @property
+    def own_bytes(self) -> int:
+        """Shared memory for the blocks' own columns of w and of the V history."""
+        per = max(self.pstarts[b + 1] - self.pstarts[b] for b in range(self.blocks))
+        return _own_bytes(per * self.width, self.nv, self.maxits) if self.own else 0
+
+    @property
+    def resident_bytes(self) -> int:
+        return sum((self.pstarts[b + 1] - self.pstarts[b]) * self.resident[b]
+                   for b in range(self.blocks)) * self.chunk_bytes
+
+    @property
+    def streamed_bytes(self) -> int:
+        """Bytes of K's panels (padded to whole panels and chunks) that
+        stream every step."""
+        panels = self.pstarts[-1]
+        return panels * self.chunks * self.chunk_bytes - self.resident_bytes
+
+
+def _own_bytes(ncol: int, nv: int, maxits: int) -> int:
+    return -(-4 * ncol * (_nvp4(nv) + nv * (maxits + 1)) // 1024) * 1024
+
+
+def _split(total: int, parts: int) -> tuple:
+    return tuple(b * total // parts for b in range(parts + 1))
+
+
+def cg_plan(n: int, sms: int, smem_per_block: int) -> CgPlan:
+    """Rows of K for the CG kernel: min(sms, n) blocks of contiguous rows,
+    as even as integers allow; every block keeps full copies of p (shared
+    memory) and r (registers), so beside its rows it needs 4 ld bytes.  All
+    rows resident when they fit; else a ring of one-row stages holding
+    about CG_RING_BYTES (2 to MAX_STAGES rows) and as many resident rows
+    as the rest of the budget holds.  Raises ValueError where not even a
+    ring of two rows fits."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"n must be in [1, {MAX_N}], got {n}")
+    G = min(sms, n, MAX_BLOCKS)
+    if G < 1:
+        raise ValueError(f"no SM to run on: {sms}")
+    starts = _split(n, G)
+    counts = [starts[b + 1] - starts[b] for b in range(G)]
+    row = 4 * _ld(n)
+    base = SMEM_SLACK + CG_FIXED + row
+    if base + max(counts) * row <= smem_per_block:
+        return CgPlan(n, G, starts, tuple(counts), 0, base + max(counts) * row)
+    stages = min(MAX_STAGES, max(2, CG_RING_BYTES // row), (smem_per_block - base) // row)
+    if stages < 2:
+        raise ValueError(f"CG at n={n}: p and a ring of two rows need {base + 2 * row} bytes of shared memory, "
+                         f"the card gives {smem_per_block}")
+    keep = (smem_per_block - base - stages * row) // row
+    resident = tuple(min(c, keep) for c in counts)
+    return CgPlan(n, G, starts, resident, stages, base + (stages + max(resident)) * row)
+
+
+def lanczos_plan(n: int, nv: int, sms: int, smem_per_block: int, maxits: int = 10) -> LanczosPlan:
+    """Columns of K for the Lanczos kernel: panels of the narrowest width of
+    LZ_WIDTHS that gives no more panels than SMs (else the widest), blocks
+    of contiguous panels.  A block's own columns of w and of the V history
+    (maxits + 1 rows) take shared memory first where they need at most
+    LZ_OWN_MAX.  Where every panel of a block then fits its shared memory
+    whole, in chunks of LZ_RESIDENT_ROWS rows a consumer thread's column
+    group (at most 256), it stays there and the ring (up to LZ_MAX_STAGES
+    stages) carries v_it alone.  Else chunks of LZ_STREAM_ROWS rows a
+    column group; the ring's stages (the first of LZ_STAGES that fits) carry a
+    chunk of v_it (nv rounded up to 4 probes a row) and of the panel, and
+    what the budget leaves holds each panel's leading chunks for the
+    launch.  Raises ValueError where the ring does not fit."""
+    if not 1 <= n <= MAX_N or not 1 <= nv <= MAX_NV or not 1 <= maxits <= MAX_ITS:
+        raise ValueError(f"n must be in [1, {MAX_N}], nv in [1, {MAX_NV}] and maxits in [1, {MAX_ITS}], "
+                         f"got {n}, {nv}, {maxits}")
+    if sms < 1:
+        raise ValueError(f"no SM to run on: {sms}")
+    width = next((w for w in LZ_WIDTHS if -(-n // w) <= min(sms, MAX_BLOCKS)), LZ_WIDTHS[-1])
+    panels = -(-n // width)
+    G = min(sms, panels, MAX_BLOCKS)
+    pstarts = _split(panels, G)
+    per = [pstarts[b + 1] - pstarts[b] for b in range(G)]
+    own = _own_bytes(max(per) * width, nv, maxits) <= LZ_OWN_MAX
+    groups = LZ_CONS // (width // 4)  # row groups: consumer threads over column groups
+    base = SMEM_SLACK + LZ_FIXED + (_own_bytes(max(per) * width, nv, maxits) if own else 0)
+    # all of K resident, v_it alone in the ring
+    rows = min(256, LZ_RESIDENT_ROWS * groups)
+    chunks = -(-n // rows)
+    held = max(per) * chunks * 4 * rows * width
+    vstage = 4 * rows * _nvp4(nv)
+    stages = min(LZ_MAX_STAGES, max(2, chunks * max(per)), (smem_per_block - base - held) // vstage)
+    if stages >= 2:
+        return LanczosPlan(n, nv, maxits, G, width, rows, pstarts, (chunks,) * G, stages, own,
+                           base + held + stages * vstage)
+    rows = min(256, LZ_STREAM_ROWS * groups)
+    chunks = -(-n // rows)
+    chunk = 4 * rows * width
+    stage = 4 * rows * _nvp4(nv) + chunk
+    for stages in LZ_STAGES:
+        if base + stages * stage <= smem_per_block:
+            avail = smem_per_block - base - stages * stage
+            resident = tuple(min(chunks - 1, avail // (chunk * p)) for p in per)  # some chunk streams
+            held = max(p * r for p, r in zip(per, resident))
+            return LanczosPlan(n, nv, maxits, G, width, rows, pstarts, resident, stages, own,
+                               base + stages * stage + held * chunk)
+    raise ValueError(f"Lanczos at n={n}, nv={nv}: a ring of two {stage}-byte stages does not fit "
+                     f"{smem_per_block} bytes of shared memory")
+
+
+def dense_plan(n: int, nv: int, sms: int, smem_per_block: int, maxits: int = 10) -> tuple:
+    """(cg_plan(n, ...), lanczos_plan(n, nv, ..., maxits)) for a card of `sms`
+    SMs and `smem_per_block` bytes of shared memory a block."""
+    return cg_plan(n, sms, smem_per_block), lanczos_plan(n, nv, sms, smem_per_block, maxits)
 
 
 def _safe(v):

@@ -6,6 +6,7 @@ profile one loss step, on one NVIDIA GPU.
     python3 scripts/torch_table_kernels_ab.py --kernels wide --old-csrc OLD/csrc
     python3 scripts/torch_table_kernels_ab.py --kernels wide-chunks
     python3 scripts/torch_table_kernels_ab.py --kernels f32 --old-csrc OLD/csrc [--old-tree OLD]
+    python3 scripts/torch_table_kernels_ab.py --kernels dense --old-csrc OLD/csrc [--variants]
 
 OLD/csrc is an earlier `csrc/` (unpack it from an earlier commit with
 `git archive`).  The script builds one of its sources with nvcc into
@@ -79,6 +80,29 @@ solve at N = 32 on float32 tables (scripts/torch_afn_pcg_trees.py with
 --N 32: AFN_PCG.md section 3's row at N = 32) with OLD's package and this
 checkout's, each in its own process, in turns: ms per iteration on the host
 clock (the solve is host-bound).  No profile.
+
+--kernels dense: an earlier OLD/csrc/fused_pcg.cu (the cooperative CG and
+Lanczos kernels whose C entry points size their own grid,
+`_old_dense_signatures`) against the current ones under their launch plans
+(solvers/fused_pcg.py), at chip_smoke.py's [dense-kernels] shapes (CG at
+n = 2048, 4096 and mu = 0.1, 0.01, maxits 200, tol 1e-5; Lanczos with 10
+probes and 10 steps at n = 2048, 4096): first the yardsticks -- one grid
+barrier (`barrier_us`: the kernels' counter barrier and cooperative groups'
+grid.sync(), one block an SM at each plan's shared memory) and the rate of
+a cyclic re-read of a 20-45 MB buffer (`reread_GBps`, csrc/fused_pcg.cu's
+probe kernel: from L2 where it stays there) beside a 256 MB one (from
+HBM) -- then per shape the old outputs against the new (CG: niter,
+max |x_old - x_new| over max |x_old|; Lanczos: alpha, beta and V), times in
+turns old, new, new, old, the plan's bytes of K resident and streamed a
+step, and block 0's time by phase, averaged over the steps (the current
+csrc/fused_pcg.cu built with FUSED_PHASE_TIMES=1, one launch: CG matvec on
+the resident and the streamed rows, barrier, p'q + r update + sums, p
+update, the step-start barrier with the producer; Lanczos product (to its
+first chunk, its chunks, its reduction), each CGS pass's partials +
+barrier and totals + update, the norm's partials + barrier, the rest).  --variants also times the current kernels under
+other plans at n = 4096 (CG's ring of 2 to 8 one-row stages; Lanczos with
+its own columns of w and V in global memory, and its ring of 2 to 6
+stages of 64-row chunks, 2 or 3 of 128 rows, 2 of 256).  No profile.
 
 The profile (torch.profiler, after a warm-up step): wall time, device-busy
 time (the union of the device kernels' intervals) and its share of the wall
@@ -187,7 +211,8 @@ def build_old(csrc: Path, source: str) -> ctypes.CDLL:
                        else "strided" if "long long gset" in text else "contiguous")
         _old_wide_signatures(lib, lib.forward)
     else:
-        {"packed_ndft_regen.cu": _old_regen_signatures}.get(source, _old_f32_signatures)(lib)
+        {"packed_ndft_regen.cu": _old_regen_signatures,
+         "fused_pcg.cu": _old_dense_signatures}.get(source, _old_f32_signatures)(lib)
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
@@ -524,11 +549,11 @@ def build_stream_only() -> ctypes.CDLL:
     return lib
 
 
-def _with_library(cb, lib, fn):
-    """fn run with `lib` in place of the packed_ndft library."""
+def _with_library(cb, lib, fn, name="packed_ndft"):
+    """fn run with `lib` in place of the library `name`."""
     def call():
         real = cb.library
-        cb.library = lambda name: lib if name == "packed_ndft" else real(name)
+        cb.library = lambda which: lib if which == name else real(which)
         try:
             return fn()
         finally:
@@ -816,19 +841,254 @@ def profile_step(X, y, kernels):
     return out
 
 
-def main():
+def _old_dense_signatures(lib):
+    """The earlier fused_pcg.cu: fused_pcg_grid / fused_lanczos_grid(n, *grid)
+    and launches that take the grid and one scratch buffer."""
+    P, I, IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.fused_pcg_grid.argtypes = [I, IP]
+    lib.fused_pcg_launch.argtypes = [P, P, I, I, ctypes.c_float, I, P, P, P, P, P]
+    lib.fused_lanczos_grid.argtypes = [I, IP]
+    lib.fused_lanczos_launch.argtypes = [P, P, I, I, I, I, P, P, P, P, P, P]
+    for fn in (lib.fused_pcg_grid, lib.fused_pcg_launch, lib.fused_lanczos_grid, lib.fused_lanczos_launch):
+        fn.restype = I
+
+
+def old_dense_calls(lib, dev):
+    """The earlier kernels' CG (K, b, maxits, tol) -> (x, relres, niter) and
+    Lanczos (K, Z, maxits) -> (alpha, beta, V, beta0), as their wrapper
+    launched them."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    def grid(query, n):
+        g = ctypes.c_int(0)
+        cb._check(lib, getattr(lib, query)(n, ctypes.byref(g)), query)
+        return g.value
+
+    def pcg(K, b, maxits, tol):
+        n = b.shape[0]
+        G = grid("fused_pcg_grid", n)
+        x = torch.empty(n, device=dev)
+        scratch = torch.empty(3 * n + 2 * G, device=dev)
+        relres = torch.empty((), device=dev)
+        niter = torch.empty((), dtype=torch.int32, device=dev)
+        cb._check(lib, lib.fused_pcg_launch(K.data_ptr(), b.data_ptr(), n, maxits, float(tol * tol), G, x.data_ptr(),
+                                            scratch.data_ptr(), relres.data_ptr(), niter.data_ptr(), cb._stream(b)),
+                  "old fused_pcg")
+        return x, relres, niter
+
+    def lanczos(K, Z, maxits):
+        nv, n = Z.shape
+        G = grid("fused_lanczos_grid", n)
+        alpha = torch.ones((nv, maxits), device=dev)
+        beta = torch.zeros((nv, maxits - 1), device=dev)
+        V = torch.zeros((nv, maxits + 1, n), device=dev)
+        beta0 = torch.empty(nv, device=dev)
+        scratch = torch.empty(nv * n + G * nv * (2 * maxits + 3), device=dev)
+        cb._check(lib, lib.fused_lanczos_launch(K.data_ptr(), Z.data_ptr(), n, nv, maxits, G, alpha.data_ptr(),
+                                                beta.data_ptr(), V.data_ptr(), beta0.data_ptr(), scratch.data_ptr(),
+                                                cb._stream(Z)), "old fused_lanczos")
+        return alpha, beta, V, beta0
+
+    return pcg, lanczos
+
+
+def _dense_problems(dev):
+    """chip_smoke.py check_dense_kernels' inputs: {(n, mu): (K, y)} and {n: Z}."""
+    from nfft4gp_torch.ops.kernels import KernelParams, additive_kernel_matrix, make_windows
+    from nfft4gp_torch.solvers.lanczos import rademacher_probes
+
+    X, y = cs.make_data(max(cs.DENSE_NS))
+    W = make_windows(cs.WINDOWS)
+    probs = {}
+    for n in cs.DENSE_NS:
+        for mu in cs.DENSE_MUS:
+            p = KernelParams.make(1.0, 0.5, mu, dtype=torch.float32, device=dev)
+            probs[n, mu] = (additive_kernel_matrix("gaussian", p, X[:n], W).contiguous(), y[:n].contiguous())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    Zs = {n: rademacher_probes(gen, cs.SLQ_NV, n, dtype=torch.float32) for n in cs.DENSE_NS}
+    return probs, Zs
+
+
+def build_phase_timed() -> ctypes.CDLL:
+    """The current csrc/fused_pcg.cu built with FUSED_PHASE_TIMES=1 (block 0
+    writes the globaltimer at each phase of each step), with the current
+    library's interface."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    out = ROOT / "_chip_scratch" / "ab_build" / "libfused_pcg_phases.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cb._nvcc(), *cb.NVCC_FLAGS, "-DFUSED_PHASE_TIMES=1", "-I", str(cb.CSRC), "-o", str(out),
+                    str(cb.SOURCES["fused_pcg"])], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    cb._fused_pcg_signatures(lib)
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# the phases of each kernel's step (csrc/fused_pcg.cu `phase` calls): the
+# interval names between consecutive marks, then the step-start barrier
+PHASES = {0: ("matvec_resident", "matvec_streamed", "barrier", "pq+r_update+sums", "p_update"),
+          1: ("product", "cgs1_partials+barrier", "cgs1_totals+update", "cgs2_partials+barrier",
+              "cgs2_totals+update", "norm_partials+barrier", "norm_totals+v_next+outputs")}
+# marks inside the Lanczos product: the first chunk arrived, the last one consumed
+PRODUCT_MARKS = (8, 9)
+
+
+def phase_times(lib, kernel, call, steps):
+    """Block 0's microseconds a step by phase, the mean over `steps` steps of
+    one `call` run with the phase-timed library in place of the built one."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    _with_library(cb, lib, call, name="fused_pcg")()
+    torch.cuda.synchronize()
+    raw = (ctypes.c_ulonglong * (256 * 12))()
+    cb._check(lib, lib.fused_phase_times(raw, kernel), "fused_phase_times")
+    t = np.array(raw, dtype=np.float64).reshape(256, 12)[:min(steps, 256)]
+    names = PHASES[kernel]
+    marks = t[:, :len(names) + 1]
+    out = {name: float(np.mean(np.diff(marks, axis=1)[:, i]) / 1e3) for i, name in enumerate(names)}
+    if kernel == 1:
+        first, last = PRODUCT_MARKS
+        out["product: first chunk"] = float(np.mean(t[:, first] - t[:, 0]) / 1e3)
+        out["product: chunks"] = float(np.mean(t[:, last] - t[:, first]) / 1e3)
+        out["product: reduction+w"] = float(np.mean(t[:, 1] - t[:, last]) / 1e3)
+    if len(t) > 1:
+        out["step_start_barrier"] = float(np.mean(t[1:, 0] - t[:-1, len(names)]) / 1e3)
+    out["step_total"] = float(np.mean(np.diff(t[:, 0])) / 1e3) if len(t) > 1 else None
+    return out
+
+
+def _with_constants(**consts):
+    """A plan made with solvers/fused_pcg.py's layout constants set to
+    `consts` for the call: f(make) -> make()'s plan."""
+    from nfft4gp_torch.solvers import fused_pcg as fp
+
+    def run(make):
+        saved = {k: getattr(fp, k) for k in consts}
+        try:
+            for k, v in consts.items():
+                setattr(fp, k, v)
+            return make()
+        finally:
+            for k, v in saved.items():
+                setattr(fp, k, v)
+    return run
+
+
+def ab_dense(old_lib, variants):
+    """The fused CG and Lanczos kernels, current against old, at
+    [dense-kernels]' shapes, after the yardsticks (module docstring)."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+    from nfft4gp_torch.solvers import fused_pcg as fp
+
+    dev = torch.device("cuda:0")
+    sms, smem = cb.device_limits(dev)
+    rows = []
+    yard = {"sms": sms, "smem_per_block": smem, "barrier_us": {}, "reread_GBps": {}}
+    for kind, make in (("pcg", lambda n: fp.cg_plan(n, sms, smem)),
+                       ("lanczos", lambda n: fp.lanczos_plan(n, cs.SLQ_NV, sms, smem, cs.SLQ_ITS))):
+        for n in cs.DENSE_NS:
+            plan = make(n)
+            threads = fp.LZ_CONS + 32 if kind == "lanczos" else fp.CG_CONS + (32 if plan.stages else 0)
+            for bk, name in ((1, "counter"), (0, "grid_sync")):
+                us, blocks, per_sm = cb.barrier_us(dev, bk, threads=threads, smem=plan.smem)
+                yard["barrier_us"][f"{name} {kind} n={n} smem={plan.smem}"] = us
+                yard["barrier_blocks"] = [blocks, per_sm]
+    for mb in (10, 20, 30, 40, 45, 50, 60, 256):
+        yard["reread_GBps"][f"{mb} MB"] = cb.reread_GBps(dev, mb, passes=3 if mb > 100 else 10)
+    print(f"[dense-yardsticks] {json.dumps(yard)}", flush=True)
+    rows.append(yard)
+
+    probs, Zs = _dense_problems(dev)
+    old_pcg, old_lz = old_dense_calls(old_lib, dev) if old_lib else (None, None)
+    phase_lib = build_phase_timed()
+    for (n, mu), (K, b) in probs.items():
+        new = (lambda K, b: lambda: fp.fused_pcg_dense(K, b, maxits=cs.PCG_MAXITS, tol=cs.PCG_TOL))(K, b)
+        plan = fp.cg_plan(n, sms, smem)
+        row = {"call": f"pcg n={n} mu={mu}", "k_resident_bytes": plan.resident_bytes,
+               "k_streamed_bytes_per_step": plan.streamed_bytes, "niter_new": int(new()[2])}
+        if old_pcg:
+            old = (lambda K, b: lambda: old_pcg(K, b, cs.PCG_MAXITS, cs.PCG_TOL))(K, b)
+            xo, _, ito = old()
+            xn = new()[0]
+            row.update(niter_old=int(ito), rel_x_old_new=float((xn - xo).abs().max() / xo.abs().max()))
+            t = [cs.cuda_ms(old), cs.cuda_ms(new), cs.cuda_ms(new), cs.cuda_ms(old)]
+            row.update(old_ms=[t[0], t[3]], new_ms=[t[1], t[2]], ratio_old_over_new=(t[0] + t[3]) / (t[1] + t[2]))
+        else:
+            row["new_ms"] = [cs.cuda_ms(new)]
+        row["phase_us"] = phase_times(phase_lib, 0, new, row["niter_new"])
+        print(f"[ab] {json.dumps(row)}", flush=True)
+        rows.append(row)
+    for n in cs.DENSE_NS:
+        K, Z = probs[n, cs.DENSE_MUS[0]][0], Zs[n]
+        new = (lambda K, Z: lambda: fp.fused_lanczos_dense(K, Z, maxits=cs.SLQ_ITS))(K, Z)
+        plan = fp.lanczos_plan(n, cs.SLQ_NV, sms, smem, cs.SLQ_ITS)
+        row = {"call": f"lanczos n={n} nv={cs.SLQ_NV} steps={cs.SLQ_ITS}", "k_resident_bytes": plan.resident_bytes,
+               "k_streamed_bytes_per_step": plan.streamed_bytes}
+        if old_lz:
+            old = (lambda K, Z: lambda: old_lz(K, Z, cs.SLQ_ITS))(K, Z)
+            ao, bo, Vo, _ = old()
+            an, bn, Vn, _ = new()
+            row.update(coef_old_new=float(max((an - ao).abs().max(), (bn - bo).abs().max()) / ao.abs().max()),
+                       rel_V_old_new=float(torch.linalg.norm(Vn - Vo) / torch.linalg.norm(Vo)))
+            t = [cs.cuda_ms(old), cs.cuda_ms(new), cs.cuda_ms(new), cs.cuda_ms(old)]
+            row.update(old_ms=[t[0], t[3]], new_ms=[t[1], t[2]], ratio_old_over_new=(t[0] + t[3]) / (t[1] + t[2]))
+        else:
+            row["new_ms"] = [cs.cuda_ms(new)]
+        row["phase_us"] = phase_times(phase_lib, 1, new, cs.SLQ_ITS)
+        print(f"[ab] {json.dumps(row)}", flush=True)
+        rows.append(row)
+    if variants:
+        n = max(cs.DENSE_NS)
+        K, b = probs[n, cs.DENSE_MUS[0]]
+        for ring in (32768, 49152, 65536, 131072):
+            plan = _with_constants(CG_RING_BYTES=ring)(lambda: fp.cg_plan(n, sms, smem))
+            ms = cs.cuda_ms(lambda: cb.fused_pcg(K, b, cs.PCG_MAXITS, cs.PCG_TOL, plan=plan))
+            row = {"variant": f"pcg n={n} ring of {plan.stages} one-row stages", "ms": ms,
+                   "k_resident_bytes": plan.resident_bytes, "k_streamed_bytes_per_step": plan.streamed_bytes}
+            print(f"[variant] {json.dumps(row)}", flush=True)
+            rows.append(row)
+        Z = Zs[n]
+        plan = _with_constants(LZ_OWN_MAX=0)(lambda: fp.lanczos_plan(n, cs.SLQ_NV, sms, smem, cs.SLQ_ITS))
+        ms = cs.cuda_ms(lambda: cb.fused_lanczos(K, Z, cs.SLQ_ITS, plan=plan))
+        row = {"variant": f"lanczos n={n} own columns of w and V in global memory", "ms": ms,
+               "k_resident_bytes": plan.resident_bytes, "k_streamed_bytes_per_step": plan.streamed_bytes}
+        print(f"[variant] {json.dumps(row)}", flush=True)
+        rows.append(row)
+        for per_group, stages in ((2, 2), (2, 3), (2, 4), (2, 6), (4, 2), (4, 3), (8, 2)):
+            plan = _with_constants(LZ_STAGES=(stages,), LZ_STREAM_ROWS=per_group)(
+                lambda: fp.lanczos_plan(n, cs.SLQ_NV, sms, smem, cs.SLQ_ITS))
+            ms = cs.cuda_ms(lambda: cb.fused_lanczos(K, Z, cs.SLQ_ITS, plan=plan))
+            row = {"variant": f"lanczos n={n} {stages} stages of {plan.chunk_rows} rows", "ms": ms,
+                   "k_resident_bytes": plan.resident_bytes, "k_streamed_bytes_per_step": plan.streamed_bytes}
+            print(f"[variant] {json.dumps(row)}", flush=True)
+            rows.append(row)
+    return rows
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--old-csrc", type=Path, default=None)
-    ap.add_argument("--kernels", choices=("table", "regen", "wide", "wide-chunks", "f32"), default="table")
+    ap.add_argument("--kernels", choices=("table", "regen", "wide", "wide-chunks", "f32", "dense"), default="table")
     ap.add_argument("--old-tree", type=Path, default=None)
-    args = ap.parse_args()
+    ap.add_argument("--variants", action="store_true", help="--kernels dense: also time other launch plans")
+    return ap.parse_args(argv)
+
+
+def main():
+    args = parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_table_kernels_ab: no CUDA device")
     import nfft4gp_torch  # noqa: F401  (switches TF32 off)
 
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi name, power.limit: {cs.nvidia_smi()}", flush=True)
-    source = {"regen": "packed_ndft_regen.cu", "wide": "packed_ndft_wide.cu"}.get(args.kernels, "packed_ndft.cu")
+    source = {"regen": "packed_ndft_regen.cu", "wide": "packed_ndft_wide.cu",
+              "dense": "fused_pcg.cu"}.get(args.kernels, "packed_ndft.cu")
     old_lib = build_old(args.old_csrc.resolve(), source) if args.old_csrc else None
+    if args.kernels == "dense":
+        print(json.dumps({"ab": ab_dense(old_lib, args.variants)}), flush=True)
+        return
     X, y = cs.make_data(cs.N_POINTS)
     if args.kernels == "wide-chunks":
         print(json.dumps({"chunks": ab_chunks(X)}), flush=True)

@@ -65,7 +65,13 @@ The cooperative dense Krylov kernels (solvers/fused_pcg.py, csrc/fused_pcg.cu)
 are held against their plain versions at n = 1, 31, 33, 1000 (not a
 multiple of a warp or a panel) and at the n <= 16384 limit, nv = 1 to the
 16-probe limit, maxits = 1 to the 64-step limit, b = 0, breakdowns (K = 0,
-a rank-3 K, a zero probe), and a second launch bitwise equal to the first.
+a rank-3 K, a zero probe), and a second launch bitwise equal to the first;
+under their launch plans at the card's resident capacity (every row or
+column panel of K in shared memory) and one past it, at n = 4096 (part of K
+streamed every step; Lanczos at nv = 16, maxits = 64) and below the SM
+count, under hand-made plans that stream all of K or give a block several
+panels; the C entry points refuse inconsistent plans; the plans' constants
+are the C side's; the timed barrier probe runs one block an SM.
 
 Tolerances:
 - dense Krylov kernels, on K = I + S, S symmetric with a spectrum in
@@ -112,6 +118,8 @@ shape, n = 1e5, one 2-D window, 2P = 32, nv = 1 and nsets = 1: relative
 Frobenius 1e-4 against the plain versions (sqrt(n) eps for 1e5-term
 sums), a second launch bitwise equal.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -730,6 +738,147 @@ def test_fused_wrappers_refuse(dev):
     with pytest.raises(ValueError):
         fp.fused_lanczos_dense(K, torch.ones((2, 64), device=dev), maxits=fp.MAX_ITS + 1)
     assert (fp.fused_pcg_dense.launches, fp.fused_lanczos_dense.launches) == before
+
+
+def _cg_check(K, b, maxits, plan=None):
+    """The CG kernel (under `plan`, else the card's own) against the plain CG,
+    with test_fused_pcg_matches_plain's limits and a bitwise second launch."""
+    run = (lambda: fp.fused_pcg_dense(K, b, maxits=maxits, tol=1e-5)) if plan is None else (
+        lambda: _cuda_build.fused_pcg(K, b, maxits, 1e-5, plan=plan))
+    x, rr, it = run()
+    again = run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip((x, rr, it), again))
+    xp, rp, itp = fp.fused_pcg_dense_plain(K, b, maxits=maxits, tol=1e-5)
+    assert abs(int(it) - int(itp)) <= 1
+    assert float((x - xp).abs().max()) <= 1e-5 * float(xp.abs().max())
+    if int(itp) < maxits:
+        assert float(rr) <= 1e-5
+    else:
+        np.testing.assert_allclose(float(rr), float(rp), rtol=1e-3, atol=1e-6)
+
+
+def _capacity(kind, dev, nv=1, maxits=10):
+    """The largest n whose plan keeps all of K resident on this card."""
+    sms, smem = _cuda_build.device_limits(dev)
+    plan = (lambda n: fp.cg_plan(n, sms, smem)) if kind == "pcg" else (
+        lambda n: fp.lanczos_plan(n, nv, sms, smem, maxits))
+    n = 1
+    while plan(n + 1).streamed_bytes == 0:
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("where", ["1", "31", "capacity", "capacity+1", "4096", "max"])
+def test_fused_pcg_plan_shapes(dev, where):
+    """CG around the card's resident capacity (all rows of K in shared
+    memory; one row past it streams), n = 4096 (partly streamed), the
+    n = 16384 limit (all streamed) and n below the SM count."""
+    n = {"1": 1, "31": 31, "4096": 4096, "max": fp.MAX_N}.get(where) or (
+        _capacity("pcg", dev) + (1 if where == "capacity+1" else 0))
+    plan = _cuda_build._grid("pcg", n, dev)[0]
+    assert (plan.streamed_bytes > 0) == (where in ("capacity+1", "4096", "max"))
+    K, g = _spd(dev, n, seed=n)
+    b = torch.randn(n, generator=g, device=dev)
+    _cg_check(K, b, 30 if n == fp.MAX_N else 100)
+
+
+@pytest.mark.parametrize("where", ["1", "31", "capacity", "capacity+1", "4096", "max"])
+def test_fused_lanczos_plan_shapes(dev, where):
+    """Lanczos at nv = 16, maxits = 64 around the resident capacity of K's
+    column panels and at n = 4096 (part of every panel streamed), at the
+    limit, and below the SM count at nv = 16 with maxits well below n (as
+    LANCZOS_CASES: near n steps the next direction is rounding noise)."""
+    n = {"1": 1, "31": 31, "4096": 4096, "max": fp.MAX_N}.get(where) or (
+        _capacity("lanczos", dev, fp.MAX_NV, fp.MAX_ITS) + (1 if where == "capacity+1" else 0))
+    nv, maxits = fp.MAX_NV, fp.MAX_ITS if n > 1000 else min(10, max(1, n - 1))
+    if n == fp.MAX_N:
+        nv, maxits = 2, 3
+    plan = _cuda_build._grid("lanczos", n, dev, nv, maxits)[0]
+    assert (plan.streamed_bytes > 0) == (where in ("capacity+1", "4096", "max"))
+    K, g = _spd(dev, n, seed=n)
+    Z = (torch.randint(0, 2, (nv, n), generator=g, device=dev) * 2 - 1).float()
+    out = fp.fused_lanczos_dense(K, Z, maxits=maxits)
+    again = fp.fused_lanczos_dense(K, Z, maxits=maxits)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+    _lanczos_close(out, fp.fused_lanczos_dense_plain(K, Z, maxits=maxits))
+
+
+def test_fused_plans_forced_to_stream(dev):
+    """Hand-made plans the card's own would not choose: every row of K (CG)
+    and every chunk of every panel (Lanczos) streamed through two stages,
+    blocks of several panels, their own columns of w and V in shared and
+    in global memory; the results are the plain versions'."""
+    sms, smem = _cuda_build.device_limits(dev)
+    n = 1000
+    K, g = _spd(dev, n, seed=5)
+    b = torch.randn(n, generator=g, device=dev)
+    own = fp.cg_plan(n, sms, smem)
+    plan = dataclasses.replace(own, resident=(0,) * own.blocks, stages=2,
+                               smem=fp.SMEM_SLACK + fp.CG_FIXED + 4 * fp._ld(n) * (1 + 2))
+    _cg_check(K, b, 100, plan)
+    Z = (torch.randint(0, 2, (10, n), generator=g, device=dev) * 2 - 1).float()
+    for own in (True, False):  # the blocks' own columns of w and V in shared or global memory
+        lz = fp.lanczos_plan(n, 10, 7, smem)  # seven blocks of several panels
+        lz = dataclasses.replace(lz, resident=(0,) * lz.blocks, stages=2, own=own, smem=0)
+        lz = dataclasses.replace(lz, smem=fp.SMEM_SLACK + fp.LZ_FIXED + lz.own_bytes + 2 * lz.stage_bytes)
+        assert lz.blocks == 7 and max(lz.pstarts[b + 1] - lz.pstarts[b] for b in range(7)) > 1
+        out = _cuda_build.fused_lanczos(K, Z, 10, plan=lz)
+        _lanczos_close(out, fp.fused_lanczos_dense_plain(K, Z, maxits=10))
+
+
+def test_fused_entry_points_refuse_inconsistent_plans(dev):
+    """The C entry points refuse a plan that leaves a row or panel out,
+    covers one twice, leaves a block without work, keeps more resident than
+    a block owns, asks for less shared memory than its layout needs, or runs
+    more blocks than SMs -- and launch nothing."""
+    sms, smem = _cuda_build.device_limits(dev)
+    n = 1000
+    K, g = _spd(dev, n)
+    b = torch.randn(n, generator=g, device=dev)
+    Z = torch.ones((4, n), device=dev)
+    cg, lz = fp.dense_plan(n, 4, sms, smem)
+    s = list(cg.starts)
+    bad_cg = [dataclasses.replace(cg, starts=tuple(s[:-1] + [n - 1])),            # a row left out
+              dataclasses.replace(cg, starts=tuple([0, 0] + s[2:])),               # a block without rows
+              dataclasses.replace(cg, resident=(cg.resident[0] + 1,) + cg.resident[1:]),
+              dataclasses.replace(cg, smem=cg.smem - 16),
+              fp.cg_plan(n, sms + 1, smem)]                                        # more blocks than SMs
+    for plan in bad_cg:
+        with pytest.raises(RuntimeError, match="fused_pcg"):
+            _cuda_build.fused_pcg(K, b, 10, 1e-5, plan=plan)
+    p = list(lz.pstarts)
+    bad_lz = [dataclasses.replace(lz, pstarts=tuple(p[:-1] + [p[-1] + 1])),       # a panel past n
+              dataclasses.replace(lz, pstarts=tuple([0, 0] + p[2:])),
+              dataclasses.replace(lz, resident=(lz.chunks + 1,) + lz.resident[1:]),
+              dataclasses.replace(lz, chunk_rows=lz.chunk_rows + 1),                # not whole row groups
+              dataclasses.replace(lz, stages=1),                                   # no ring
+              dataclasses.replace(lz, smem=lz.smem - 16),
+              fp.lanczos_plan(n, 4, 2 * sms, smem)]                                  # 250 blocks
+    for plan in bad_lz:
+        with pytest.raises(RuntimeError, match="fused_lanczos"):
+            _cuda_build.fused_lanczos(K, Z, lz.maxits, plan=plan)
+
+
+def test_fused_constants_match_the_plans(dev):
+    c = _cuda_build.fused_constants()
+    assert c == {"MAX_BLOCKS": fp.MAX_BLOCKS, "SMEM_SLACK": fp.SMEM_SLACK, "CG_CONS": fp.CG_CONS,
+                 "CG_FIXED": fp.CG_FIXED, "LZ_CONS": fp.LZ_CONS, "LZ_FIXED": fp.LZ_FIXED,
+                 "LZ_MAX_C": fp.LZ_WIDTHS[-1], "MAX_STAGES": fp.MAX_STAGES}
+    assert max(fp.LZ_STAGES) <= fp.LZ_MAX_STAGES <= fp.MAX_STAGES
+
+
+@pytest.mark.parametrize("kind", [0, 1], ids=["grid_sync", "counter"])
+def test_timed_barrier_probe(dev, kind):
+    """The timed barrier probe: one block an SM (its shared memory keeps a
+    second off), a positive time a barrier, and the barrier held (block 0
+    reads every block's index + 1, written before the last barrier)."""
+    sms, _ = _cuda_build.device_limits(dev)
+    us, blocks, per_sm = _cuda_build.barrier_us(dev, kind, iters=50, reps=3)
+    assert blocks == sms and per_sm == 1 and us > 0
+    blocks, _, total = _cuda_build.barrier_probe(dev, kind, iters=3)
+    assert total == blocks * (blocks + 1) // 2
 
 
 def test_dense_chol_step_on_card_matches_cpu(dev):

@@ -102,11 +102,13 @@ Phases, one line each (any failure raises and exits non-zero):
      products over n = 4096 and 10 steps of CGS2 in other orders), and the
      SLQ logdet from its tridiagonals within 1e-4 relative of the port's
      slq_logdet on the same probes.  A second launch of each is bitwise
-     equal to the first.  Each line also gives the launch plan's bytes of
+     equal to the first.  Each line also gives the launched plan's bytes of
      K held in shared memory and streamed a step, the grid barriers a step
-     (CG 1, Lanczos 3), the measured microseconds of one (the counter barrier
-     the kernels use, `barrier_us`, one block an SM at the plan's shared
-     memory) and the barrier floor (steps x barriers a step x that), the
+     (CG 1, Lanczos 3), the measured microseconds of one (`barrier_us`: the
+     counter barrier the kernels use, timed by the barrier probe at the
+     plan's blocks, threads and shared memory) and the barrier floor (steps
+     x barriers a step x that); these plan facts stay on the text line, the
+     `kernels` line carries the measured `barrier_probe_us`.  Also the
      torch engines' time (`engine_ms`: solvers/pcg.py, lanczos_batch) and,
      for Lanczos, "product alone": steps x one torch.mm of (nv, n) x (n, n);
  10. dense-fit: GPProblem(gaussian, WINDOWS, operator="dense",
@@ -876,19 +878,22 @@ def check_dense_kernels(X, y):
     if min(launches.values()) <= 0:
         raise AssertionError(f"a dense kernel was not launched: {launches}")
 
-    sms, smem = _cuda_build.device_limits(dev)
-    # one grid barrier of each kernel, at its threads and shared memory
-    barrier = {}
+    # the plans the launches ran under, and one grid barrier of each at its
+    # blocks, threads (CG has a producer warp only where rows stream) and
+    # shared memory
+    plans, barrier = {}, {}
     for n in DENSE_NS:
-        cg, lz = fp.dense_plan(n, SLQ_NV, sms, smem, SLQ_ITS)
-        # the CG kernel has a producer warp only where rows stream
+        plans["pcg", n] = cg = _cuda_build._grid("pcg", n, dev)[0]
+        plans["lanczos", n] = lz = _cuda_build._grid("lanczos", n, dev, SLQ_NV, SLQ_ITS)[0]
         barrier["pcg", n] = _cuda_build.barrier_us(dev, 1, threads=fp.CG_CONS + (32 if cg.stages else 0),
-                                                   smem=cg.smem)[0]
-        barrier["lanczos", n] = _cuda_build.barrier_us(dev, 1, threads=fp.LZ_CONS + 32, smem=lz.smem)[0]
-    gs_us = _cuda_build.barrier_us(dev, 0)[0]
-    print(f"[dense-kernels] one grid barrier, one block an SM ({sms} SMs): the kernels' counter barrier "
-          f"{ {f'{k} n={n}': round(v, 3) for (k, n), v in barrier.items()} } us; cooperative groups' grid.sync() "
-          f"{gs_us:.3f} us (160 KB of shared memory, 288 threads)", flush=True)
+                                                   smem=cg.smem, blocks=cg.blocks)[0]
+        barrier["lanczos", n] = _cuda_build.barrier_us(dev, 1, threads=fp.LZ_CONS + 32, smem=lz.smem,
+                                                       blocks=lz.blocks)[0]
+    gs_us, gs_blocks, _ = _cuda_build.barrier_us(dev, 0)
+    per_plan = {f"{k} n={n} blocks={plans[k, n].blocks}": round(v, 3) for (k, n), v in barrier.items()}
+    print(f"[dense-kernels] one grid barrier at each launch's plan (blocks, threads, shared memory): the "
+          f"kernels' counter barrier {per_plan} us; cooperative groups' grid.sync() {gs_us:.3f} us "
+          f"({gs_blocks} blocks, 160 KB of shared memory, 288 threads)", flush=True)
 
     cases = []
     for (n, mu), (K, b) in probs.items():
@@ -903,12 +908,11 @@ def check_dense_kernels(X, y):
         lms = cuda_ms(lambda: torch.linalg.solve(K, b))
         ems = cuda_ms(lambda: pcg(lambda v: K @ v, b, tol=PCG_TOL, maxits=PCG_MAXITS), reps=3, warmup=1)
         b_ms, b_by = bound(it * (2.0 * n * n + 10.0 * n), 4.0 * (n * n + 2 * n))
-        plan = fp.cg_plan(n, sms, smem)
+        plan = plans["pcg", n]
         floor_ms = it * 1 * barrier["pcg", n] * 1e-3
         c = dict(kernel="fused_pcg_dense", shape=f"n={n} mu={mu}", max_abs=float((x - xp).abs().max()), ms=ms,
                  plain_ms=pms, library_ms=lms, engine_ms=ems, bound_ms=b_ms, bound_by=b_by, engine=ENGINES["f32"],
-                 steps=it, barriers_per_step=1, barrier_us=barrier["pcg", n], barrier_floor_ms=floor_ms,
-                 k_resident_bytes=plan.resident_bytes, k_streamed_bytes_per_step=plan.streamed_bytes)
+                 steps=it, barrier_probe_us=barrier["pcg", n])
         cases.append(c)
         print(f"[dense-kernels] fused_pcg_dense n={n} (f, l, mu)=(1, 0.5, {mu}): niter={it} (plain {itp}) "
               f"relres={rr:.3e} (plain {rp:.3e}) true_relres_f64={true:.3e} (plain {true_p:.3e}) "
@@ -950,13 +954,12 @@ def check_dense_kernels(X, y):
         flops = 2.0 * SLQ_NV * n * n * steps + 4.0 * SLQ_NV * n * steps * (steps + 1)
         b_ms, b_by = bound(flops, 4.0 * (n * n + SLQ_NV * n * (SLQ_ITS + 2) + SLQ_NV * 2 * SLQ_ITS))
         max_abs = max(coef_err, float((V - Vp).abs().max()))
-        plan = fp.lanczos_plan(n, SLQ_NV, sms, smem, SLQ_ITS)
+        plan = plans["lanczos", n]
         floor_ms = steps * 3 * barrier["lanczos", n] * 1e-3
         cases.append(dict(kernel="fused_lanczos_dense", shape=f"n={n} mu={DENSE_MUS[0]}", max_abs=max_abs, ms=ms,
                           plain_ms=pms, library_ms=None, engine_ms=ems, product_alone_ms=mm_ms, bound_ms=b_ms,
-                          bound_by=b_by, engine=ENGINES["f32"], steps=steps, barriers_per_step=3,
-                          barrier_us=barrier["lanczos", n], barrier_floor_ms=floor_ms,
-                          k_resident_bytes=plan.resident_bytes, k_streamed_bytes_per_step=plan.streamed_bytes))
+                          bound_by=b_by, engine=ENGINES["f32"], steps=steps,
+                          barrier_probe_us=barrier["lanczos", n]))
         print(f"[dense-kernels] fused_lanczos_dense n={n} nv={SLQ_NV} maxits={SLQ_ITS}: coef_err/max|alpha|="
               f"{coef_err / scale:.3e} V_rel_err={v_rel:.3e} logdet/n={est:.8e} (slq_logdet {ref:.8e}) "
               f"bitwise_repeat={bitwise} ms={ms:.4f} plain_ms={pms:.4f} library_ms=None "
@@ -1784,8 +1787,7 @@ def main():
                                        if c["kernel"] == k["name"] and f"windows={WINDOWS}" in c["tag"]}
     for k in summary[8:10]:
         c = next(c for c in dense if c["kernel"] == k["name"] and c["shape"] == k["shape"])
-        for key in ("engine_ms", "product_alone_ms", "steps", "barriers_per_step", "barrier_us", "barrier_floor_ms",
-                    "k_resident_bytes", "k_streamed_bytes_per_step"):
+        for key in ("engine_ms", "product_alone_ms", "steps", "barrier_probe_us"):
             if key in c:
                 k[key] = c[key]
         k["ms_by_shape"] = {d["shape"]: d["ms"] for d in dense if d["kernel"] == k["name"]}

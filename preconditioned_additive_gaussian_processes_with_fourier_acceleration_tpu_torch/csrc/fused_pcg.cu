@@ -60,6 +60,10 @@
 // partial sums (one thread a (probe, step) pair over the block's columns;
 // the blocks' partials added by lz_totals).  The product stays on the CUDA
 // cores.
+//
+// The `// @phase:` comments mark the boundaries of a step's phases; the
+// timed copy that scripts/torch_table_kernels_ab.py --kernels dense builds
+// uncomments them (block 0 then writes the globaltimer at each).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -163,23 +167,6 @@ __device__ __forceinline__ void grid_wait(const unsigned* counter, unsigned e, i
     asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(counter) : "memory");
   } while (seen < target);
 }
-
-// Phase times of block 0 (globaltimer, ns) a step, in builds with
-// -DFUSED_PHASE_TIMES=1 only: g_phase[kernel][step][phase], read by
-// fused_phase_times (scripts/torch_table_kernels_ab.py --kernels dense).
-constexpr int PH_STEPS = 256, PH_N = 12;
-#if FUSED_PHASE_TIMES
-__device__ unsigned long long g_phase[2][PH_STEPS][PH_N];
-__device__ __forceinline__ void phase(int kernel, int it, int k) {
-  if (blockIdx.x == 0 && threadIdx.x == 0 && it < PH_STEPS) {
-    unsigned long long ns;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-    g_phase[kernel][it][k] = ns;
-  }
-}
-#else
-__device__ __forceinline__ void phase(int, int, int) {}
-#endif
 
 // --- CG -----------------------------------------------------------------------
 
@@ -356,7 +343,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (t == 0) go[it & 1] = cont;
     __syncthreads();  // step start, with the producer
     if (!cont) break;
-    phase(0, it, 0);
+    // @phase: phase(0, it, 0);
 
     // q = K p on the block's rows, 16 rows a reduction: the resident rows
     // (shared memory), then the streamed ones (a ring stage each)
@@ -384,7 +371,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float q = cg_reduce(a, cnt, red + (gi & 1) * CG_CW * CG_RG);
       if (t < cnt) qb[r0 + g0 + t] = q;
     }
-    phase(0, it, 1);
+    // @phase: phase(0, it, 1);
     if constexpr (THREADS > CG_CONS) {
       for (int g0 = 0; g0 < nstr; g0 += CG_RG, ++gi) {
         const int cnt = min(CG_RG, nstr - g0);
@@ -406,11 +393,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
     named_sync(1, CG_CONS);  // every q of the block written
-    phase(0, it, 2);
+    // @phase: phase(0, it, 2);
     if (t == 0) grid_arrive(counter);
     if (warp == 0) grid_wait(counter, (unsigned)it + 1, G);
     named_sync(1, CG_CONS);
-    phase(0, it, 3);
+    // @phase: phase(0, it, 3);
 
     // every block: p'q, alpha, r -= alpha q and r'r over all n (all of q
     // from L2, the same order everywhere); x on the block's own rows
@@ -438,7 +425,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       acc += rv[k].x * rv[k].x + rv[k].y * rv[k].y + rv[k].z * rv[k].z + rv[k].w * rv[k].w;
     }
     const float rr = cg_sum(acc, sums + 16 * (sb++ & 3));
-    phase(0, it, 4);
+    // @phase: phase(0, it, 4);
     normr_sq = rr;
     ++niter;
     stop = breakdown || rr <= tolb;
@@ -458,7 +445,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
     rho = rr;
-    phase(0, it, 5);
+    // @phase: phase(0, it, 5);
   }
   // the stages the producer copied ahead and nobody consumed, and the
   // resident rows if no step ran, land before the block exits
@@ -472,7 +459,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     niter_out[0] = niter;
   }
 }
-
 
 // --- Lanczos ------------------------------------------------------------------
 
@@ -546,7 +532,7 @@ __device__ __forceinline__ void lz_panel(const LzPlan& plan, int n, int nvp4, in
   for (int k = 0; k < nchunks; ++k, ++gc) {
     const int s = (int)(gc % S);
     mbar_wait(full + 8 * s, (uint32_t)((gc / S) & 1));
-    if (k == 0 && panel_local == 0) phase(1, it, 8);
+    // @phase: if (k == 0 && panel_local == 0) phase(1, it, 8);
     const float* vst = ring + (size_t)s * stage_floats;
     const float* kst = k < nres ? kres + ((size_t)panel_local * nres + k) * JT * C : vst + JT * nvp4;
     for (int jj = jg; jj < JT; jj += NJG) {
@@ -572,7 +558,7 @@ __device__ __forceinline__ void lz_panel(const LzPlan& plan, int n, int nvp4, in
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * s);
   }
-  if (panel_local == 0) phase(1, it, 9);
+  // @phase: if (panel_local == 0) phase(1, it, 9);
   for (int o = CGc; o < 32; o <<= 1)
 #pragma unroll
     for (int r = 0; r < NVT; ++r)
@@ -740,7 +726,7 @@ __global__ void __launch_bounds__(LZ_THREADS, 1)
     if (!cont) break;
 
     // w = v_it K on the block's columns, divided by ||w_{it-1}|| (0: a stopped probe)
-    phase(1, it, 0);
+    // @phase: phase(1, it, 0);
     if (nres > 0) mbar_wait(resbar, 0);
     float* w = wbuf + (size_t)(it & 1) * n * nvp4;  // this step's w, every block's columns
     float* wo = plan.own ? w_own - (size_t)cb * nvp4 : w;  // the block's own: wo[c nvp4 + r]
@@ -756,7 +742,7 @@ __global__ void __launch_bounds__(LZ_THREADS, 1)
       }
       named_sync(1, LZ_CONS);
     }
-    phase(1, it, 1);
+    // @phase: phase(1, it, 1);
 
     // two CGS passes against the whole history (its rows past `it` are
     // zero), on the block's own columns; one thread a (probe, step) pair
@@ -778,7 +764,7 @@ __global__ void __launch_bounds__(LZ_THREADS, 1)
       if (t == 0) grid_arrive(counter);
       if (warp == 0) grid_wait(counter, epoch, G);
       named_sync(1, LZ_CONS);
-      phase(1, it, 2 + 2 * pass);
+      // @phase: phase(1, it, 2 + 2 * pass);
       lz_totals(pt, G, npairs, [&](int q, float v) { cf[(q / (it + 1)) * MAX_M1 + q % (it + 1)] = v; });
       named_sync(1, LZ_CONS);
       for (int e = t; e < nv * ncol; e += LZ_CONS) {
@@ -789,7 +775,7 @@ __global__ void __launch_bounds__(LZ_THREADS, 1)
         wo[(size_t)c * nvp4 + r] -= s;
       }
       named_sync(1, LZ_CONS);
-      phase(1, it, 3 + 2 * pass);
+      // @phase: phase(1, it, 3 + 2 * pass);
     }
 
     // ||w||; w is final: the next product reads it (wbuf) after this barrier
@@ -807,7 +793,7 @@ __global__ void __launch_bounds__(LZ_THREADS, 1)
       if (t == 0) grid_arrive(counter);
       if (warp == 0) grid_wait(counter, epoch, G);
       named_sync(1, LZ_CONS);
-      phase(1, it, 6);
+      // @phase: phase(1, it, 6);
       lz_totals(pt, G, nv, [&](int r, float v) { tn[r] = sqrtf(v); });
       named_sync(1, LZ_CONS);
     }
@@ -834,7 +820,7 @@ __global__ void __launch_bounds__(LZ_THREADS, 1)
       stopf[t] = stopf[t] || tn[t] < FLT_EPSILON;
     }
     named_sync(1, LZ_CONS);
-    phase(1, it, 7);
+    // @phase: phase(1, it, 7);
   }
   if (nres > 0) mbar_wait(resbar, 0);
 }
@@ -872,23 +858,6 @@ __global__ void barrier_probe_kernel(int kind, int iters, unsigned* counter, int
     for (int k = 0; k < G; ++k) total += __ldcg(check + 1 + k);
     check[0] = total;
   }
-}
-
-// A cyclic re-read: `passes` passes of every block over the whole buffer
-// (16-byte loads through L2, eight in flight a thread); the yardstick of
-// how fast K's streamed part can come back each step.
-__global__ void __launch_bounds__(512) reread_probe_kernel(const float4* __restrict__ buf, long long n4, int passes,
-                                                           float* out) {
-  float acc = 0.f;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (int p = 0; p < passes; ++p) {
-#pragma unroll 8
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
-      const float4 v = __ldcg(buf + i);
-      acc += v.x + v.y + v.z + v.w;
-    }
-  }
-  if (acc == -1.f) out[0] = acc;  // keeps the loads
 }
 
 int device_limits(int* sms, int* smem_optin) {
@@ -1051,54 +1020,28 @@ int fused_lanczos_launch(const float* K, int ld, const float* Z, int n, int nv, 
 }
 
 // `iters` grid-wide barriers (kind 0 grid.sync(), kind 1 the counter
-// barrier) over one block an SM of `threads` threads holding `smem` bytes
-// of dynamic shared memory (enough to keep a second block off an SM), then
-// the check (barrier_probe_kernel).  counter: zero; check: 1 + SMs ints.
-// *grid gets the block count, *per_sm the blocks an SM could hold at that
-// size.
-int barrier_probe_launch(int kind, int iters, int threads, int smem, unsigned* counter, int* check, int* grid,
+// barrier) over `blocks` blocks (1 to the SMs: a plan's grid) of `threads`
+// threads holding `smem` bytes of dynamic shared memory (enough to keep a
+// second block off an SM), then the check (barrier_probe_kernel).
+// counter: zero; check: 1 + blocks ints.  *per_sm gets the blocks an SM
+// could hold at that size.
+int barrier_probe_launch(int kind, int iters, int blocks, int threads, int smem, unsigned* counter, int* check,
                          int* per_sm, void* stream) {
   int sms = 0, optin = 0;
   int e = device_limits(&sms, &optin);
   if (e) return e;
-  if ((kind != 0 && kind != 1) || iters < 0 || threads < 32 || threads > 1024 || threads % 32 != 0 || smem < 0 ||
-      smem > optin)
+  if ((kind != 0 && kind != 1) || iters < 0 || blocks < 1 || blocks > sms || threads < 32 || threads > 1024 ||
+      threads % 32 != 0 || smem < 0 || smem > optin)
     return (int)cudaErrorInvalidValue;
   e = (int)cudaFuncSetAttribute(barrier_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e) return e;
   e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, barrier_probe_kernel, threads, (size_t)smem);
   if (e) return e;
-  *grid = sms;
   void* args[] = {&kind, &iters, &counter, &check};
-  e = (int)cudaLaunchCooperativeKernel((void*)barrier_probe_kernel, dim3(sms), dim3(threads), args, (size_t)smem,
+  e = (int)cudaLaunchCooperativeKernel((void*)barrier_probe_kernel, dim3(blocks), dim3(threads), args, (size_t)smem,
                                        static_cast<cudaStream_t>(stream));
   if (e) return e;
   return (int)cudaGetLastError();
-}
-
-// `passes` cyclic re-reads of buf (n4 float4, 16-byte aligned) by four
-// 512-thread blocks an SM
-int reread_probe_launch(const float* buf, long long n4, int passes, float* out, void* stream) {
-  int sms = 0, optin = 0;
-  const int e = device_limits(&sms, &optin);
-  if (e) return e;
-  if (!aligned16(buf) || n4 < 1 || passes < 0) return (int)cudaErrorInvalidValue;
-  reread_probe_kernel<<<4 * sms, 512, 0, static_cast<cudaStream_t>(stream)>>>(reinterpret_cast<const float4*>(buf),
-                                                                             n4, passes, out);
-  return (int)cudaGetLastError();
-}
-
-// Block 0's phase times (ns, globaltimer) of kernel 0 (CG) or 1 (Lanczos):
-// PH_STEPS x PH_N into host; only in a build with -DFUSED_PHASE_TIMES=1.
-int fused_phase_times(unsigned long long* host, int kernel) {
-#if FUSED_PHASE_TIMES
-  const size_t bytes = sizeof(unsigned long long) * PH_STEPS * PH_N;
-  return (int)cudaMemcpyFromSymbol(host, g_phase, bytes, bytes * kernel, cudaMemcpyDeviceToHost);
-#else
-  (void)host;
-  (void)kernel;
-  return (int)cudaErrorNotSupported;
-#endif
 }
 
 const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

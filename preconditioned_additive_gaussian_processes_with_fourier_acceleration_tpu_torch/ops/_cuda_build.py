@@ -241,11 +241,8 @@ def _fused_pcg_signatures(lib):
     lib.fused_constants.restype = None
     lib.fused_pcg_launch.argtypes = [P, I, P, I, I, F, I, IP, IP, I, I, P, P, P, P, P, P]
     lib.fused_lanczos_launch.argtypes = [P, I, P, I, I, I, I, I, I, I, IP, IP, I, I, P, P, P, P, P, P, P, P]
-    lib.barrier_probe_launch.argtypes = [I, I, I, I, P, P, IP, IP, P]
-    lib.reread_probe_launch.argtypes = [P, ctypes.c_longlong, I, P, P]
-    lib.fused_phase_times.argtypes = [P, I]
-    for fn in (lib.fused_device_limits, lib.fused_pcg_launch, lib.fused_lanczos_launch,
-               lib.barrier_probe_launch, lib.reread_probe_launch, lib.fused_phase_times):
+    lib.barrier_probe_launch.argtypes = [I, I, I, I, I, P, P, IP, P]
+    for fn in (lib.fused_device_limits, lib.fused_pcg_launch, lib.fused_lanczos_launch, lib.barrier_probe_launch):
         fn.restype = I
 
 
@@ -652,13 +649,15 @@ def _grid(kind: str, n: int, device: torch.device, nv: int = 1, maxits: int = 10
 
 def _padded_rows(K):
     """K with a row stride of a multiple of 4 floats at a 16-byte aligned
-    address (a zero-padded copy if it has neither), and that stride."""
+    address (the TMA copies' need; a copy with zero pad columns if it has
+    neither), and that stride."""
     n = K.shape[0]
     ld = -(-n // 4) * 4
     if ld == n and K.data_ptr() % 16 == 0:
         return K, ld
-    Kp = torch.zeros((n, ld), dtype=torch.float32, device=K.device)
+    Kp = torch.empty((n, ld), dtype=torch.float32, device=K.device)
     Kp[:, :n] = K
+    Kp[:, n:] = 0.0
     return Kp, ld
 
 
@@ -718,24 +717,26 @@ def fused_lanczos(K, Z, maxits: int, plan=None):
     return alpha, beta, V, beta0
 
 
-def barrier_probe(device, kind: int = 0, iters: int = 1, threads: int = 288, smem: int = 160 * 1024):
+def barrier_probe(device, kind: int = 0, iters: int = 1, threads: int = 288, smem: int = 160 * 1024,
+                  blocks: int | None = None):
     """One launch of the barrier probe: `iters` grid-wide barriers (kind 0
     cooperative groups' grid.sync(), kind 1 the fused kernels' counter
-    barrier) over one block an SM, then one more, after which block 0 adds
-    every block's index + 1.  Returns (blocks, blocks an SM could hold at
-    that shared memory, that sum: blocks (blocks + 1) / 2 if the barrier
-    held)."""
+    barrier) over `blocks` blocks (default one an SM; a plan's `blocks` for
+    its kernel's barrier), then one more, after which block 0 adds every
+    block's index + 1.  Returns (blocks, blocks an SM could hold at that
+    shared memory, that sum: blocks (blocks + 1) / 2 if the barrier held)."""
     lib = library("fused_pcg")
-    sms, _ = device_limits(device)
+    if blocks is None:
+        blocks = device_limits(device)[0]
     counter = torch.zeros(1, dtype=torch.int32, device=device)
-    check = torch.zeros(1 + sms, dtype=torch.int32, device=device)
-    g, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    check = torch.zeros(1 + blocks, dtype=torch.int32, device=device)
+    per_sm = ctypes.c_int(0)
     with torch.cuda.device(device):
-        code = lib.barrier_probe_launch(kind, iters, threads, smem, counter.data_ptr(), check.data_ptr(),
-                                        ctypes.byref(g), ctypes.byref(per_sm),
+        code = lib.barrier_probe_launch(kind, iters, blocks, threads, smem, counter.data_ptr(), check.data_ptr(),
+                                        ctypes.byref(per_sm),
                                         ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     _check(lib, code, "barrier_probe")
-    return g.value, per_sm.value, int(check[0])
+    return blocks, per_sm.value, int(check[0])
 
 
 def grid_sync_probe(device) -> tuple[int, int]:
@@ -746,7 +747,7 @@ def grid_sync_probe(device) -> tuple[int, int]:
 
 
 def barrier_us(device, kind: int = 1, iters: int = 200, threads: int = 288, smem: int = 160 * 1024,
-               reps: int = 5) -> tuple[float, int, int]:
+               reps: int = 5, blocks: int | None = None) -> tuple[float, int, int]:
     """Microseconds of one grid-wide barrier on the card: CUDA events around
     launches of the probe with 1 and with 1 + iters barriers, the median of
     `reps` each, the difference over iters.  Returns (us, blocks, blocks an
@@ -756,38 +757,12 @@ def barrier_us(device, kind: int = 1, iters: int = 200, threads: int = 288, smem
         for _ in range(reps + 1):
             start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            blocks, per_sm, _ = barrier_probe(device, kind, k, threads, smem)
+            g, per_sm, _ = barrier_probe(device, kind, k, threads, smem, blocks)
             stop.record()
             torch.cuda.synchronize(device)
             times.append(start.elapsed_time(stop))
-        return sorted(times[1:])[reps // 2], blocks, per_sm
+        return sorted(times[1:])[reps // 2], g, per_sm
 
-    t1, blocks, per_sm = timed(1)
+    t1, g, per_sm = timed(1)
     tk, _, _ = timed(1 + iters)
-    return (tk - t1) * 1e3 / iters, blocks, per_sm
-
-
-def reread_GBps(device, mbytes: float, passes: int = 10, reps: int = 5) -> float:
-    """GB/s of a cyclic re-read of an `mbytes` MB buffer on the card (the
-    probe kernel's passes, 16-byte loads through L2): CUDA events around
-    launches of 1 and 1 + passes passes, the median of `reps` each."""
-    lib = library("fused_pcg")
-    n4 = int(mbytes * 1e6) // 16
-    buf = torch.ones(4 * n4, dtype=torch.float32, device=device)
-    out = torch.zeros(1, dtype=torch.float32, device=device)
-
-    def timed(k):
-        times = []
-        for _ in range(reps + 1):
-            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            with torch.cuda.device(device):
-                _check(lib, lib.reread_probe_launch(buf.data_ptr(), n4, k, out.data_ptr(), _stream(buf)),
-                       "reread_probe")
-            stop.record()
-            torch.cuda.synchronize(device)
-            times.append(start.elapsed_time(stop))
-        return sorted(times[1:])[reps // 2]
-
-    return 16 * n4 * passes / ((timed(1 + passes) - timed(1)) * 1e6)
-
+    return (tk - t1) * 1e3 / iters, g, per_sm

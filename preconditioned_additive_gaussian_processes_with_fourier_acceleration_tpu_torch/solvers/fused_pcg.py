@@ -71,7 +71,7 @@ LZ_FIXED = 18432
 LZ_WIDTHS = (4, 8, 16, 32, 64, 128)
 LZ_STREAM_ROWS = 8
 LZ_RESIDENT_ROWS = 4
-LZ_STAGES = (2,)
+LZ_STAGES = 2
 LZ_MAX_STAGES = 8
 # the most bytes a block keeps of its own columns of w and of the V history
 # (nv rounded up to 4 + nv (maxits + 1) floats a column) in shared memory;
@@ -215,10 +215,10 @@ def lanczos_plan(n: int, nv: int, sms: int, smem_per_block: int, maxits: int = 1
     whole, in chunks of LZ_RESIDENT_ROWS rows a consumer thread's column
     group (at most 256), it stays there and the ring (up to LZ_MAX_STAGES
     stages) carries v_it alone.  Else chunks of LZ_STREAM_ROWS rows a
-    column group; the ring's stages (the first of LZ_STAGES that fits) carry a
-    chunk of v_it (nv rounded up to 4 probes a row) and of the panel, and
-    what the budget leaves holds each panel's leading chunks for the
-    launch.  Raises ValueError where the ring does not fit."""
+    column group; the ring's LZ_STAGES stages carry a chunk of v_it (nv
+    rounded up to 4 probes a row) and of the panel, and what the budget
+    leaves holds each panel's leading chunks for the launch.  Raises
+    ValueError where the ring does not fit."""
     if not 1 <= n <= MAX_N or not 1 <= nv <= MAX_NV or not 1 <= maxits <= MAX_ITS:
         raise ValueError(f"n must be in [1, {MAX_N}], nv in [1, {MAX_NV}] and maxits in [1, {MAX_ITS}], "
                          f"got {n}, {nv}, {maxits}")
@@ -245,15 +245,14 @@ def lanczos_plan(n: int, nv: int, sms: int, smem_per_block: int, maxits: int = 1
     chunks = -(-n // rows)
     chunk = 4 * rows * width
     stage = 4 * rows * _nvp4(nv) + chunk
-    for stages in LZ_STAGES:
-        if base + stages * stage <= smem_per_block:
-            avail = smem_per_block - base - stages * stage
-            resident = tuple(min(chunks - 1, avail // (chunk * p)) for p in per)  # some chunk streams
-            held = max(p * r for p, r in zip(per, resident))
-            return LanczosPlan(n, nv, maxits, G, width, rows, pstarts, resident, stages, own,
-                               base + stages * stage + held * chunk)
-    raise ValueError(f"Lanczos at n={n}, nv={nv}: a ring of two {stage}-byte stages does not fit "
-                     f"{smem_per_block} bytes of shared memory")
+    avail = smem_per_block - base - LZ_STAGES * stage
+    if avail < 0:
+        raise ValueError(f"Lanczos at n={n}, nv={nv}: a ring of {LZ_STAGES} {stage}-byte stages does not fit "
+                         f"{smem_per_block} bytes of shared memory")
+    resident = tuple(min(chunks - 1, avail // (chunk * p)) for p in per)  # some chunk streams
+    held = max(p * r for p, r in zip(per, resident))
+    return LanczosPlan(n, nv, maxits, G, width, rows, pstarts, resident, LZ_STAGES, own,
+                       base + LZ_STAGES * stage + held * chunk)
 
 
 def dense_plan(n: int, nv: int, sms: int, smem_per_block: int, maxits: int = 10) -> tuple:

@@ -86,23 +86,31 @@ Lanczos kernels whose C entry points size their own grid,
 `_old_dense_signatures`) against the current ones under their launch plans
 (solvers/fused_pcg.py), at chip_smoke.py's [dense-kernels] shapes (CG at
 n = 2048, 4096 and mu = 0.1, 0.01, maxits 200, tol 1e-5; Lanczos with 10
-probes and 10 steps at n = 2048, 4096): first the yardsticks -- one grid
+probes and 10 steps at n = 2048, 4096) and at n = 2049 (mu = 0.1), whose
+rows the wrappers copy to a padded stride (the copy is timed with the
+call, and alone as `pad_copy_ms`).  First the yardsticks: one grid
 barrier (`barrier_us`: the kernels' counter barrier and cooperative groups'
-grid.sync(), one block an SM at each plan's shared memory) and the rate of
-a cyclic re-read of a 20-45 MB buffer (`reread_GBps`, csrc/fused_pcg.cu's
-probe kernel: from L2 where it stays there) beside a 256 MB one (from
-HBM) -- then per shape the old outputs against the new (CG: niter,
-max |x_old - x_new| over max |x_old|; Lanczos: alpha, beta and V), times in
-turns old, new, new, old, the plan's bytes of K resident and streamed a
-step, and block 0's time by phase, averaged over the steps (the current
-csrc/fused_pcg.cu built with FUSED_PHASE_TIMES=1, one launch: CG matvec on
-the resident and the streamed rows, barrier, p'q + r update + sums, p
-update, the step-start barrier with the producer; Lanczos product (to its
-first chunk, its chunks, its reduction), each CGS pass's partials +
-barrier and totals + update, the norm's partials + barrier, the rest).  --variants also times the current kernels under
-other plans at n = 4096 (CG's ring of 2 to 8 one-row stages; Lanczos with
-its own columns of w and V in global memory, and its ring of 2 to 6
-stages of 64-row chunks, 2 or 3 of 128 rows, 2 of 256).  No profile.
+grid.sync() at each launch plan's blocks, threads and shared memory) and
+the rate of a cyclic re-read of a 10-60 MB buffer (`reread_GBps`: from L2
+where it stays there) beside a 256 MB one (from HBM); then per shape the
+old outputs against the new (CG: niter, max |x_old - x_new| over
+max |x_old|; Lanczos: alpha, beta and V), times in turns old, new, new,
+old, the plan's bytes of K resident and streamed a step, and block 0's
+time by phase, averaged over the steps (one launch of a copy of the
+current csrc/fused_pcg.cu with its `// @phase:` marks switched on,
+`phase_timed_source`: CG matvec on the resident and the streamed rows,
+barrier, p'q + r update + sums, p update, the step-start barrier with the
+producer; Lanczos product (to its first chunk, its chunks, its
+reduction), each CGS pass's partials + barrier and totals + update, the
+norm's partials + barrier, the rest).  --variants also times the current
+kernels under other plans at n = 4096, made from the card's own with
+`cg_variant` / `lanczos_variant` (CG's ring of 2 to 8 one-row stages;
+Lanczos with its own columns of w and V in global memory, and its ring of
+2 to 6 stages of 64-row chunks, 2 or 3 of 128 rows, 2 of 256).  Last,
+whether a cooperative launch takes a cluster dimension (`cluster_coop`,
+clusters of 2 and 4 blocks at the n = 4096 Lanczos plan's shared memory).
+The probes and the phase-timed copy are built into
+`_chip_scratch/ab_build/`.  No profile.
 
 The profile (torch.profiler, after a warm-up step): wall time, device-busy
 time (the union of the device kernels' intervals) and its share of the wall
@@ -112,6 +120,7 @@ Exits non-zero without CUDA.
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -893,41 +902,270 @@ def old_dense_calls(lib, dev):
 
 
 def _dense_problems(dev):
-    """chip_smoke.py check_dense_kernels' inputs: {(n, mu): (K, y)} and {n: Z}."""
+    """chip_smoke.py check_dense_kernels' inputs at DENSE_AB_NS (its shapes
+    and an n that is no multiple of 4): {(n, mu): (K, y)} and {n: Z}."""
     from nfft4gp_torch.ops.kernels import KernelParams, additive_kernel_matrix, make_windows
     from nfft4gp_torch.solvers.lanczos import rademacher_probes
 
-    X, y = cs.make_data(max(cs.DENSE_NS))
+    X, y = cs.make_data(max(DENSE_AB_NS))
     W = make_windows(cs.WINDOWS)
     probs = {}
-    for n in cs.DENSE_NS:
-        for mu in cs.DENSE_MUS:
+    for n in DENSE_AB_NS:
+        for mu in cs.DENSE_MUS if n in cs.DENSE_NS else cs.DENSE_MUS[:1]:
             p = KernelParams.make(1.0, 0.5, mu, dtype=torch.float32, device=dev)
             probs[n, mu] = (additive_kernel_matrix("gaussian", p, X[:n], W).contiguous(), y[:n].contiguous())
     gen = torch.Generator(device=dev).manual_seed(2)
-    Zs = {n: rademacher_probes(gen, cs.SLQ_NV, n, dtype=torch.float32) for n in cs.DENSE_NS}
+    Zs = {n: rademacher_probes(gen, cs.SLQ_NV, n, dtype=torch.float32) for n in DENSE_AB_NS}
     return probs, Zs
 
 
+# chip_smoke.py's [dense-kernels] n, and one whose K rows the wrappers pad
+# to a multiple of 4 floats (a copy of K each call; PR 3's kernels read it
+# in place)
+DENSE_AB_NS = (2048, 2049, 4096)
+
+# The timed copy of csrc/fused_pcg.cu: its `// @phase:` lines uncommented,
+# block 0 writing the globaltimer at each into g_phase[kernel][step][mark],
+# read back by fused_phase_times.
+PHASE_STEPS, PHASE_MARKS = 256, 12
+PHASE_DEFS = f"""
+constexpr int PH_STEPS = {PHASE_STEPS}, PH_N = {PHASE_MARKS};
+__device__ unsigned long long g_phase[2][PH_STEPS][PH_N];
+__device__ __forceinline__ void phase(int kernel, int it, int k) {{
+  if (blockIdx.x == 0 && threadIdx.x == 0 && it < PH_STEPS) {{
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    g_phase[kernel][it][k] = ns;
+  }}
+}}
+"""
+PHASE_READ = """
+extern "C" int fused_phase_times(unsigned long long* host, int kernel) {
+  const size_t bytes = sizeof(unsigned long long) * PH_STEPS * PH_N;
+  return (int)cudaMemcpyFromSymbol(host, g_phase, bytes, bytes * kernel, cudaMemcpyDeviceToHost);
+}
+"""
+PHASE_ANCHOR = "// @phase: "
+INCLUDE_LAST = '#include "tma_common.cuh"\n'
+
+
+def phase_timed_source(src: str) -> str:
+    """csrc/fused_pcg.cu's text with its phase marks switched on (above).
+    Raises ValueError where the source has no marks or no place for them."""
+    if PHASE_ANCHOR not in src or src.count(INCLUDE_LAST) != 1:
+        raise ValueError("fused_pcg.cu: no `// @phase:` marks, or no tma_common.cuh include to put them after")
+    src = src.replace(PHASE_ANCHOR, "")
+    return src.replace(INCLUDE_LAST, INCLUDE_LAST + PHASE_DEFS) + PHASE_READ
+
+
 def build_phase_timed() -> ctypes.CDLL:
-    """The current csrc/fused_pcg.cu built with FUSED_PHASE_TIMES=1 (block 0
-    writes the globaltimer at each phase of each step), with the current
-    library's interface."""
+    """The timed copy of the current csrc/fused_pcg.cu (`phase_timed_source`),
+    built into _chip_scratch/ab_build/ with the current library's interface."""
     from nfft4gp_torch.ops import _cuda_build as cb
 
     out = ROOT / "_chip_scratch" / "ab_build" / "libfused_pcg_phases.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([cb._nvcc(), *cb.NVCC_FLAGS, "-DFUSED_PHASE_TIMES=1", "-I", str(cb.CSRC), "-o", str(out),
-                    str(cb.SOURCES["fused_pcg"])], check=True, capture_output=True)
+    src = out.with_name("fused_pcg_phases.cu")
+    src.write_text(phase_timed_source(cb.SOURCES["fused_pcg"].read_text()))
+    subprocess.run([cb._nvcc(), *cb.NVCC_FLAGS, "-I", str(cb.CSRC), "-o", str(out), str(src)], check=True,
+                   capture_output=True)
     lib = ctypes.CDLL(str(out))
     cb._fused_pcg_signatures(lib)
+    lib.fused_phase_times.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.fused_phase_times.restype = ctypes.c_int
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
 
 
-# the phases of each kernel's step (csrc/fused_pcg.cu `phase` calls): the
-# interval names between consecutive marks, then the step-start barrier
+# Yardsticks of the fused kernels' design, built into _chip_scratch/ab_build/:
+# - reread_probe_launch: `passes` cyclic re-reads of a buffer by four
+#   512-thread blocks an SM (16-byte loads through L2, eight in flight a
+#   thread): how fast K's streamed part can come back each step;
+# - cluster_coop_probe: whether a cooperative launch (cudaLaunchKernelEx
+#   with cudaLaunchAttributeCooperative) also takes a cluster dimension, as
+#   TMA multicast of v_it to a cluster's blocks would need; the largest
+#   number of such clusters co-resident (cudaOccupancyMaxActiveClusters),
+#   the launch's code, and whether a counter grid barrier (the fused
+#   kernels' kind) held in it and every block saw a cluster of the size
+#   asked for.
+PROBES_CU = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+namespace cg = cooperative_groups;
+
+__global__ void __launch_bounds__(512) reread_probe_kernel(const float4* __restrict__ buf, long long n4, int passes,
+                                                           float* out) {
+  float acc = 0.f;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int p = 0; p < passes; ++p) {
+#pragma unroll 8
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
+      const float4 v = __ldcg(buf + i);
+      acc += v.x + v.y + v.z + v.w;
+    }
+  }
+  if (acc == -1.f) out[0] = acc;  // keeps the loads
+}
+
+// check[1 + b] = b + 1 and sizes[b] = the block's cluster size; then a
+// counter barrier over the grid (every block co-resident; the wait is
+// bounded, so a grid that is not cannot hang), after which block 0 writes
+// the sum of check[1..] to check[0]
+__global__ void cluster_grid_kernel(unsigned* counter, int* check, int* sizes) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) {
+    check[1 + blockIdx.x] = blockIdx.x + 1;
+    sizes[blockIdx.x] = (int)cluster.num_blocks();
+    __threadfence();
+    atomicAdd(counter, 1u);
+    for (int spins = 0; atomicAdd(counter, 0u) < gridDim.x && spins < (1 << 22); ++spins) {
+    }
+  }
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    int total = 0;
+    for (int k = 0; k < (int)gridDim.x; ++k) total += __ldcg(check + 1 + k);
+    check[0] = total;
+  }
+}
+
+extern "C" {
+
+int reread_probe_launch(const float* buf, long long n4, int passes, float* out, void* stream) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  reread_probe_kernel<<<4 * sms, 512, 0, static_cast<cudaStream_t>(stream)>>>(reinterpret_cast<const float4*>(buf),
+                                                                             n4, passes, out);
+  return (int)cudaGetLastError();
+}
+
+// *max_clusters: co-resident clusters of `cluster` 256-thread blocks with
+// smem bytes each (or 0); *query: that query's code.  Launches
+// `clusters` x `cluster` blocks cooperatively with the cluster dimension
+// when clusters > 0 and returns the launch's code (counter: zero; check:
+// 1 + blocks ints, zero; sizes: blocks ints).
+int cluster_coop_probe(int cluster, int clusters, int smem, int* max_clusters, int* query, unsigned* counter,
+                       int* check, int* sizes, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(cluster_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (cluster > 8) {
+    e = cudaFuncSetAttribute(cluster_grid_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * (clusters > 0 ? clusters : 1));
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  *max_clusters = 0;
+  *query = (int)cudaOccupancyMaxActiveClusters(max_clusters, (void*)cluster_grid_kernel, &cfg);
+  cudaGetLastError();
+  if (clusters <= 0) return 0;
+  cfg.numAttrs = 2;
+  e = cudaLaunchKernelEx(&cfg, cluster_grid_kernel, counter, check, sizes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  e = cudaStreamSynchronize(cfg.stream);
+  return (int)e;
+}
+
+const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
+
+}  // extern "C"
+"""
+
+
+def build_probes() -> ctypes.CDLL:
+    """PROBES_CU built into _chip_scratch/ab_build/."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    out = ROOT / "_chip_scratch" / "ab_build" / "libdense_probes.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    src = out.with_name("dense_probes.cu")
+    src.write_text(PROBES_CU)
+    subprocess.run([cb._nvcc(), *cb.NVCC_FLAGS, "-o", str(out), str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.reread_probe_launch.argtypes = [P, ctypes.c_longlong, I, P, P]
+    lib.cluster_coop_probe.argtypes = [I, I, I, P, P, P, P, P, P]
+    lib.reread_probe_launch.restype = lib.cluster_coop_probe.restype = I
+    lib.error_string.argtypes = [I]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def reread_GBps(lib, device, mbytes: float, passes: int = 10, reps: int = 5) -> float:
+    """GB/s of a cyclic re-read of an `mbytes` MB buffer (reread_probe_launch):
+    CUDA events around launches of 1 and 1 + passes passes, the median of
+    `reps` each."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    n4 = int(mbytes * 1e6) // 16
+    buf = torch.ones(4 * n4, dtype=torch.float32, device=device)
+    out = torch.zeros(1, dtype=torch.float32, device=device)
+
+    def timed(k):
+        times = []
+        for _ in range(reps + 1):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            cb._check(lib, lib.reread_probe_launch(buf.data_ptr(), n4, k, out.data_ptr(), cb._stream(buf)),
+                      "reread_probe")
+            stop.record()
+            torch.cuda.synchronize(device)
+            times.append(start.elapsed_time(stop))
+        return sorted(times[1:])[reps // 2]
+
+    return 16 * n4 * passes / ((timed(1 + passes) - timed(1)) * 1e6)
+
+
+def cluster_coop(lib, device, smem: int) -> dict:
+    """cluster_coop_probe at clusters of 2 and 4 blocks of `smem` bytes of
+    shared memory: the co-resident clusters, then a cooperative launch of
+    that many (at least one), its code and message, and whether the grid
+    barrier held and every block was in a cluster of that size."""
+    from nfft4gp_torch.ops import _cuda_build as cb
+
+    out = {}
+    for cluster in (2, 4):
+        most, query = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            cb._check(lib, lib.cluster_coop_probe(cluster, 0, smem, ctypes.byref(most), ctypes.byref(query), None,
+                                                  None, None, None), "cluster query")
+        clusters = max(1, most.value)
+        blocks = cluster * clusters
+        counter = torch.zeros(1, dtype=torch.int32, device=device)
+        check = torch.zeros(1 + blocks, dtype=torch.int32, device=device)
+        sizes = torch.zeros(blocks, dtype=torch.int32, device=device)
+        with torch.cuda.device(device):
+            code = lib.cluster_coop_probe(cluster, clusters, smem, ctypes.byref(most), ctypes.byref(query),
+                                          counter.data_ptr(), check.data_ptr(), sizes.data_ptr(), cb._stream(check))
+        torch.cuda.synchronize(device)
+        row = {"max_active_clusters": most.value, "query_code": query.value, "blocks": blocks,
+               "launch_code": code, "launch_message": lib.error_string(code).decode()}
+        if code == 0:
+            row["grid_barrier_held"] = int(check[0]) == blocks * (blocks + 1) // 2
+            row["cluster_sizes_seen"] = sorted(set(sizes.tolist()))
+        out[f"cluster={cluster} smem={smem}"] = row
+    return out
+
+
+# the phases of each kernel's step (csrc/fused_pcg.cu `// @phase:` marks):
+# the interval names between consecutive marks, then the step-start barrier
 PHASES = {0: ("matvec_resident", "matvec_streamed", "barrier", "pq+r_update+sums", "p_update"),
           1: ("product", "cgs1_partials+barrier", "cgs1_totals+update", "cgs2_partials+barrier",
               "cgs2_totals+update", "norm_partials+barrier", "norm_totals+v_next+outputs")}
@@ -942,9 +1180,9 @@ def phase_times(lib, kernel, call, steps):
 
     _with_library(cb, lib, call, name="fused_pcg")()
     torch.cuda.synchronize()
-    raw = (ctypes.c_ulonglong * (256 * 12))()
+    raw = (ctypes.c_ulonglong * (PHASE_STEPS * PHASE_MARKS))()
     cb._check(lib, lib.fused_phase_times(raw, kernel), "fused_phase_times")
-    t = np.array(raw, dtype=np.float64).reshape(256, 12)[:min(steps, 256)]
+    t = np.array(raw, dtype=np.float64).reshape(PHASE_STEPS, PHASE_MARKS)[:min(steps, PHASE_STEPS)]
     names = PHASES[kernel]
     marks = t[:, :len(names) + 1]
     out = {name: float(np.mean(np.diff(marks, axis=1)[:, i]) / 1e3) for i, name in enumerate(names)}
@@ -959,44 +1197,61 @@ def phase_times(lib, kernel, call, steps):
     return out
 
 
-def _with_constants(**consts):
-    """A plan made with solvers/fused_pcg.py's layout constants set to
-    `consts` for the call: f(make) -> make()'s plan."""
+def cg_variant(plan, stages: int, smem_per_block: int):
+    """`plan` (a streaming solvers/fused_pcg.py CgPlan) with a ring of `stages`
+    one-row stages and, as cg_plan does, as many resident rows a block as
+    the rest of `smem_per_block` holds."""
     from nfft4gp_torch.solvers import fused_pcg as fp
 
-    def run(make):
-        saved = {k: getattr(fp, k) for k in consts}
-        try:
-            for k, v in consts.items():
-                setattr(fp, k, v)
-            return make()
-        finally:
-            for k, v in saved.items():
-                setattr(fp, k, v)
-    return run
+    row = plan.row_bytes
+    base = fp.SMEM_SLACK + fp.CG_FIXED + row
+    keep = (smem_per_block - base - stages * row) // row
+    resident = tuple(min(plan.starts[b + 1] - plan.starts[b], keep) for b in range(plan.blocks))
+    return dataclasses.replace(plan, resident=resident, stages=stages, smem=base + (stages + max(resident)) * row)
+
+
+def lanczos_variant(plan, smem_per_block: int, *, own: bool, rows_per_group: int, stages: int):
+    """`plan` (a solvers/fused_pcg.py LanczosPlan) made to stream as
+    lanczos_plan's streaming branch does, but with the blocks' own columns
+    of w and V in shared memory or not (`own`), chunks of `rows_per_group`
+    rows a consumer column group and a ring of `stages` stages."""
+    from nfft4gp_torch.solvers import fused_pcg as fp
+
+    per = [plan.pstarts[b + 1] - plan.pstarts[b] for b in range(plan.blocks)]
+    base = fp.SMEM_SLACK + fp.LZ_FIXED + (fp._own_bytes(max(per) * plan.width, plan.nv, plan.maxits) if own else 0)
+    rows = min(256, rows_per_group * (fp.LZ_CONS // (plan.width // 4)))
+    chunks = -(-plan.n // rows)
+    chunk = 4 * rows * plan.width
+    stage = 4 * rows * fp._nvp4(plan.nv) + chunk
+    avail = smem_per_block - base - stages * stage
+    if avail < 0:
+        raise ValueError(f"{stages} stages of {rows} rows do not fit {smem_per_block} bytes")
+    resident = tuple(min(chunks - 1, avail // (chunk * p)) for p in per)
+    held = max(p * r for p, r in zip(per, resident))
+    return dataclasses.replace(plan, chunk_rows=rows, resident=resident, stages=stages, own=own,
+                               smem=base + stages * stage + held * chunk)
 
 
 def ab_dense(old_lib, variants):
     """The fused CG and Lanczos kernels, current against old, at
-    [dense-kernels]' shapes, after the yardsticks (module docstring)."""
+    DENSE_AB_NS, after the yardsticks (module docstring)."""
     from nfft4gp_torch.ops import _cuda_build as cb
     from nfft4gp_torch.solvers import fused_pcg as fp
 
     dev = torch.device("cuda:0")
     sms, smem = cb.device_limits(dev)
+    probes = build_probes()
     rows = []
     yard = {"sms": sms, "smem_per_block": smem, "barrier_us": {}, "reread_GBps": {}}
-    for kind, make in (("pcg", lambda n: fp.cg_plan(n, sms, smem)),
-                       ("lanczos", lambda n: fp.lanczos_plan(n, cs.SLQ_NV, sms, smem, cs.SLQ_ITS))):
+    for kind in ("pcg", "lanczos"):
         for n in cs.DENSE_NS:
-            plan = make(n)
+            plan = cb._grid(kind, n, dev, cs.SLQ_NV, cs.SLQ_ITS)[0] if kind == "lanczos" else cb._grid(kind, n, dev)[0]
             threads = fp.LZ_CONS + 32 if kind == "lanczos" else fp.CG_CONS + (32 if plan.stages else 0)
             for bk, name in ((1, "counter"), (0, "grid_sync")):
-                us, blocks, per_sm = cb.barrier_us(dev, bk, threads=threads, smem=plan.smem)
-                yard["barrier_us"][f"{name} {kind} n={n} smem={plan.smem}"] = us
-                yard["barrier_blocks"] = [blocks, per_sm]
+                us, blocks, _ = cb.barrier_us(dev, bk, threads=threads, smem=plan.smem, blocks=plan.blocks)
+                yard["barrier_us"][f"{name} {kind} n={n} blocks={blocks} smem={plan.smem}"] = us
     for mb in (10, 20, 30, 40, 45, 50, 60, 256):
-        yard["reread_GBps"][f"{mb} MB"] = cb.reread_GBps(dev, mb, passes=3 if mb > 100 else 10)
+        yard["reread_GBps"][f"{mb} MB"] = reread_GBps(probes, dev, mb, passes=3 if mb > 100 else 10)
     print(f"[dense-yardsticks] {json.dumps(yard)}", flush=True)
     rows.append(yard)
 
@@ -1005,9 +1260,11 @@ def ab_dense(old_lib, variants):
     phase_lib = build_phase_timed()
     for (n, mu), (K, b) in probs.items():
         new = (lambda K, b: lambda: fp.fused_pcg_dense(K, b, maxits=cs.PCG_MAXITS, tol=cs.PCG_TOL))(K, b)
-        plan = fp.cg_plan(n, sms, smem)
+        plan = cb._grid("pcg", n, dev)[0]
         row = {"call": f"pcg n={n} mu={mu}", "k_resident_bytes": plan.resident_bytes,
                "k_streamed_bytes_per_step": plan.streamed_bytes, "niter_new": int(new()[2])}
+        if n % 4:
+            row["pad_copy_ms"] = cs.cuda_ms(lambda: cb._padded_rows(K))
         if old_pcg:
             old = (lambda K, b: lambda: old_pcg(K, b, cs.PCG_MAXITS, cs.PCG_TOL))(K, b)
             xo, _, ito = old()
@@ -1020,12 +1277,14 @@ def ab_dense(old_lib, variants):
         row["phase_us"] = phase_times(phase_lib, 0, new, row["niter_new"])
         print(f"[ab] {json.dumps(row)}", flush=True)
         rows.append(row)
-    for n in cs.DENSE_NS:
+    for n in DENSE_AB_NS:
         K, Z = probs[n, cs.DENSE_MUS[0]][0], Zs[n]
         new = (lambda K, Z: lambda: fp.fused_lanczos_dense(K, Z, maxits=cs.SLQ_ITS))(K, Z)
-        plan = fp.lanczos_plan(n, cs.SLQ_NV, sms, smem, cs.SLQ_ITS)
+        plan = cb._grid("lanczos", n, dev, cs.SLQ_NV, cs.SLQ_ITS)[0]
         row = {"call": f"lanczos n={n} nv={cs.SLQ_NV} steps={cs.SLQ_ITS}", "k_resident_bytes": plan.resident_bytes,
                "k_streamed_bytes_per_step": plan.streamed_bytes}
+        if n % 4:
+            row["pad_copy_ms"] = cs.cuda_ms(lambda: cb._padded_rows(K))
         if old_lz:
             old = (lambda K, Z: lambda: old_lz(K, Z, cs.SLQ_ITS))(K, Z)
             ao, bo, Vo, _ = old()
@@ -1042,28 +1301,26 @@ def ab_dense(old_lib, variants):
     if variants:
         n = max(cs.DENSE_NS)
         K, b = probs[n, cs.DENSE_MUS[0]]
-        for ring in (32768, 49152, 65536, 131072):
-            plan = _with_constants(CG_RING_BYTES=ring)(lambda: fp.cg_plan(n, sms, smem))
-            ms = cs.cuda_ms(lambda: cb.fused_pcg(K, b, cs.PCG_MAXITS, cs.PCG_TOL, plan=plan))
-            row = {"variant": f"pcg n={n} ring of {plan.stages} one-row stages", "ms": ms,
-                   "k_resident_bytes": plan.resident_bytes, "k_streamed_bytes_per_step": plan.streamed_bytes}
-            print(f"[variant] {json.dumps(row)}", flush=True)
-            rows.append(row)
         Z = Zs[n]
-        plan = _with_constants(LZ_OWN_MAX=0)(lambda: fp.lanczos_plan(n, cs.SLQ_NV, sms, smem, cs.SLQ_ITS))
-        ms = cs.cuda_ms(lambda: cb.fused_lanczos(K, Z, cs.SLQ_ITS, plan=plan))
-        row = {"variant": f"lanczos n={n} own columns of w and V in global memory", "ms": ms,
-               "k_resident_bytes": plan.resident_bytes, "k_streamed_bytes_per_step": plan.streamed_bytes}
-        print(f"[variant] {json.dumps(row)}", flush=True)
-        rows.append(row)
-        for per_group, stages in ((2, 2), (2, 3), (2, 4), (2, 6), (4, 2), (4, 3), (8, 2)):
-            plan = _with_constants(LZ_STAGES=(stages,), LZ_STREAM_ROWS=per_group)(
-                lambda: fp.lanczos_plan(n, cs.SLQ_NV, sms, smem, cs.SLQ_ITS))
-            ms = cs.cuda_ms(lambda: cb.fused_lanczos(K, Z, cs.SLQ_ITS, plan=plan))
-            row = {"variant": f"lanczos n={n} {stages} stages of {plan.chunk_rows} rows", "ms": ms,
-                   "k_resident_bytes": plan.resident_bytes, "k_streamed_bytes_per_step": plan.streamed_bytes}
+        cg0 = cb._grid("pcg", n, dev)[0]
+        lz0 = cb._grid("lanczos", n, dev, cs.SLQ_NV, cs.SLQ_ITS)[0]
+        runs = [(f"pcg n={n} ring of {s} one-row stages", cg_variant(cg0, s, smem),
+                 lambda plan: cb.fused_pcg(K, b, cs.PCG_MAXITS, cs.PCG_TOL, plan=plan)) for s in (2, 3, 4, 8)]
+        settings = [(lz0.own, 8, 2, ""), (False, 8, 2, ", own columns of w and V in global memory")]
+        settings += [(lz0.own, g, s, "") for g, s in ((2, 2), (2, 3), (2, 4), (2, 6), (4, 2), (4, 3))]
+        for own, per_group, stages, note in settings:
+            plan = lanczos_variant(lz0, smem, own=own, rows_per_group=per_group, stages=stages)
+            runs.append((f"lanczos n={n} {stages} stages of {plan.chunk_rows} rows{note}", plan,
+                         lambda plan: cb.fused_lanczos(K, Z, cs.SLQ_ITS, plan=plan)))
+        for name, plan, run in runs:
+            row = {"variant": name, "ms": cs.cuda_ms(lambda: run(plan)), "k_resident_bytes": plan.resident_bytes,
+                   "k_streamed_bytes_per_step": plan.streamed_bytes}
             print(f"[variant] {json.dumps(row)}", flush=True)
             rows.append(row)
+    # last: a launch the card may refuse
+    clusters = cluster_coop(probes, dev, cb._grid("lanczos", max(cs.DENSE_NS), dev, cs.SLQ_NV, cs.SLQ_ITS)[0].smem)
+    print(f"[dense-cluster] {json.dumps(clusters)}", flush=True)
+    rows.append({"cooperative_cluster_launch": clusters})
     return rows
 
 

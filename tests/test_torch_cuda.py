@@ -866,7 +866,7 @@ def test_fused_constants_match_the_plans(dev):
     assert c == {"MAX_BLOCKS": fp.MAX_BLOCKS, "SMEM_SLACK": fp.SMEM_SLACK, "CG_CONS": fp.CG_CONS,
                  "CG_FIXED": fp.CG_FIXED, "LZ_CONS": fp.LZ_CONS, "LZ_FIXED": fp.LZ_FIXED,
                  "LZ_MAX_C": fp.LZ_WIDTHS[-1], "MAX_STAGES": fp.MAX_STAGES}
-    assert max(fp.LZ_STAGES) <= fp.LZ_MAX_STAGES <= fp.MAX_STAGES
+    assert fp.LZ_STAGES <= fp.LZ_MAX_STAGES <= fp.MAX_STAGES
 
 
 @pytest.mark.parametrize("kind", [0, 1], ids=["grid_sync", "counter"])
@@ -879,6 +879,22 @@ def test_timed_barrier_probe(dev, kind):
     assert blocks == sms and per_sm == 1 and us > 0
     blocks, _, total = _cuda_build.barrier_probe(dev, kind, iters=3)
     assert total == blocks * (blocks + 1) // 2
+
+
+@pytest.mark.parametrize("kind", [0, 1], ids=["grid_sync", "counter"])
+def test_timed_barrier_probe_at_a_plans_grid(dev, kind):
+    """The probe at the grid and shared memory of the card's Lanczos plan at
+    n = 4096 (fewer blocks than SMs) and at one block; more blocks than
+    SMs are refused."""
+    sms, smem = _cuda_build.device_limits(dev)
+    lz = fp.lanczos_plan(4096, 10, sms, smem)
+    us, blocks, per_sm = _cuda_build.barrier_us(dev, kind, iters=50, reps=3, threads=fp.LZ_CONS + 32,
+                                                smem=lz.smem, blocks=lz.blocks)
+    assert blocks == lz.blocks <= sms and per_sm == 1 and us > 0
+    for g in (1, lz.blocks):
+        assert _cuda_build.barrier_probe(dev, kind, iters=3, blocks=g)[2] == g * (g + 1) // 2
+    with pytest.raises(RuntimeError, match="barrier_probe"):
+        _cuda_build.barrier_probe(dev, kind, iters=1, blocks=sms + 1)
 
 
 def test_dense_chol_step_on_card_matches_cpu(dev):

@@ -86,14 +86,12 @@ def test_lanczos_plan_covers_columns_once_and_fits(n, nv, maxits, sms):
     assert min(per) >= 1 and max(per) - min(per) <= 1
     cols = [c for b in range(plan.blocks) for c in range(plan.pstarts[b] * C, min(n, plan.pstarts[b + 1] * C))]
     assert cols == list(range(n))
-    # chunks of two rows a consumer column group where K streams (four where
-    # it all stays), whole boxes of at most 256 rows
     groups = fp.LZ_CONS // (C // 4)
     assert all(0 <= r <= plan.chunks for r in plan.resident)
-    # chunks of two rows a consumer column group where K streams (four where
-    # it all stays), whole boxes of at most 256 rows
+    # chunks of LZ_STREAM_ROWS rows a consumer column group where K streams
+    # (LZ_RESIDENT_ROWS where it all stays), whole boxes of at most 256 rows
     if plan.streams:
-        assert plan.chunk_rows == min(256, fp.LZ_STREAM_ROWS * groups) and plan.stages in fp.LZ_STAGES
+        assert plan.chunk_rows == min(256, fp.LZ_STREAM_ROWS * groups) and plan.stages == fp.LZ_STAGES
     else:
         assert plan.chunk_rows == min(256, fp.LZ_RESIDENT_ROWS * groups)
         assert 2 <= plan.stages <= fp.LZ_MAX_STAGES and plan.resident == (plan.chunks,) * plan.blocks

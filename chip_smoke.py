@@ -65,6 +65,25 @@ Phases, one line each (any failure raises and exits non-zero):
   5. main: GPProblem(fastsum + Nystrom, gaussian, stream engine).fit for 3
      Adam steps at n = 2e5; every loss finite and both table kernels
      launched during the fit, their launches printed by shape (nv, nsets);
+  5b. sharded: the row-sharded train step of parallel/ (NCCL, world 1, a
+     file:// store) at [main]'s configuration: make_sharded_train_step
+     (gaussian, Nystrom 50, engine "stream", bf16 tables), 3 Adam steps on
+     the rank's shard from [main]'s start, probes and landmarks, s per step
+     and losses beside [main]'s, the bf16 table kernels' launches by shape
+     (both > 0: the rank's own table); then one step at (f, l, mu) =
+     (1, 0.5, 1) against GPProblem(fastsum_engine="stream").make_loss at
+     the same raw parameters, probes and landmarks (loss rtol 1e-4,
+     gradient rtol 2e-2 / atol 2e-3, both gaps printed).  Not held at
+     [main]'s mu = 0.1: there FGMRES stops unconverged and the float32
+     loss moves by about 1e-4 under any rounding-level change; the line
+     prints that yardstick (GPProblem's loss with y scaled by 1 + 1e-7
+     noise, against [main]'s first loss) beside the first step's gap;
+  5c. sharded-m12: matern12 at n = 2e4 with the lower-triangular KNN
+     near-field (its transpose through the reduce-scatter) and AFN (rank
+     100, lfil 16, one plan), engine "stream", world 1: one step against the
+     same step on one device without the process group (the single-device
+     stream engine, the same KNN near-field and plan), at (f, l, mu) =
+     (1, 0.5, 1) (the matern12 float32 caveat of 8); limits as in 5b;
   6. agree: at n = 2e4, the streamed kernels against the torch table engine
      (loss rtol 4e-2, gradient rtol 2e-1 / atol 2e-2: the engines differ by
      the trimmed Nyquist mode and bf16 table rounding);
@@ -237,8 +256,10 @@ non-zero.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 _T0 = time.perf_counter()
@@ -800,6 +821,131 @@ def timed_fit(prob, X, y, counted, steps=3, **fit_kw):
     if counted and min(counts[k] for k in counted) <= 0:
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
     return losses, np.diff(stamps), counts
+
+
+SHARDED = dict(kernel="gaussian", precond="nystrom", nys_rank=50, slq_its=10, nvecs=10, fastsum_N=FASTSUM_N,
+               engine="stream", table_dtype=torch.bfloat16)
+# [sharded] / [sharded-m12] against the single-GPU loss: the same operator,
+# preconditioner and probes, the sums over points through the process group;
+# the gradient limit is a tenth of [agree]'s
+SHARDED_LIMITS = dict(loss_rtol=1e-4, grad_rtol=2e-2, grad_atol=2e-3)
+
+
+def _sharded_gaps(tag, loss, grad, loss_ref, grad_ref):
+    """Print-ready gaps of a sharded loss and gradient against the
+    single-GPU ones, then hold them to SHARDED_LIMITS."""
+    g, gr = grad.cpu().double().numpy(), grad_ref.cpu().double().numpy()
+    gaps = {"loss_rel": abs(float(loss) - float(loss_ref)) / abs(float(loss_ref)),
+            "grad_max_abs": float(np.max(np.abs(g - gr))),
+            "grad_max_rel": float(np.max(np.abs(g - gr) / np.maximum(np.abs(gr), 1e-30)))}
+
+    def hold():
+        np.testing.assert_allclose(float(loss), float(loss_ref), rtol=SHARDED_LIMITS["loss_rtol"],
+                                   err_msg=f"{tag}: sharded loss")
+        np.testing.assert_allclose(g, gr, rtol=SHARDED_LIMITS["grad_rtol"], atol=SHARDED_LIMITS["grad_atol"],
+                                   err_msg=f"{tag}: sharded gradient")
+
+    return gaps, hold
+
+
+def check_sharded(mesh, X, y, main_steps, main_losses):
+    """[sharded] (phase 5b): parallel/'s train step at [main]'s width on the
+    rank's shard.  Returns the bf16 table kernels' launch counts of its 3
+    steps."""
+    from nfft4gp_torch.models.adam import adam_init
+    from nfft4gp_torch.models.problem import GPProblem
+    from nfft4gp_torch.models.transforms import transform_inverse
+    from nfft4gp_torch.ops import packed_ndft as pk
+    from nfft4gp_torch.parallel.training import make_sharded_train_step, shard_training_data
+    from nfft4gp_torch.solvers.lanczos import rademacher_probes
+    from nfft4gp_torch.utils.datasets import rand_perm
+
+    n = X.shape[0]
+    probes = rademacher_probes(torch.Generator().manual_seed(1), SHARDED["nvecs"], n, X.dtype)
+    landmarks = rand_perm(torch.Generator().manual_seed(0), n, SHARDED["nys_rank"])
+    raw0 = transform_inverse("softplus", torch.tensor([1.0, 1.0, 0.1], device=X.device))
+    step = make_sharded_train_step(WINDOWS, mesh=mesh, landmarks=landmarks, **SHARDED)
+    Xs, ys, ps = shard_training_data(mesh, X, y, probes)
+    state, losses, grads = adam_init(raw0), [], []
+    pk.reset_launch_counts()
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    for _ in range(3):
+        state, loss, grad = step(state, Xs, ys, ps)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(loss))
+        grads.append(grad)
+    counts = _launches()
+    steps = np.diff(stamps)
+    if not all(np.isfinite(losses)) or not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError(f"sharded: losses or gradients not finite: {losses}")
+    if min(counts["packed_adjoint"], counts["packed_forward"]) <= 0:
+        raise AssertionError(f"sharded: a bf16 table kernel was not launched: {counts}")
+    raw_hold = transform_inverse("softplus", torch.tensor([1.0, 0.5, 1.0], device=X.device))
+    _, loss_h, grad_h = step(adam_init(raw_hold), Xs, ys, ps)
+    kw = dict(kernel="gaussian", windows=WINDOWS, operator="fastsum", precond="nystrom", rank=SHARDED["nys_rank"],
+              maxits=SHARDED["slq_its"], nvecs=SHARDED["nvecs"], fastsum_N=FASTSUM_N, fastsum_engine="stream")
+    loss_ref, grad_ref = GPProblem(**kw).make_loss(X, y, probes=probes, landmarks=landmarks)(raw_hold)
+    gaps, hold = _sharded_gaps("sharded", loss_h, grad_h, loss_ref, grad_ref)
+    noise = torch.randn(y.shape, generator=torch.Generator(device=y.device).manual_seed(7), device=y.device)
+    loss_y, _ = GPProblem(**kw).make_loss(X, y * (1 + 1e-7 * noise), probes=probes, landmarks=landmarks)(raw0)
+    rel = lambda a, b: abs(float(a) - float(b)) / abs(float(b))  # noqa: E731
+    backend = torch.distributed.get_backend()
+    print(f"[sharded] n={n} windows={WINDOWS} rank {mesh.rank} of world {mesh.world} ({backend}, file:// store), "
+          f"{Xs.shape[0]} rows a rank; make_sharded_train_step(gaussian, nystrom 50, engine=stream, bf16 tables) "
+          f"losses={losses} s_per_step={steps.tolist()} median_s_per_step={float(np.median(steps)):.4f} "
+          f"(the first includes the set-up: X gathered, geometry) | [main] s_per_step={main_steps.tolist()} "
+          f"median={float(np.median(main_steps)):.4f} losses={main_losses} | first loss's gap to [main]'s "
+          f"{rel(losses[0], main_losses[0]):.2e}, GPProblem's with y*(1 + 1e-7 noise) "
+          f"{rel(loss_y, main_losses[0]):.2e} (not held) | launches={counts} | at (f, l, mu) = (1, 0.5, 1) "
+          f"against GPProblem(fastsum_engine='stream').make_loss: loss {float(loss_h):.8e} vs "
+          f"{float(loss_ref):.8e}, grad {grad_h.tolist()} vs {grad_ref.tolist()}, gaps={gaps} "
+          f"limits={SHARDED_LIMITS}", flush=True)
+    hold()
+    return counts
+
+
+def check_sharded_m12(mesh, X, y):
+    """[sharded-m12] (phase 5c): matern12 + KNN near-field + AFN, one
+    sharded step against the same step on one device."""
+    from nfft4gp_torch.models.adam import adam_init
+    from nfft4gp_torch.models.transforms import transform_inverse
+    from nfft4gp_torch.ops import packed_ndft as pk
+    from nfft4gp_torch.ops.kernels import KernelParams
+    from nfft4gp_torch.parallel.training import make_sharded_train_step, shard_training_data
+    from nfft4gp_torch.preconds.afn import afn_plan
+    from nfft4gp_torch.solvers.lanczos import rademacher_probes
+
+    n = X.shape[0]
+    plan = afn_plan("matern12", KernelParams.make(1.0, 1.0, 0.1, dtype=X.dtype, device=X.device), X,
+                    maxrank=100, lfil=16, rank=100, force_afn=True)
+    kw = dict(kernel="matern12", precond="afn", afn_plan=plan, slq_its=10, nvecs=10, fastsum_N=FASTSUM_N,
+              engine="stream", table_dtype=torch.bfloat16)
+    probes = rademacher_probes(torch.Generator().manual_seed(2), 10, n, X.dtype).to(X.device)
+    raw = transform_inverse("softplus", torch.tensor([1.0, 0.5, 1.0], device=X.device))
+    step = make_sharded_train_step(WINDOWS, mesh=mesh, **kw)
+    Xs, ys, ps = shard_training_data(mesh, X, y, probes)
+    pk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss, grad = step(adam_init(raw), Xs, ys, ps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _launches()
+    if not bool(torch.isfinite(loss)) or not bool(torch.isfinite(grad).all()):
+        raise AssertionError(f"sharded-m12: loss or gradient not finite: {loss}, {grad}")
+    if min(counts["packed_adjoint"], counts["packed_forward"]) <= 0:
+        raise AssertionError(f"sharded-m12: a bf16 table kernel was not launched: {counts}")
+    _, loss_ref, grad_ref = make_sharded_train_step(WINDOWS, mesh=None, **kw)(adam_init(raw), X, y, probes)
+    gaps, hold = _sharded_gaps("sharded-m12", loss, grad, loss_ref, grad_ref)
+    print(f"[sharded-m12] n={n} windows={WINDOWS} matern12 KNN near-field (lower-triangular), AFN k={plan.k} "
+          f"lfil 16, engine=stream bf16, (f, l, mu) = (1, 0.5, 1), world {mesh.world}: one step {secs:.3f} s "
+          f"(with the set-up) loss={float(loss):.8e} grad={grad.tolist()} | one device without the group: "
+          f"loss={float(loss_ref):.8e} grad={grad_ref.tolist()} gaps={gaps} limits={SHARDED_LIMITS} | "
+          f"launches={counts}", flush=True)
+    hold()
+    return counts
 
 
 def check_engines(X, y):
@@ -1653,6 +1799,7 @@ def main():
                  "checkout")
     from nfft4gp_torch.models.problem import GPProblem
     from nfft4gp_torch.ops import _cuda_build
+    from nfft4gp_torch.parallel.mesh import close_mesh, make_mesh
 
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -1705,6 +1852,16 @@ def main():
     print(f"[main] n={N_POINTS} losses={losses} s_per_step={steps.tolist()} "
           f"median_s_per_step={float(np.median(steps)):.4f} launches={counts}", flush=True)
     mark("main")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        mesh = make_mesh(1, rank=0, init_file=os.path.join(tmp, "store"), device="cuda")
+        try:
+            shcounts = check_sharded(mesh, X, y, steps, losses)
+            mark("sharded")
+            shm12counts = check_sharded_m12(mesh, X[:N_AGREE], y[:N_AGREE])
+            mark("sharded-m12")
+        finally:
+            close_mesh()
 
     check_engines(X[:N_AGREE], y[:N_AGREE])
     mark("agree")
@@ -1767,6 +1924,10 @@ def main():
                _summary("fused_lanczos_dense", "fused", "dense", dense, f"n={DENSE_NS[1]} mu={DENSE_MUS[0]}",
                         dcounts)]
     for k in summary[:2]:
+        k["launches_sharded"] = shcounts[k["name"]]
+        k["launches_by_shape_sharded"] = shcounts["by_shape"][k["name"]]
+        k["launches_sharded_m12"] = shm12counts[k["name"]]
+        k["launches_by_shape_sharded_m12"] = shm12counts["by_shape"][k["name"]]
         k["launches_stream_m12"] = scounts[k["name"]]
         k["launches_by_shape_stream_m12"] = scounts["by_shape"][k["name"]]
         k["launches_afn"] = acounts[k["name"]]

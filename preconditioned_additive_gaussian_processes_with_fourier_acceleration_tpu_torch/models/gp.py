@@ -33,6 +33,7 @@ from ..ops.kernels import (
 from ..preconds.nystrom import nystrom_setup
 from ..solvers.fgmres import fgmres
 from ..solvers.lanczos import slq_logdet
+from ..solvers.reductions import psum
 from .transforms import transform_forward
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -72,12 +73,17 @@ def make_dense_ops(kind: str, X, windows=None):
 
 
 def gp_loss(raw_params, y, build_ops: Callable, probes, cfg: GPConfig,
-            precond_setup: Optional[Callable] = None) -> GPLossResult:
+            precond_setup: Optional[Callable] = None, group=None) -> GPLossResult:
     """Negative log marginal likelihood per point and its analytic gradient.
 
     raw_params: (3,) untransformed (f, l, mu); probes: (nvecs, n) Rademacher.
+    group: the points axis's process group (parallel/mesh.py): y and the
+    probes' columns are then this rank's rows, the operators and the
+    preconditioner map rows to rows, n is the global count and every sum
+    over points adds the ranks' partials; the loss and gradient come out the
+    same on every rank.
     """
-    n = y.shape[0]
+    n = y.shape[0] if group is None else group.n_global(y.shape[0])
     tvals, dtvals = transform_forward(cfg.transform, raw_params)
     params = KernelParams(f=tvals[0], l=tvals[1], mu=tvals[2])
     matvec, dmatvec = build_ops(params)
@@ -85,12 +91,12 @@ def gp_loss(raw_params, y, build_ops: Callable, probes, cfg: GPConfig,
 
     solve_its = min(n, cfg.maxits * 2)
     sol = fgmres(matvec, y, precond=precond.solve if precond is not None else None,
-                 kdim=solve_its, maxits=solve_its, tol=cfg.tol, atol=cfg.atol)
+                 kdim=solve_its, maxits=solve_its, tol=cfg.tol, atol=cfg.atol, group=group)
     iKY = sol.x
-    L1 = torch.dot(y, iKY) / n
-    L1_grad = (dmatvec(iKY) @ iKY) / n * dtvals
+    L1 = psum(torch.dot(y, iKY), group) / n
+    L1_grad = psum(dmatvec(iKY) @ iKY, group) / n * dtvals
 
-    slq = slq_logdet(matvec, dmatvec, probes, maxits=min(n, cfg.maxits), precond=precond)
+    slq = slq_logdet(matvec, dmatvec, probes, maxits=min(n, cfg.maxits), precond=precond, group=group)
     loss = 0.5 * (L1 + slq.logdet + LOG_2PI)
     mask = torch.as_tensor(cfg.mask, dtype=loss.dtype, device=loss.device)
     grad = 0.5 * (-L1_grad + slq.dlogdet * dtvals) * mask

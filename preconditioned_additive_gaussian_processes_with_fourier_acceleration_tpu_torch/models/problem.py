@@ -23,7 +23,7 @@ from ..preconds.fsai import fsai_setup, transpose_pattern
 from ..preconds.nystrom import nystrom_setup
 from ..solvers.lanczos import rademacher_probes
 from ..utils.datasets import rand_perm
-from .adam import adam_init, adam_run
+from .adam import AdamState, adam_init, adam_run
 from .gp import GPConfig, gp_loss, gp_predict, gp_predict_fastsum, make_dense_ops
 from .transforms import transform_forward, transform_inverse
 
@@ -40,18 +40,20 @@ class InjectedState(NamedTuple):
     probes: Optional[torch.Tensor]
     nf_patterns: Optional[tuple]
     afn_plan: Optional[AfnPlan] = None
+    adam_state: Optional[AdamState] = None
 
 
 def state_from_numpy(device, *, raw_params=None, landmarks=None, probes=None, nf_patterns=None,
-                     afn_plan=None):
+                     afn_plan=None, adam_state=None):
     """Turn numpy arrays drawn on the JAX side (raw hyperparameters, Nystrom
     landmark indices, the Rademacher probe matrix, the near-field patterns,
-    an AFN plan) into tensors on `device`, so both packages compute the same
-    loss.
+    an AFN plan, an Adam state) into tensors on `device`, so both packages
+    compute the same loss and step.
 
     nf_patterns: per window group None or (idx, mask, sym), the output of the
     JAX symmetrize_nearfield_patterns (idx and mask (Wg, n, lfil) arrays).
     afn_plan: a JAX AfnPlan (its perm, k, use_ran and pattern are read).
+    adam_state: a JAX AdamState (x, m, v and the step count t).
     Float arrays keep their own dtype."""
     def conv(a, kind=None):
         if a is None:
@@ -64,8 +66,10 @@ def state_from_numpy(device, *, raw_params=None, landmarks=None, probes=None, nf
         for p in nf_patterns)
     plan = None if afn_plan is None else plan_from_arrays(
         afn_plan.perm, afn_plan.k, afn_plan.use_ran, afn_plan.pattern, device)
+    adam = None if adam_state is None else AdamState(
+        x=conv(adam_state.x), m=conv(adam_state.m), v=conv(adam_state.v), t=int(np.asarray(adam_state.t)))
     return InjectedState(raw_params=conv(raw_params), landmarks=conv(landmarks, torch.int64),
-                         probes=conv(probes), nf_patterns=pats, afn_plan=plan)
+                         probes=conv(probes), nf_patterns=pats, afn_plan=plan, adam_state=adam)
 
 
 def tensors_from_numpy(device, *arrays):

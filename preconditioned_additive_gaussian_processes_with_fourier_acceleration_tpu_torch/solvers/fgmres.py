@@ -23,10 +23,12 @@ class FgmresResult(NamedTuple):
     converged: bool
 
 
-def _cgs2(w, V, compensated: bool = False, norm_fn=torch.linalg.norm):
+def _cgs2(w, V, compensated: bool = False, norm_fn=torch.linalg.norm, group=None):
     """Two-pass classical Gram-Schmidt of w against the rows of V (rows past
-    the current step are zero).  Returns (w_orth, h, ||w_orth||)."""
-    proj = comp_gemv if compensated else (lambda V_, w_: V_ @ w_)
+    the current step are zero).  Returns (w_orth, h, ||w_orth||).  group:
+    the projections' local partials are summed over its ranks."""
+    local = comp_gemv if compensated else (lambda V_, w_: V_ @ w_)
+    proj = local if group is None else (lambda V_, w_: group.psum(local(V_, w_)))
     h1 = proj(V, w)
     w = w - h1 @ V
     h2 = proj(V, w)
@@ -45,15 +47,21 @@ def fgmres(
     tol: float = 1e-8,
     atol: bool = False,
     compensated: bool = False,
+    group=None,
 ) -> FgmresResult:
     """compensated=True: TwoSum float-float accumulation in norms, projections
-    and the x update (reductions.py)."""
+    and the x update (reductions.py).
+
+    group: the points axis's process group (parallel/mesh.py); b, x0 and the
+    operators are then this rank's rows, and every norm and projection sums
+    over the ranks, so the small least-squares problem and the stopping
+    decisions agree on every rank."""
     n = b.shape[0]
     dtype, dev = b.dtype, b.device
     x = torch.zeros_like(b) if x0 is None else x0
     psolve = precond if precond is not None else (lambda r: r)
     maxits = kdim if maxits is None else maxits
-    _, norm_fn = make_reducers(compensated)
+    _, norm_fn = make_reducers(compensated, group)
     eps = torch.finfo(dtype).eps
 
     normb = float(norm_fn(b))
@@ -82,7 +90,7 @@ def fgmres(
         while j < kdim and not inner_stop:
             zj = psolve(V[j])
             Z[j] = zj
-            w, h_t, t_t = _cgs2(matvec(zj), V, compensated, norm_fn)
+            w, h_t, t_t = _cgs2(matvec(zj), V, compensated, norm_fn, group)
             h = h_t.tolist()
             t = float(t_t)
             h[j + 1] = t

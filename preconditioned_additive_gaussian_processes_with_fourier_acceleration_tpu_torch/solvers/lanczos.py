@@ -14,11 +14,18 @@ version's vmapped while-loop freezes it; the loop exits when all rows stop.
 SLQ (ref lanczos.c:421-610), per Rademacher probe z:
   logdet/n    ~ mean_probes sum_j (e1' v_j)^2 log|theta_j|  + logdet(M)/n
   dlogdet_i/n ~ mean_probes [(dA_i z)' x - (M^{-1} dM_i z)' z]/n + tr(M^{-1} dM_i)/n
+
+Under a row-sharded process group (`group`, parallel/mesh.py) each rank
+holds its rows of the probes and of every basis vector; the sums over
+points (norms, v'z, the CGS2 projections, the SLQ contractions) are local
+partials summed over the ranks, and n is the global count.
 """
 
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from .reductions import psum
 
 
 class LanczosResult(NamedTuple):
@@ -28,6 +35,13 @@ class LanczosResult(NamedTuple):
     tsize: torch.Tensor    # (nv,) effective tridiagonal sizes
     relres: torch.Tensor   # (nv,)
     niter: torch.Tensor    # (nv,)
+
+
+def _row_norm(X, group):
+    """The 2-norms of the rows of X over all points."""
+    if group is None:
+        return torch.linalg.norm(X, dim=1)
+    return torch.sqrt(group.psum(torch.sum(X * X, dim=1)))
 
 
 def _where(mask, new, old):
@@ -45,13 +59,15 @@ def lanczos_batch(
     wsize: Optional[int] = None,
     tol: float = 0.0,
     atol: bool = False,
+    group=None,
 ) -> LanczosResult:
     """Preconditioned Lanczos (x0 = 0) on every row of B (nv, n) at once.
 
     matvec and precond map (nv, n) -> (nv, n).  tol=0 runs maxits steps
     unless a recursion breaks down (the SLQ setting).  wsize limits the
     reorthogonalization window; full_reorth=False is the three-term
-    recursion.
+    recursion.  group: the points axis's process group; B and the
+    operators are then this rank's columns.
     """
     nv, n = B.shape
     dtype, dev = B.dtype, B.device
@@ -64,8 +80,8 @@ def lanczos_batch(
 
     z0 = B
     v0 = psolve(z0)
-    beta0 = torch.sqrt(torch.clamp(torch.sum(v0 * z0, dim=1), min=0.0))
-    normb = torch.linalg.norm(B, dim=1)
+    beta0 = torch.sqrt(torch.clamp(psum(torch.sum(v0 * z0, dim=1), group), min=0.0))
+    normb = _row_norm(B, group)
     tolb = torch.full_like(normb, tol) if atol else tol * normb
 
     V = torch.zeros((nv, maxits + 1, n), dtype=dtype, device=dev)
@@ -90,22 +106,22 @@ def lanczos_batch(
         w = matvec(V[:, k])
         if full_reorth:
             wmask = ((rows > k - wsize) & (rows <= k)).to(dtype) if wsize is not None else 1.0
-            t1 = torch.einsum("vjn,vn->vj", V, w) * wmask
+            t1 = psum(torch.einsum("vjn,vn->vj", V, w), group) * wmask
             w = w - torch.einsum("vj,vjn->vn", t1, Z)
-            t2 = torch.einsum("vjn,vn->vj", V, w) * wmask
+            t2 = psum(torch.einsum("vjn,vn->vj", V, w), group) * wmask
             w = w - torch.einsum("vj,vjn->vn", t2, Z)
             coeff = t1 + t2
             td = coeff[:, k]
             te = coeff[:, k - 1] if k > 0 else torch.zeros_like(td)
         else:
-            td = torch.sum(V[:, k] * w, dim=1)
-            te = torch.sum(V[:, max(k - 1, 0)] * w, dim=1) if k > 0 else torch.zeros_like(td)
+            td = psum(torch.sum(V[:, k] * w, dim=1), group)
+            te = psum(torch.sum(V[:, max(k - 1, 0)] * w, dim=1), group) if k > 0 else torch.zeros_like(td)
             w = w - td[:, None] * Z[:, k] - te[:, None] * Z[:, max(k - 1, 0)]
 
-        t = torch.linalg.norm(w, dim=1)
+        t = _row_norm(w, group)
         break1 = t < eps
         vnew = psolve(w)
-        dotvz = torch.sqrt(torch.clamp(torch.sum(vnew * w, dim=1), min=0.0))
+        dotvz = torch.sqrt(torch.clamp(psum(torch.sum(vnew * w, dim=1), group), min=0.0))
         break2 = dotvz < eps
         keep = ~(break1 | break2)
         zero = torch.zeros_like(w)
@@ -116,7 +132,7 @@ def lanczos_batch(
             TE[:, k - 1] = torch.where(active & ~break1, te, TE[:, k - 1])
 
         # incremental Cholesky residual estimate (ref lanczos.c:223-247)
-        normz = torch.linalg.norm(Z[:, k + 1], dim=1)
+        normz = _row_norm(Z[:, k + 1], group)
         if k == 0:
             tld_new = torch.sqrt(torch.clamp(td, min=0.0))
             tle_new = torch.zeros_like(td)
@@ -186,17 +202,21 @@ def rademacher_probes(generator: torch.Generator, nvecs: int, n: int, dtype=None
 
 
 def slq_logdet(matvec: Callable, dmatvec: Callable, probes: torch.Tensor, *,
-               maxits: int = 10, precond=None) -> SlqResult:
+               maxits: int = 10, precond=None, group=None) -> SlqResult:
     """SLQ for logdet(K)/n and tr(K^{-1} dK_i)/n, all probes in lockstep.
 
     matvec: (nv, n) -> (nv, n); dmatvec: (nv, n) -> (nv, p, n).
     precond: optional object with .solve/.dvp on (nv, n) rows and
     .logdet()/.trace(); Lanczos then runs on M^{-1}K and the estimate is
     corrected by logdet(M)/n and tr(M^{-1} dM_i)/n (ref lanczos.c:456-466).
+    group: the points axis's process group; probes are then this rank's
+    columns, and precond's logdet and trace come out the same on every rank.
     """
     nvecs, n = probes.shape
+    if group is not None:
+        n = group.n_global(n)
     psolve = precond.solve if precond is not None else None
-    res = lanczos_batch(matvec, probes, precond=psolve, maxits=maxits, tol=0.0)
+    res = lanczos_batch(matvec, probes, precond=psolve, maxits=maxits, tol=0.0, group=group)
 
     # NaN trim per probe: keep the leading finite block of the tridiagonal
     # (ref lanczos.c:526-548); trimmed diagonal entries pad with 1
@@ -220,6 +240,7 @@ def slq_logdet(matvec: Callable, dmatvec: Callable, probes: torch.Tensor, *,
     dvals = torch.einsum("vpn,vn->vp", dAz, x)
     if precond is not None:
         dvals = dvals - torch.einsum("vpn,vn->vp", precond.dvp(probes), probes)
+    dvals = psum(dvals, group)
     logdet = torch.mean(vals)
     dlogdet = torch.mean(dvals, dim=0) / n
     if precond is not None:

@@ -34,14 +34,17 @@ def pcg(
     maxits: int = 100,
     compensated: bool = False,
     replace_every: int = 0,
+    group=None,
 ) -> PcgResult:
     """compensated=True: TwoSum float-float dots and norms (reductions.py).
 
     replace_every=m > 0: every m iterations the recursion residual is
-    replaced by the true residual b - A x, one extra matvec per m steps."""
+    replaced by the true residual b - A x, one extra matvec per m steps.
+    group: the points axis's process group; b, x0 and the operators are
+    then this rank's rows and the dots and norms sum over the ranks."""
     x = torch.zeros_like(b) if x0 is None else x0
     psolve = precond if precond is not None else (lambda r: r)
-    dot_fn, norm_fn = make_reducers(compensated)
+    dot_fn, norm_fn = make_reducers(compensated, group)
 
     normb = norm_fn(b)
     tolb = torch.full_like(normb, tol) if atol else tol * normb

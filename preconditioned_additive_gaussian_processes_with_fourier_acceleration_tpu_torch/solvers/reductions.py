@@ -4,6 +4,10 @@ Chunk partial sums combined with an error-free TwoSum scan into a (hi, lo)
 accumulator: accumulation error ~ few eps independent of n, the float64
 accumulation semantics the reference assumes (SRC/utils/utils.h:28-32),
 at float32.
+
+Under a row-sharded process group (parallel/mesh.py) every reduction over
+the points axis is a local partial, then an all_reduce: `psum`, and the
+`group` argument of `make_reducers`.  With group=None nothing changes.
 """
 
 import torch
@@ -67,8 +71,31 @@ def comp_gemv(V, w, chunk: int = _CHUNK):
     return _comp_scan(partials)
 
 
-def make_reducers(compensated: bool):
-    """(dot, norm) pair for a solver: plain torch or compensated."""
-    if compensated:
-        return comp_dot, comp_norm
-    return (lambda a, b: torch.dot(a, b)), torch.linalg.norm
+def psum(t, group=None):
+    """t summed over the ranks of `group` (a parallel.mesh.PointsMesh); t
+    itself when group is None."""
+    return t if group is None else group.psum(t)
+
+
+def make_reducers(compensated: bool, group=None):
+    """(dot, norm) pair for a solver: plain torch or compensated.  group: the
+    points axis's process group; the local partials are then summed over
+    its ranks (the compensated norm rescales by the global max)."""
+    if group is None:
+        if compensated:
+            return comp_dot, comp_norm
+        return (lambda a, b: torch.dot(a, b)), torch.linalg.norm
+    local_dot = comp_dot if compensated else torch.dot
+
+    def dot(a, b):
+        return group.psum(local_dot(a, b))
+
+    def norm(a):
+        if not compensated:
+            return torch.sqrt(group.psum(torch.dot(a, a)))
+        m = group.pmax(torch.max(torch.abs(a)))
+        safe_m = torch.where(m == 0, torch.ones_like(m), m)
+        s = group.psum(comp_sum(((a / safe_m) ** 2).reshape(-1)))
+        return safe_m * torch.sqrt(torch.clamp(s, min=0.0))
+
+    return dot, norm

@@ -110,6 +110,8 @@ def test_port_imports_no_jax():
             "import nfft4gp_torch.models.multiclass, nfft4gp_torch.solvers.fused_pcg\n"
             "import nfft4gp_torch.preconds.afn, nfft4gp_torch.preconds.fsai, nfft4gp_torch.ops.fps\n"
             "import nfft4gp_torch.ops.rankest, nfft4gp_torch.io, nfft4gp_torch.cli\n"
+            "import nfft4gp_torch.parallel, nfft4gp_torch.parallel.mesh, nfft4gp_torch.parallel.sharded\n"
+            "import nfft4gp_torch.parallel.training, nfft4gp_torch.parallel.dryrun\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                           timeout=120)

@@ -84,6 +84,25 @@ Phases, one line each (any failure raises and exits non-zero):
      same step on one device without the process group (the single-device
      stream engine, the same KNN near-field and plan), at (f, l, mu) =
      (1, 0.5, 1) (the matern12 float32 caveat of 8); limits as in 5b;
+  5d. scale: scripts/torch_sharded_scale_demo.py at its full size, n = 1e6,
+     d = 10, five 2-D windows, N = 32, gaussian (1, 0.5, 0.1), Nystrom 200
+     on the JAX script's landmark draw (tests/goldens/), PCG and FGMRES to
+     1e-3 in at most 60 iterations, compensated: gpu mode on the table
+     engine (torch products; no kernel may launch) and on the stream
+     engine (bf16 tables; both kernels launched), each with plan-build s,
+     matvec ms and Mpts/s, iterations, relres and peak memory; the
+     bf16-table adjoint (nv = 1) and forward (nsets = 1, 2) against their
+     plain versions at n = 1e6 (1e-4, bitwise repeats); then the demo's
+     mesh mode at world 1 on stream (its TSQR Nystrom).  Limits: table
+     FGMRES relres <= 5e-3 (the JAX record: 2.1e-3), every relres finite,
+     stream FGMRES below its start, the mesh's FGMRES solution within 1e-4
+     relative of gpu mode's;
+  5e. scaling: scripts/torch_scaling_bench.py's world-1 part at
+     SCALING.json's problem (n = 131072, d = 10, N = 32): parity with one
+     device, each engine's collectives a matvec (the table engine must
+     count one all_reduce of 5 x 34^2 x 4 = 23120 bytes, as the JAX HLO),
+     one psum's host microseconds, the one-device matvecs at n = 131072
+     and 1e6 and the modeled efficiency at P = 2, 4, 8, 16;
   6. agree: at n = 2e4, the streamed kernels against the torch table engine
      (loss rtol 4e-2, gradient rtol 2e-1 / atol 2e-2: the engines differ by
      the trimmed Nyquist mode and bf16 table rounding);
@@ -567,9 +586,9 @@ def _plan(X, windows, N=FASTSUM_N):
     return fs.additive_fastsum_build("gaussian", params, X, make_windows(windows), N=N)
 
 
-def check_kernels(X, windows, nvs, nsets_list, timed=True):
+def check_kernels(X, windows, nvs, nsets_list, timed=True, label=None):
     """The bf16-table kernels (the tensor-core ones of csrc/packed_ndft_tc.cu)
-    against their plain versions (2P = 32)."""
+    against their plain versions (2P = 32); label: the printed phase tag."""
     from nfft4gp_torch.ops import fastsum as fs
     from nfft4gp_torch.ops import packed_ndft as pk
 
@@ -582,7 +601,7 @@ def check_kernels(X, windows, nvs, nsets_list, timed=True):
         lambda G2, G1: pk.packed_forward(Tp, G2, G1, pairs=pairs, singles=singles),
         lambda G2s, G1s: pk.packed_forward_plain(Tp, G2s, G1s, pairs, singles),
         pn, pn.P, X, nvs, nsets_list, timed, Tp.float(), Tp.numel() * Tp.element_size(),
-        units=("bf16x3", "bf16x3"), repeat=True)
+        units=("bf16x3", "bf16x3"), repeat=True, label=label)
 
 
 # the float32-table cases ([kernels]): 2P, the layouts at n = N_AFN_PCG
@@ -946,6 +965,124 @@ def check_sharded_m12(mesh, X, y):
           f"launches={counts}", flush=True)
     hold()
     return counts
+
+
+# [scale]: the scale demo's gpu mode at its full size (n = 1e6, d = 10, five
+# 2-D windows, N = 32, gaussian (1, 0.5, 0.1), Nystrom 200, 60 iterations,
+# tol 1e-3, compensated reductions), through scripts/torch_sharded_scale_demo.py,
+# on the JAX script's own landmark draw (jax.random.PRNGKey(0), handed over
+# in tests/goldens/), so that its FGMRES relres compares with the JAX record:
+# after 60 iterations it moves with the draw (1.6e-3 to 5.5e-3 over five
+# draws of the table engine, PERF.md)
+N_SCALE = 1_000_000
+SCALE_ARGV = ["--n", str(N_SCALE), "--d", str(DIM), "--fastsum-N", str(FASTSUM_N), "--mu", "0.1", "--rank", "200",
+              "--iters", "60", "--tol", "1e-3", "--compensated", "--landmarks",
+              os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                           "scale_demo_landmarks_1e6.json")]
+# the table engine's FGMRES relres after 60 iterations (the JAX package's
+# float32 table operator reached 2.1e-3 there, PLAN.md); the mesh at world 1
+# against one device (its collectives are copies)
+SCALE_LIMITS = dict(table_fgmres_relres=5e-3, mesh_x_rel=1e-4)
+JAX_SCALE_FGMRES = "60 iterations, relres 2.1e-3 (PLAN.md, the JAX package's float32 table operator)"
+
+
+def _scale_line(tag, rec, base_gib, counts):
+    p, f = rec["pcg"], rec["fgmres"]
+    return (f"[scale] {tag}: plan build {rec['build_s']:.3f} s; matvec {rec['matvec_ms']:.3f} ms -> "
+            f"{rec['mpts_per_s']:.1f} Mpts/s; Nystrom set-up {rec['nystrom_s']:.3f} s; PCG {p['iters']} its relres "
+            f"{p['relres']:.3e} converged={p['converged']} {p['s']:.3f} s; FGMRES {f['iters']} its relres "
+            f"{f['relres']:.3e} converged={f['converged']} {f['s']:.3f} s; peak {rec['peak_gib']:.2f} GiB "
+            f"({rec['peak_gib'] - base_gib:.2f} above the {base_gib:.2f} GiB held before); launches={counts}")
+
+
+def check_scale(mesh, dev):
+    """[scale]: the scale demo's gpu mode at its full size on both engines
+    (table: the folded-NDFT products in torch, the JAX script's operator;
+    stream: the bf16-table kernels of the training path), each with the
+    NDFT wrappers' counts set to 0 before and read after; the bf16-table
+    adjoint (nv = 1) and forward (nsets = 1, 2) against their plain versions
+    at n = 1e6; then the demo's mesh mode at world 1 on the stream engine,
+    whose FGMRES solution must be within 1e-4 of the gpu mode's.  Returns
+    the runs' launch counts by run ("table", "stream", "mesh")."""
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    demo = _script_module("torch_sharded_scale_demo")
+    recs, counts = {}, {}
+    for engine in ("table", "stream"):
+        args = demo.build_argparser().parse_args(SCALE_ARGV + ["--mode", "gpu", "--engine", engine])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        pk.reset_launch_counts()
+        recs[engine] = demo.run_single(args, dev)
+        counts[engine] = _launches()
+        print(_scale_line(f"gpu mode, n={N_SCALE}, engine={engine}", recs[engine], base, counts[engine]),
+              flush=True)
+    X = demo.make_problem(args, dev)[0]
+    check_kernels(X, WINDOWS, nvs=(1,), nsets_list=(1, 2), timed=False, label=f"scale n={N_SCALE}")
+    del X
+    margs = demo.build_argparser().parse_args(SCALE_ARGV + ["--mode", "mesh", "--engine", "stream",
+                                                            "--devices", str(mesh.world)])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    pk.reset_launch_counts()
+    mrec = demo.mesh_rank(mesh, margs)
+    counts["mesh"] = _launches()
+    backend = torch.distributed.get_backend()
+    print(_scale_line(f"mesh mode, world {mesh.world} ({backend}), {mrec['rows']} rows a rank, engine=stream", mrec,
+                      base, counts["mesh"]), flush=True)
+    t, st = recs["table"]["fgmres"], recs["stream"]["fgmres"]
+    xs = recs["stream"]["x_fgmres"]
+    gaps = {"mesh_vs_gpu_x_fgmres": float(np.linalg.norm(mrec["x_fgmres"] - xs) / np.linalg.norm(xs)),
+            "mesh_vs_gpu_x_pcg": float(np.linalg.norm(mrec["x_pcg"] - recs["stream"]["x_pcg"])
+                                       / np.linalg.norm(recs["stream"]["x_pcg"])),
+            "stream_vs_table_fgmres_relres": st["relres"] - t["relres"],
+            "stream_vs_table_x_fgmres": float(np.linalg.norm(xs - recs["table"]["x_fgmres"])
+                                              / np.linalg.norm(recs["table"]["x_fgmres"]))}
+    print(f"[scale] gaps={gaps} limits={SCALE_LIMITS}; PCG stops (iterations, relres): table "
+          f"{recs['table']['pcg']['iters']}, {recs['table']['pcg']['relres']:.3e}; stream "
+          f"{recs['stream']['pcg']['iters']}, {recs['stream']['pcg']['relres']:.3e} | JAX package, same "
+          f"configuration (for comparison only): FGMRES {JAX_SCALE_FGMRES}", flush=True)
+    for engine, rec in recs.items():
+        if not all(np.isfinite(rec[k]["relres"]) for k in ("pcg", "fgmres")):
+            raise AssertionError(f"scale: {engine} engine: a relres is not finite: {rec['pcg']}, {rec['fgmres']}")
+    if not t["relres"] <= SCALE_LIMITS["table_fgmres_relres"]:
+        raise AssertionError(f"scale: table FGMRES relres {t['relres']} above {SCALE_LIMITS['table_fgmres_relres']}")
+    if not st["relres"] < 1.0:
+        raise AssertionError(f"scale: stream FGMRES did not move below its start: relres {st['relres']}")
+    if counts["table"]["packed_adjoint"] or counts["table"]["packed_forward"]:
+        raise AssertionError(f"scale: the table engine launched a table kernel: {counts['table']}")
+    for key in ("stream", "mesh"):
+        if min(counts[key]["packed_adjoint"], counts[key]["packed_forward"]) <= 0:
+            raise AssertionError(f"scale: a bf16 table kernel was not launched in the {key} run: {counts[key]}")
+    if not gaps["mesh_vs_gpu_x_fgmres"] <= SCALE_LIMITS["mesh_x_rel"]:
+        raise AssertionError(f"scale: the mesh's FGMRES solution is {gaps['mesh_vs_gpu_x_fgmres']} from the gpu "
+                             f"mode's")
+    return counts
+
+
+# [scaling]: the scaling bench's one-card part at SCALING.json's problem
+# (n = 131072, d = 10, N = 32): the table engine runs one all-reduce of the
+# five windows' 34 x 34 float32 mode tensors a matvec, as the JAX HLO does
+SCALING_TABLE_COLLECTIVES = {"psum": {"count": 1, "bytes": 5 * 34 * 34 * 4}}
+SCALING_MODEL_NS = (131072, N_SCALE)
+
+
+def check_scaling(mesh, label):
+    """[scaling]: scripts/torch_scaling_bench.py's world-1 record on the
+    card: each engine's collectives a matvec (counted by wrapping the
+    mesh's methods), parity with one device, the psum's host floor, the
+    measured one-device matvecs and the modeled efficiency at P = 2, 4, 8,
+    16 for n = 131072 and 1e6."""
+    bench = _script_module("torch_scaling_bench")
+    args = bench.build_argparser().parse_args([])
+    rec = bench.world1_record(mesh, args, SCALING_MODEL_NS, label)
+    print(f"[scaling] n={args.n} d={args.d} N={args.N} world {mesh.world}: {json.dumps(rec)}", flush=True)
+    if rec["collectives_per_matvec"]["table"] != SCALING_TABLE_COLLECTIVES:
+        raise AssertionError(f"scaling: the table engine's collectives a matvec are "
+                             f"{rec['collectives_per_matvec']['table']}, not {SCALING_TABLE_COLLECTIVES}")
+    if not all(p["ok"] for p in rec["parity_world1"].values()):
+        raise AssertionError(f"scaling: the world-1 matvec disagrees with one device: {rec['parity_world1']}")
+    return rec
 
 
 def check_engines(X, y):
@@ -1606,16 +1743,20 @@ AFN_PCG_256_ARGV = ["--n", "100000", "--d", "2", "--kernel", "matern12", "--l", 
 JAX_AFN_PCG_256_ITERS = 13
 
 
-def _bench_module():
-    """scripts/torch_afn_pcg_bench.py, the port of scripts/afn_pcg_bench.py."""
+def _script_module(name):
+    """scripts/<name>.py of this checkout as a module."""
     import importlib.util
-    import os
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_afn_pcg_bench.py")
-    spec = importlib.util.spec_from_file_location("torch_afn_pcg_bench", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _bench_module():
+    """scripts/torch_afn_pcg_bench.py, the port of scripts/afn_pcg_bench.py."""
+    return _script_module("torch_afn_pcg_bench")
 
 
 def check_afn_pcg_256(dev):
@@ -1860,6 +2001,10 @@ def main():
             mark("sharded")
             shm12counts = check_sharded_m12(mesh, X[:N_AGREE], y[:N_AGREE])
             mark("sharded-m12")
+            scounts_scale = check_scale(mesh, X.device)
+            mark("scale")
+            check_scaling(mesh, f"{name}; nvidia-smi: {smi}")
+            mark("scaling")
         finally:
             close_mesh()
 
@@ -1932,6 +2077,9 @@ def main():
         k["launches_by_shape_stream_m12"] = scounts["by_shape"][k["name"]]
         k["launches_afn"] = acounts[k["name"]]
         k["launches_by_shape_afn"] = acounts["by_shape"][k["name"]]
+        for run in ("stream", "mesh"):
+            k[f"launches_scale_{run}"] = scounts_scale[run][k["name"]]
+            k[f"launches_by_shape_scale_{run}"] = scounts_scale[run]["by_shape"][k["name"]]
     for k in summary[2:4]:
         k["pcg_iterations"] = pcounts["iterations"]
         case = next(c for c in f32 if c["kernel"] == k["name"] and c["mode"] == k["mode"] and c["shape"] == k["shape"])

@@ -19,8 +19,10 @@ preconditioners (with FPS and the rank estimates of `ops/fps.py` and
 `ops/rankest.py`), the marginal-likelihood loss with the reference's
 estimator, Adam, prediction with std on the dense kernel or the fastsum
 operator, `GPProblem.fit` and `.predict`, the exact one-vs-all multiclass
-GP, the readers of the reference's text formats (`io/`) and the TEST4
-command-line program (`cli.py`).
+GP, the readers of the reference's text formats (`io/`), the TEST4
+command-line program (`cli.py`), the row-sharded multi-device path
+(`parallel/`), and the stage timers, profiler trace and debug dumps of
+`utils/`.
 
 Float32 products run in full float32: TF32 is switched off here.  This is
 the counterpart of the JAX package's `precision="highest"` products; the

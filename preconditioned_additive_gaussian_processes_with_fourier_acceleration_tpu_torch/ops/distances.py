@@ -16,3 +16,8 @@ def sq_distance(X, Y=None):
     yy = torch.sum(Y * Y, dim=-1)[..., None, :]
     d2 = xx + yy - 2.0 * (X @ Y.mT)
     return torch.clamp(d2, min=0.0)
+
+
+def distance(X, Y=None):
+    """Pairwise Euclidean distances (n, m)."""
+    return torch.sqrt(sq_distance(X, Y))

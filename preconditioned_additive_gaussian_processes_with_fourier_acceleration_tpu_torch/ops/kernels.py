@@ -67,6 +67,12 @@ BASE_KERNELS = {
 }
 
 
+def base_kernel(name: str):
+    """The base kernel k(r2, l) -> (k, dk/dl) on squared distances, without
+    f or mu."""
+    return BASE_KERNELS[name]
+
+
 def _eye_like(r2, same_points: bool):
     n, m = r2.shape[-2:]
     if same_points:

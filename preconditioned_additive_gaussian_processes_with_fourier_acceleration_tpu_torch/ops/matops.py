@@ -89,6 +89,11 @@ def ell_rmatvec_batch(idx, val, Xb, n=None):
     return out.index_add_(0, idx.reshape(-1), contrib.reshape(-1, nv)).T
 
 
+def ell_diag(idx, val, diag_slot):
+    """Diagonal of G when the diagonal sits at a known slot of each row."""
+    return val[torch.arange(val.shape[0], device=val.device), diag_slot]
+
+
 def ell_apply(idx, val, x):
     """G x for one vector (n,) or a batch of rows (nv, n)."""
     return ell_matvec(idx, val, x) if x.ndim == 1 else ell_matvec_batch(idx, val, x)

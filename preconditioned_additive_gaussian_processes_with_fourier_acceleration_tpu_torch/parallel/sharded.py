@@ -13,7 +13,7 @@ block of rows (`PointsMesh.rows`) and every collective is written out.
 - near-field (ELL) correction across shards: a gather from the all-gathered
   x, and for a lower-triangular pattern the transpose's scatter into a
   global accumulator, reduce-scattered back to the rows;
-- FSAI rows and the Gram-eigh Nystrom factor on the rank's rows;
+- FSAI rows and the Nystrom factor on the rank's rows (a TSQR thin SVD);
 - the stream engine: each rank streams its own packed phase table through
   the table kernels of ops/packed_ndft.py, with one all_reduce of the mode
   tensors per pass for all right-hand sides.
@@ -241,36 +241,49 @@ class ShardedNystromPrecond(NystromPrecond):
         return r / self.eta + ((self.s - 1.0 / self.eta) * z) @ self.U.T
 
 
+def _tsqr_svd(mesh: PointsMesh, Ufb):
+    """Thin SVD of the row-sharded tall matrix whose rank holds the rows Ufb
+    (n/P, k): (the rank's rows of U, sigma).  TSQR: a QR of the rank's rows,
+    the ranks' R factors all-gathered (P k x k values), a QR of their stack
+    and the SVD of its k x k R; U's rows are Q1 Q2_rank U_R."""
+    Q1, R1 = torch.linalg.qr(Ufb)                             # (n/P, m), (m, k), m = min(n/P, k)
+    Q2, R = torch.linalg.qr(mesh.all_gather(R1, dim=0))       # (P m, k'), (k', k)
+    Ur, sigma, _ = torch.linalg.svd(R, full_matrices=False)
+    m = R1.shape[0]
+    return Q1 @ (Q2[mesh.rank * m:(mesh.rank + 1) * m] @ Ur), sigma
+
+
 def sharded_nystrom_setup(mesh: PointsMesh, kind: str, params: KernelParams, X, Xk, *,
                           windows=None) -> ShardedNystromPrecond:
     """Row-sharded stabilized Nystrom set-up (solve / logdet).
 
-    The reference's tall-factor SVD (nys.c:518-660) becomes the k x k Gram
-    eigendecomposition:
+    The reference's tall-factor SVD (nys.c:518-660) on row shards:
       K1 rows      : the rank's rectangular block K(X_b, Xk)
       L11          : replicated Cholesky of the k x k landmark block
       Uf = K1 L^-T : local triangular solves
-      G = Uf' Uf   : local (k x k) partial + all_reduce  <- the only collective
-      eigh(G)      : replicated (k x k)
-      U = Uf V s^-1: local GEMM; U stays row-sharded
-    X: the rank's rows (n/P, d); Xk (k, d): the landmark rows, replicated."""
+      U, sigma     : the thin SVD of the sharded Uf by TSQR (_tsqr_svd):
+                     one all_gather of the ranks' k x k R factors, the only
+                     collective; U stays row-sharded
+    X: the rank's rows (n/P, d); Xk (k, d): the landmark rows, replicated.
+
+    The JAX package (parallel/sharded.py) eigendecomposes the Gram Uf' Uf
+    instead, which squares Uf's condition number: in float32 at n = 1e6
+    (scripts/torch_sharded_scale_demo.py's problem, on an NVIDIA H100) that
+    preconditioner left Nystrom-FGMRES at relres 0.43 after 60 steps, where
+    the tall SVD's reached 2.5e-3 (PERF.md).  Both give the same
+    preconditioner in exact arithmetic."""
     noise_free = KernelParams(f=params.f, l=params.l, mu=torch.zeros_like(params.mu))
     if windows is None:
         build = lambda A, B: kernel_matrix(kind, noise_free, A, B)  # noqa: E731
     else:
         build = lambda A, B: additive_kernel_matrix(kind, noise_free, A, windows, B)  # noqa: E731
-    k = Xk.shape[0]
     L11, _ = stable_chol(build(Xk, Xk))
     Ufb = tril_solve(L11, build(X, Xk).T).T                  # (n/P, k)
-    G = mesh.psum(Ufb.T @ Ufb)
-    lam, V = torch.linalg.eigh(G)
-    sigma2 = torch.clamp(lam, min=0.0)
-    pos = sigma2 > 0
-    inv_sig = torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, sigma2, torch.ones_like(sigma2))), 0.0)
-    Ub = Ufb @ (V * inv_sig[None, :])
+    Ub, sigma = _tsqr_svd(mesh, Ufb)
+    sigma2 = sigma * sigma
     f2 = params.f * params.f
     eta = params.mu * f2
-    return ShardedNystromPrecond(perm=torch.arange(k, device=X.device), U=Ub, s=1.0 / (sigma2 + eta),
+    return ShardedNystromPrecond(perm=torch.arange(Ub.shape[1], device=X.device), U=Ub, s=1.0 / (sigma2 + eta),
                                  sigma2=sigma2, eta=eta, f2=f2, mesh=mesh)
 
 

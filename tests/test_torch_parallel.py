@@ -10,8 +10,8 @@ starts in about a second.
 
 Tolerances:
 - float64 building blocks (dot, dense matvec, NDFT adjoint, fastsum with
-  and without the near-field, near-field both forms, FSAI, Nystrom against
-  the JAX Gram-eigh set-up): 1e-10 relative (1e-12 for the dot; 1e-9 for
+  and without the near-field, near-field both forms, FSAI, the port's TSQR
+  Nystrom against the JAX Gram-eigh set-up): 1e-10 relative (1e-12 for the dot; 1e-9 for
   FSAI's dval, as the JAX test), measured 1e-15 to 1e-13;
 - PCG to relres 1e-10: rtol 1e-6, atol 1e-8 against the direct solve, as the
   JAX test;
@@ -420,8 +420,8 @@ def test_sharded_stream_ops_match_single_chip(world2, inputs):
 
 
 def test_sharded_nystrom_setup_matches_local(world2, mesh8, inputs):
-    """Gram-eigh Nystrom on row shards == the JAX sharded set-up (float64)
-    and, at the JAX test's limits, the one-device tall-SVD set-up."""
+    """The TSQR Nystrom on row shards == the JAX sharded (Gram-eigh) set-up
+    (float64) and, at the JAX test's limits, the one-device tall-SVD set-up."""
     import jax
     import jax.numpy as jnp
     from nfft4gp_tpu.ops.kernels import KernelParams, make_windows

@@ -238,7 +238,21 @@ Phases, one line each (any failure raises and exits non-zero):
  19. cli: the port's CLI as a subprocess on the card (--precond afn
      --adam-maxits 2) on synthetic files in the reference's text formats
      (n = 2e4 train, 2000 test points, WINDOWS as the 'g' windows, in a
-     temporary directory); exit 0 and a finite RMSE.
+     temporary directory); exit 0 and a finite RMSE;
+ 20. profiles: the port's profiling and probe scripts through their
+     main(argv) at the JAX scripts' default sizes, uncut (PROFILE_RUNS):
+     the loss-step
+     profile (n = 1e5), the loss bench (n = 1e5, table and stream
+     engines), the set-up stage times (n = 1e6, bf16 and float32 tables:
+     the bf16-table and float32-table kernels), the AFN apply profile
+     (n = 1e5), the rank dispatch (n = 2e4, float64, on the JAX script's
+     subsample draw, tests/goldens/) and the operator accuracy probe
+     (n = 1e5); each run's seconds and NDFT launches.  Every time and loss
+     must be finite, the rank dispatch's branches those of
+     RANK_DISPATCH.json ("ran" for gaussian, "afn" for matern12), every
+     accuracy row within the limit its script states (ERR_LIMITS), and the
+     runs that use the table kernels must launch both (the wide pair
+     none).
 
 Every kernel case also times one PyTorch call that computes the same
 function from the same inputs (`library_ms`; the port never calls it): for
@@ -1915,6 +1929,80 @@ def check_cli(X, y):
         raise AssertionError(f"cli: RMSE {rmse}")
 
 
+# [profiles]: the port's profiling and probe scripts at the JAX scripts'
+# default sizes, uncut (all of them take about 50 s), each through its
+# main(argv)
+RANK_DISPATCH_SUBSAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                                        "rank_dispatch_subsamples_2e4.json")
+PROFILE_RUNS = (("torch_loss_profile", []), ("torch_loss_bench", []),
+                ("torch_setup_timing", ["--table-dtype", "bfloat16"]),
+                ("torch_setup_timing", ["--table-dtype", "float32"]),
+                ("torch_afn_solve_profile", []),
+                ("torch_rank_dispatch_probe", ["--subsamples", RANK_DISPATCH_SUBSAMPLES]),
+                ("torch_op_accuracy_probe", []))
+# scripts whose runs launch the table kernels (bf16 or float32 tables, by the
+# table's dtype): both wrappers must count launches, the wide pair none
+PROFILE_TABLE_KERNELS = ("torch_loss_profile", "torch_loss_bench", "torch_setup_timing", "torch_op_accuracy_probe")
+
+
+def _nonfinite(rec, path="rec"):
+    """The paths of the floats in a nested record that are not finite."""
+    if isinstance(rec, dict):
+        return [p for k, v in rec.items() for p in _nonfinite(v, f"{path}[{k!r}]")]
+    if isinstance(rec, (list, tuple)):
+        return [p for i, v in enumerate(rec) for p in _nonfinite(v, f"{path}[{i}]")]
+    return [path] if isinstance(rec, float) and not np.isfinite(rec) else []
+
+
+def _check_profile(name, rec, counts):
+    """A [profiles] run's checks: every float finite; the rank dispatch's
+    branches those of RANK_DISPATCH.json (the JAX script's record); every
+    accuracy row within its limit; the table kernels launched."""
+    bad = _nonfinite(rec)
+    if bad:
+        raise AssertionError(f"profiles: {name}: not finite: {bad}")
+    if name == "torch_rank_dispatch_probe":
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "RANK_DISPATCH.json")) as f:
+            jax_rec = json.load(f)
+        for case, r in rec["cases"].items():
+            if r["branch"] != jax_rec["cases"][case]["branch"] or r["branch"] != r["expected"]:
+                raise AssertionError(f"profiles: rank dispatch {case}: branch {r['branch']}, RANK_DISPATCH.json "
+                                     f"{jax_rec['cases'][case]['branch']}")
+    if name == "torch_op_accuracy_probe":
+        for row, r in rec["rows"].items():
+            if not r["rel_err"] <= rec["limits"][row]:
+                raise AssertionError(f"profiles: op accuracy {row}: rel err {r['rel_err']} above "
+                                     f"{rec['limits'][row]}")
+    if name in PROFILE_TABLE_KERNELS:
+        if min(counts["packed_adjoint"], counts["packed_forward"]) <= 0 or counts["packed_adjoint_wide"] \
+                or counts["packed_forward_wide"]:
+            raise AssertionError(f"profiles: {name}: the table kernels' launches: {counts}")
+
+
+def check_profiles():
+    """[profiles] (phase 20): each run of PROFILE_RUNS through its script's
+    main on the card, the NDFT wrappers' counts set to 0 before and read
+    after; seconds, launches and checks (_check_profile) by run.  Returns
+    {script name and arguments: seconds}."""
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    secs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profiles_") as tmp:
+        for i, (name, argv) in enumerate(PROFILE_RUNS):
+            mod = _script_module(name)
+            pk.reset_launch_counts()
+            t0 = time.perf_counter()
+            rec = mod.main(argv + ["--json", os.path.join(tmp, f"{i}.json")])
+            torch.cuda.synchronize()
+            key = " ".join([name] + [os.path.basename(a) for a in argv[1:2]])
+            secs[key] = time.perf_counter() - t0
+            counts = _launches()
+            print(f"[profiles] {key}: {secs[key]:.1f} s; launches={ {k: v for k, v in counts.items() if v} }",
+                  flush=True)
+            _check_profile(name, rec, counts)
+    return secs
+
+
 def _summary(name, route, mode, cases, shape, launches):
     c = next(c for c in cases if c["kernel"] == name and c["shape"] == shape and c.get("mode") == mode)
     base = next(k for k in ("adjoint", "forward", "pcg", "lanczos") if k in name)
@@ -2056,6 +2144,9 @@ def main():
     mark("fsai")
     check_cli(X, y)
     mark("cli")
+    prof_s = check_profiles()
+    mark("profiles")
+    print(f"[profiles] seconds by run: {prof_s}", flush=True)
 
     summary = [_summary("packed_adjoint", "table", "table-bf16", cases, "nv=10", counts),
                _summary("packed_forward", "table", "table-bf16", cases, "nsets=20", counts),

@@ -33,13 +33,15 @@ card: torch's device name and nvidia-smi's name and power limit).
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from torch_card import card_label  # noqa: E402
 
 ENGINES = ("table", "stream")
 COLLECTIVES = ("psum", "pmax", "all_gather", "reduce_scatter")
@@ -229,15 +231,6 @@ def model_efficiency(total_bytes, n_colls, t_matvec_us, host_us, link_gbps, hop_
         t_comm = n_colls * host_us + (2.0 * total_bytes * (P - 1) / P) / (link_gbps * 1e3) + 2.0 * (P - 1) * hop_us
         out[f"P{P}"] = t_comp / (t_comp + t_comm)
     return out
-
-
-def card_label():
-    """torch's device name and nvidia-smi's name and power limit."""
-    import torch
-
-    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60, check=True)
-    return f"{torch.cuda.get_device_name(0)}; nvidia-smi: {proc.stdout.strip().splitlines()[0]}"
 
 
 def world1_record(mesh, args, model_ns, device_label):

@@ -117,6 +117,11 @@ float32-table kernels (csrc/packed_ndft.cu) at chip_smoke's [afn-pcg]
 shape, n = 1e5, one 2-D window, 2P = 32, nv = 1 and nsets = 1: relative
 Frobenius 1e-4 against the plain versions (sqrt(n) eps for 1e5-term
 sums), a second launch bitwise equal.
+
+A dense triangular solve of a (k, k) factor, k = 16 and 50, against 1e6
+columns and the Nystrom set-up at n = 1e6 with k landmarks: each call
+within 1 s (cuBLAS's trsm in one call took 7.1-9.9 s there), the solve's
+relative residual within 1e-5.
 """
 
 import dataclasses
@@ -1594,3 +1599,40 @@ def test_many_windows_every_route(dev, route):
     W2w, W1w = _wide_adjoint_want(src, alpha, P, MANY_PAIRS, MANY_SINGLES, name)
     assert _rel(runs[0], torch.cat([W2w.reshape(-1), W1w.reshape(-1)])) <= tol
     assert _rel(ys[0], _wide_forward_want(src, G2, G1, P, MANY_PAIRS, MANY_SINGLES, name)) <= tol
+
+
+@pytest.mark.parametrize("k", [16, 50])
+def test_wide_triangular_solve_and_nystrom_setup_at_1e6(dev, k):
+    """A dense triangular solve of a (k, k) factor against 1e6 columns and the
+    Nystrom set-up at n = 1e6 with k landmarks (its L^{-1} K1'): cuBLAS's
+    trsm took 7.1-9.9 s on 7e5 columns for k = 16, 50 in one call (PERF.md);
+    in ops/matops.TRI_COLS slices it takes milliseconds.  Each call
+    is held to 1 s, the solve to a relative residual of 1e-5."""
+    import time
+
+    from nfft4gp_torch.ops.kernels import KernelParams, make_windows
+    from nfft4gp_torch.ops.matops import tril_solve
+    from nfft4gp_torch.preconds.nystrom import nystrom_setup
+
+    n = 1_000_000
+    g = torch.Generator(device=dev).manual_seed(k)
+    A = torch.randn(k, k, generator=g, device=dev)
+    L = torch.linalg.cholesky(A @ A.T / k + torch.eye(k, device=dev))
+    B = torch.randn(n, k, generator=g, device=dev).T
+    rng = np.random.default_rng(k)
+    X = torch.from_numpy(rng.uniform(size=(n, 10)).astype(np.float32)).to(dev)
+    params = KernelParams.make(1.0, 0.5, 0.1, dtype=torch.float32, device=dev)
+    perm = torch.from_numpy(rng.permutation(n)[:k]).to(dev)
+    calls = {"tril_solve": lambda: tril_solve(L, B),
+             "nystrom_setup": lambda: nystrom_setup("gaussian", params, X, perm, k, require_grad=True,
+                                                    windows=make_windows([[i, i + 1] for i in range(0, 10, 2)]))}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        assert time.perf_counter() - t0 <= 1.0, name
+    Xs = tril_solve(L, B)
+    assert float(torch.linalg.norm(L @ Xs - B) / torch.linalg.norm(B)) <= 1e-5
+    assert torch.isfinite(out.U).all()

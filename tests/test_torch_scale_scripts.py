@@ -22,6 +22,10 @@ package, and the card paths of the port and of the new scripts free of jax.
   compiled HLO of the same problem (n = 512, d = 10, N = 32, float32) on the
   suite's 8-device virtual CPU mesh: one all-reduce of 5 x 34^2 x 4 = 23120
   bytes.  The stream engine's: one all-reduce of the trimmed 5 x 32^2 x 4.
+- The port's modules, chip_smoke.py, these scripts and the profiling and
+  probe scripts (scripts/torch_loss_profile.py and the five beside it) on
+  their CPU paths with any import of jax refused; the profiling scripts
+  without a card and without --platform cpu exit non-zero.
 """
 
 import dataclasses
@@ -246,7 +250,7 @@ import preconditioned_additive_gaussian_processes_with_fourier_acceleration_tpu_
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):
     importlib.import_module(m.name)
 import torch_test1_oracle, torch_sharded_scale_demo as demo, torch_scaling_bench as bench
-import torch_scale_nystrom_probe as probe
+import torch_scale_nystrom_probe as probe, torch_card, torch_scale_solve_probe
 from nfft4gp_torch.utils import timers, debug
 from nfft4gp_torch.parallel.mesh import make_mesh, close_mesh
 cpu = torch.device('cpu')
@@ -266,6 +270,43 @@ try:
     probe.mesh_runs(demo, 256, mesh, cpu)
 finally:
     close_mesh()
+assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules if sys.modules[k] is not None)
+print('ok')
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+
+
+# the port's profiling and probe scripts at toy sizes on the CPU
+PROFILE_SCRIPT_ARGV = {
+    "torch_loss_profile": ["--n", "256", "--d", "4", "--nvecs", "3", "--maxits", "4", "--rank", "16", "--reps", "1"],
+    "torch_loss_bench": ["--n", "256", "--d", "4", "--nvecs", "3", "--maxits", "4", "--reps", "1"],
+    "torch_setup_timing": ["--n", "512", "--d", "4", "--table-dtype", "float32"],
+    "torch_afn_solve_profile": ["--n", "300", "--d", "4", "--rank", "16", "--lfil", "8", "--iters", "1"],
+    "torch_rank_dispatch_probe": ["--n", "400"],
+    "torch_op_accuracy_probe": ["--n", "256", "--d", "4"],
+}
+
+
+@pytest.mark.parametrize("script", list(PROFILE_SCRIPT_ARGV))
+def test_profile_scripts_run_without_jax(script, tmp_path):
+    """Each profiling script's main on the CPU with any import of jax made to
+    fail; without a card and without --platform cpu it exits non-zero."""
+    argv = PROFILE_SCRIPT_ARGV[script] + ["--json", str(tmp_path / "out.json")]
+    code = f"""
+import sys
+sys.modules['jax'] = None
+sys.path[:0] = [{ROOT!r}, {SCRIPTS!r}]
+import importlib, torch
+mod = importlib.import_module({script!r})
+mod.main({argv!r} + ['--platform', 'cpu'])
+if not torch.cuda.is_available():
+    try:
+        mod.main({argv!r})
+    except SystemExit as e:
+        assert e.code not in (0, None), e.code
+    else:
+        raise AssertionError('ran without a card and without --platform cpu')
 assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules if sys.modules[k] is not None)
 print('ok')
 """

@@ -5,7 +5,9 @@ The counterparts of tests/test_utils.py::test_stage_timers,
 ::test_timed_block and ::test_debug_dumps; the dumps must be byte-equal to
 the JAX package's on the same arrays, and generate_grid2d equal to JAX's
 element for element.  distance, base_kernel and ell_diag: float64, 1e-12
-relative against the JAX functions on the same numpy inputs.
+relative against the JAX functions on the same numpy inputs; so are the
+dense triangular solves when they take a block's columns in slices
+(ops/matops.TRI_COLS).
 """
 
 import json
@@ -161,3 +163,21 @@ def test_ell_diag_matches_jax():
     want = np.asarray(j_ell_diag(jnp.asarray(idx), jnp.asarray(val), jnp.asarray(slot)))
     got = ell_diag(torch.from_numpy(idx), torch.from_numpy(val), torch.from_numpy(slot)).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=0.0)
+
+
+@pytest.mark.parametrize("upper", [False, True])
+def test_triangular_solves_in_column_slices_match_jax(monkeypatch, upper):
+    """tril_solve / triu_solve with more right-hand sides than TRI_COLS (set
+    to 7 here) solve them in slices: equal to the JAX package's solves on
+    the whole block (float64, 1e-12), a vector right-hand side too."""
+    from nfft4gp_tpu.ops import matops as jm
+    from nfft4gp_torch.ops import matops as tm
+
+    monkeypatch.setattr(tm, "TRI_COLS", 7)
+    rng = np.random.default_rng(6)
+    A = rng.normal(size=(9, 9))
+    L = np.linalg.cholesky(A @ A.T + 9.0 * np.eye(9))
+    for b in (rng.normal(size=(9, 30)), rng.normal(size=(9, 7)), rng.normal(size=9)):
+        got = (tm.triu_solve if upper else tm.tril_solve)(torch.from_numpy(L), torch.from_numpy(b)).numpy()
+        want = np.asarray((jm.triu_solve if upper else jm.tril_solve)(jnp.asarray(L), jnp.asarray(b)))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-14)

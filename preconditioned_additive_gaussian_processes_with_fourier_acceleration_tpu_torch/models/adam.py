@@ -9,6 +9,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.timers import host_read, span
+
 
 class AdamState(NamedTuple):
     x: torch.Tensor
@@ -36,17 +38,19 @@ def adam_step(state: AdamState, grad, *, alpha=0.01, beta1=0.9, beta2=0.999, eps
 def adam_run(loss_fn: Callable, x0, *, maxits: int = 100, tol: float = 1e-6,
              alpha: float = 0.01, beta1: float = 0.9, beta2: float = 0.999,
              eps: float = 1e-8, callback: Callable = None, state0: AdamState = None):
-    """Adam loop.  Returns (final_state, loss_history, x_history, grad_history)."""
+    """Adam loop.  Returns (final_state, loss_history, x_history, grad_history).
+    Each iteration is a `step` span (utils/timers.py), `step` its Adam count."""
     state = adam_init(x0) if state0 is None else state0
     losses, xs, grads = [], [state.x], []
     for it in range(maxits):
-        loss, grad = loss_fn(state.x)
-        losses.append(loss)
-        grads.append(grad)
-        state = adam_step(state, grad, alpha=alpha, beta1=beta1, beta2=beta2, eps=eps)
-        xs.append(state.x)
-        if callback is not None:
-            callback(it, state, loss, grad)
-        if float(torch.linalg.norm(grad)) < tol:
-            break
+        with span("step", step=state.t + 1):
+            loss, grad = loss_fn(state.x)
+            losses.append(loss)
+            grads.append(grad)
+            state = adam_step(state, grad, alpha=alpha, beta1=beta1, beta2=beta2, eps=eps)
+            xs.append(state.x)
+            if callback is not None:
+                callback(it, state, loss, grad)
+            if host_read(torch.linalg.norm(grad), float) < tol:
+                break
     return state, losses, xs, grads

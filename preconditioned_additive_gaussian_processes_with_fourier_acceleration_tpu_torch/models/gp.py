@@ -34,6 +34,7 @@ from ..preconds.nystrom import nystrom_setup
 from ..solvers.fgmres import fgmres
 from ..solvers.lanczos import slq_logdet
 from ..solvers.reductions import psum
+from ..utils.timers import host_read, span
 from .transforms import transform_forward
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -82,26 +83,39 @@ def gp_loss(raw_params, y, build_ops: Callable, probes, cfg: GPConfig,
     preconditioner map rows to rows, n is the global count and every sum
     over points adds the ranks' partials; the loss and gradient come out the
     same on every rank.
+
+    Traced (utils/timers.py) as a `loss` span holding `op_build`,
+    `precond_setup`, `fgmres` and `slq`.
     """
-    n = y.shape[0] if group is None else group.n_global(y.shape[0])
-    tvals, dtvals = transform_forward(cfg.transform, raw_params)
-    params = KernelParams(f=tvals[0], l=tvals[1], mu=tvals[2])
-    matvec, dmatvec = build_ops(params)
-    precond = precond_setup(params) if precond_setup is not None else None
+    with span("loss"):
+        n = y.shape[0] if group is None else group.n_global(y.shape[0])
+        tvals, dtvals = transform_forward(cfg.transform, raw_params)
+        params = KernelParams(f=tvals[0], l=tvals[1], mu=tvals[2])
+        with span("op_build"):
+            matvec, dmatvec = build_ops(params)
+        precond = _precond(precond_setup, params)
 
-    solve_its = min(n, cfg.maxits * 2)
-    sol = fgmres(matvec, y, precond=precond.solve if precond is not None else None,
-                 kdim=solve_its, maxits=solve_its, tol=cfg.tol, atol=cfg.atol, group=group)
-    iKY = sol.x
-    L1 = psum(torch.dot(y, iKY), group) / n
-    L1_grad = psum(dmatvec(iKY) @ iKY, group) / n * dtvals
+        solve_its = min(n, cfg.maxits * 2)
+        sol = fgmres(matvec, y, precond=precond.solve if precond is not None else None,
+                     kdim=solve_its, maxits=solve_its, tol=cfg.tol, atol=cfg.atol, group=group)
+        iKY = sol.x
+        L1 = psum(torch.dot(y, iKY), group) / n
+        L1_grad = psum(dmatvec(iKY) @ iKY, group) / n * dtvals
 
-    slq = slq_logdet(matvec, dmatvec, probes, maxits=min(n, cfg.maxits), precond=precond, group=group)
-    loss = 0.5 * (L1 + slq.logdet + LOG_2PI)
-    mask = torch.as_tensor(cfg.mask, dtype=loss.dtype, device=loss.device)
-    grad = 0.5 * (-L1_grad + slq.dlogdet * dtvals) * mask
-    return GPLossResult(loss=loss, grad=grad, l1=L1, l2=slq.logdet,
-                        solve_relres=sol.relres, solve_iters=sol.niter)
+        slq = slq_logdet(matvec, dmatvec, probes, maxits=min(n, cfg.maxits), precond=precond, group=group)
+        loss = 0.5 * (L1 + slq.logdet + LOG_2PI)
+        mask = host_read(cfg.mask, lambda m: torch.as_tensor(m, dtype=loss.dtype, device=loss.device))
+        grad = 0.5 * (-L1_grad + slq.dlogdet * dtvals) * mask
+        return GPLossResult(loss=loss, grad=grad, l1=L1, l2=slq.logdet,
+                            solve_relres=sol.relres, solve_iters=sol.niter)
+
+
+def _precond(precond_setup: Optional[Callable], params):
+    """precond_setup(params) in a `precond_setup` span, or None."""
+    if precond_setup is None:
+        return None
+    with span("precond_setup"):
+        return precond_setup(params)
 
 
 def gp_loss_gaussian_ran_softplus(raw_params, X, y, probes, *, rank: int = 50, maxits: int = 10,
@@ -145,25 +159,28 @@ def gp_predict(raw_params, X, y, X_test, cfg: GPConfig, *, windows=None,
                maxits: Optional[int] = None) -> GPPredictResult:
     """GP posterior mean (and std) on the dense kernel (gp_predict.c:61-280).
     maxits: FGMRES steps per solve, default min(n, 200) (kdim = n would
-    hold an (n+1, n) basis)."""
-    n = X.shape[0]
-    params = _params(cfg, raw_params)
-    if windows is None:
-        K11 = kernel_matrix(cfg.kind, params, X)
-        K12 = kernel_matrix(cfg.kind, params, X, X_test)          # no noise (cross)
-    else:
-        K11 = additive_kernel_matrix(cfg.kind, params, X, windows)
-        K12 = additive_kernel_matrix(cfg.kind, params, X, windows, X_test)
-    precond = precond_setup(params) if precond_setup is not None else None
-    its = min(n, maxits if maxits is not None else 200)
-    solve = _solver(lambda v: K11 @ v, precond.solve if precond is not None else None, its, cfg)
-    sol = solve(y)
-    mean = K12.T @ sol.x
-    std = None
-    if with_std:
-        quad = torch.stack([torch.dot(K12[:, j], solve(K12[:, j]).x) for j in range(X_test.shape[0])])
-        std = _std(params, quad)
-    return GPPredictResult(mean=mean, std=std, solve_relres=sol.relres, solve_iters=sol.niter)
+    hold an (n+1, n) basis).  Traced as gp_predict_fastsum is."""
+    with span("predict"):
+        n = X.shape[0]
+        params = _params(cfg, raw_params)
+        with span("op_build"):
+            if windows is None:
+                K11 = kernel_matrix(cfg.kind, params, X)
+                K12 = kernel_matrix(cfg.kind, params, X, X_test)          # no noise (cross)
+            else:
+                K11 = additive_kernel_matrix(cfg.kind, params, X, windows)
+                K12 = additive_kernel_matrix(cfg.kind, params, X, windows, X_test)
+        precond = _precond(precond_setup, params)
+        its = min(n, maxits if maxits is not None else 200)
+        solve = _solver(lambda v: K11 @ v, precond.solve if precond is not None else None, its, cfg)
+        sol = solve(y)
+        with span("mean"):
+            mean = K12.T @ sol.x
+        std = None
+        if with_std:
+            quad = torch.stack([torch.dot(K12[:, j], solve(K12[:, j]).x) for j in range(X_test.shape[0])])
+            std = _std(params, quad)
+        return GPPredictResult(mean=mean, std=std, solve_relres=sol.relres, solve_iters=sol.niter)
 
 
 def gp_predict_fastsum(raw_params, X, y, X_test, cfg: GPConfig, *, windows=None,
@@ -177,35 +194,42 @@ def gp_predict_fastsum(raw_params, X, y, X_test, cfg: GPConfig, *, windows=None,
     The mean is the tail of K_joint [K11^{-1} y; 0] (the joint mu x term
     adds nothing there).  The std solves one system per test point on the
     train plan; the right-hand sides, columns of the joint kernel, are
-    extracted `std_chunk` test points at a time as one batched matvec."""
-    n, n_test = X.shape[0], X_test.shape[0]
-    params = _params(cfg, raw_params)
-    X_all = torch.cat([X, X_test])
-    opts = dict(oversample=oversample, nearfield_lfil=nearfield_lfil)
-    if windows is not None:
-        plans = [fs.additive_fastsum_coeffs(cfg.kind, params,
-                                            fs.additive_fastsum_geometry(Z, windows, N=fastsum_N), **opts)
-                 for Z in (X, X_all)]
-        mv_tr, mv_all = (lambda v, p=p: fs.additive_fastsum_matvec(p, v) for p in plans)
-    else:
-        plans = [fs.fastsum_coeffs(cfg.kind, params, fs.fastsum_geometry(Z, N=fastsum_N), **opts)
-                 for Z in (X, X_all)]
-        mv_tr, mv_all = (lambda v, p=p: fs.fastsum_matvec(p, v) for p in plans)
-    precond = precond_setup(params) if precond_setup is not None else None
-    solve = _solver(mv_tr, precond.solve if precond is not None else None,
-                    maxits if maxits is not None else min(n, 200), cfg)
-    sol = solve(y)
-    mean = mv_all(torch.cat([sol.x, y.new_zeros(n_test)]))[n:]
-    std = None
-    if with_std:
-        chunk = max(1, min(std_chunk, n_test))
-        quads = []
-        for s in range(0, n_test, chunk):
-            m = min(chunk, n_test - s)
-            E = y.new_zeros((m, n + n_test))
-            rows = torch.arange(m, device=y.device)
-            E[rows, n + s + rows] = 1.0
-            k12 = mv_all(E)[:, :n]
-            quads += [torch.dot(k, solve(k).x) for k in k12]
-        std = _std(params, torch.stack(quads))
-    return GPPredictResult(mean=mean, std=std, solve_relres=sol.relres, solve_iters=sol.niter)
+    extracted `std_chunk` test points at a time as one batched matvec.
+
+    Traced (utils/timers.py) as a `predict` span holding `op_build` (the
+    two plans), `precond_setup`, the solves' `fgmres` and `mean` (the
+    joint matvec)."""
+    with span("predict"):
+        n, n_test = X.shape[0], X_test.shape[0]
+        params = _params(cfg, raw_params)
+        X_all = torch.cat([X, X_test])
+        opts = dict(oversample=oversample, nearfield_lfil=nearfield_lfil)
+        with span("op_build"):
+            if windows is not None:
+                plans = [fs.additive_fastsum_coeffs(cfg.kind, params,
+                                                    fs.additive_fastsum_geometry(Z, windows, N=fastsum_N), **opts)
+                         for Z in (X, X_all)]
+                mv_tr, mv_all = (lambda v, p=p: fs.additive_fastsum_matvec(p, v) for p in plans)
+            else:
+                plans = [fs.fastsum_coeffs(cfg.kind, params, fs.fastsum_geometry(Z, N=fastsum_N), **opts)
+                         for Z in (X, X_all)]
+                mv_tr, mv_all = (lambda v, p=p: fs.fastsum_matvec(p, v) for p in plans)
+        precond = _precond(precond_setup, params)
+        solve = _solver(mv_tr, precond.solve if precond is not None else None,
+                        maxits if maxits is not None else min(n, 200), cfg)
+        sol = solve(y)
+        with span("mean"):
+            mean = mv_all(torch.cat([sol.x, y.new_zeros(n_test)]))[n:]
+        std = None
+        if with_std:
+            chunk = max(1, min(std_chunk, n_test))
+            quads = []
+            for s in range(0, n_test, chunk):
+                m = min(chunk, n_test - s)
+                E = y.new_zeros((m, n + n_test))
+                rows = torch.arange(m, device=y.device)
+                E[rows, n + s + rows] = 1.0
+                k12 = mv_all(E)[:, :n]
+                quads += [torch.dot(k, solve(k).x) for k in k12]
+            std = _std(params, torch.stack(quads))
+        return GPPredictResult(mean=mean, std=std, solve_relres=sol.relres, solve_iters=sol.niter)

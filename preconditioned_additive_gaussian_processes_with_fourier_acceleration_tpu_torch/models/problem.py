@@ -23,6 +23,7 @@ from ..preconds.fsai import fsai_setup, transpose_pattern
 from ..preconds.nystrom import nystrom_setup
 from ..solvers.lanczos import rademacher_probes
 from ..utils.datasets import rand_perm
+from ..utils.timers import host_read
 from .adam import AdamState, adam_init, adam_run
 from .gp import GPConfig, gp_loss, gp_predict, gp_predict_fastsum, make_dense_ops
 from .transforms import transform_forward, transform_inverse
@@ -307,7 +308,8 @@ class GPProblem:
         k = min(self.rank, n)
         if landmarks is None:
             landmarks = rand_perm(torch.Generator().manual_seed(self.seed), n, k)
-        landmarks = landmarks.to(X.device)
+        if landmarks.device != X.device:
+            landmarks = host_read(landmarks, lambda lm: lm.to(X.device))
         return (lambda params: nystrom_setup(self.kernel, params, X, landmarks, k,
                                              require_grad=True, windows=warr)), None
 

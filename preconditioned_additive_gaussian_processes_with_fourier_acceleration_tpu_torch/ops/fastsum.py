@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..solvers.reductions import _comp_scan
+from ..utils.timers import host_read
 from . import cellgrid as cg
 from .kernels import BASE_KERNELS, KernelParams
 from .knn import knn_pattern
@@ -144,7 +145,7 @@ def fold_coeffs(b, N: int, d: int):
     for S in _EVEN_SETS[d]:
         t = b.reshape((N,) * d)
         for j in range(d):
-            A = torch.as_tensor(A1 if j in S else A0, dtype=b.dtype, device=b.device)
+            A = host_read(A1 if j in S else A0, lambda a: torch.as_tensor(a, dtype=b.dtype, device=b.device))
             t = torch.movedim(torch.tensordot(A, torch.movedim(t, j, 0), dims=([1], [0])), 0, j)
         outs.append(t)
     return torch.stack(outs)
@@ -739,7 +740,7 @@ def additive_fastsum_geometry(X, windows, N: int = 32, *, table_dtype=None):
         by_dim.setdefault(len(feats), []).append((w, feats))
     groups = []
     for dw, members in sorted(by_dim.items()):
-        geos = [fastsum_geometry(X[:, feats], N, table_dtype=table_dtype)
+        geos = [fastsum_geometry(host_read(feats, lambda f: X[:, f]), N, table_dtype=table_dtype)
                 for _, feats in members]
         groups.append((dw, tuple(w for w, _ in members), geos))
     return AdditiveFastsumGeometry(n_windows=windows.shape[0], groups=tuple(groups))

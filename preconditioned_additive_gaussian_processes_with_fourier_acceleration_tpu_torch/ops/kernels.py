@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.timers import host_read
 from .distances import sq_distance
 
 SQRT3 = 1.7320508075688772935
@@ -36,11 +37,11 @@ class KernelParams:
     @staticmethod
     def make(f=1.0, l=1.0, mu=0.01, dtype=None, device=None):  # noqa: E741
         dtype = dtype or torch.get_default_dtype()
-        return KernelParams(
-            f=torch.as_tensor(f, dtype=dtype, device=device),
-            l=torch.as_tensor(l, dtype=dtype, device=device),
-            mu=torch.as_tensor(mu, dtype=dtype, device=device),
-        )
+
+        def put(v):
+            return host_read(v, lambda v: torch.as_tensor(v, dtype=dtype, device=device))
+
+        return KernelParams(f=put(f), l=put(l), mu=put(mu))
 
 
 def _gaussian_base(r2, l):  # noqa: E741
@@ -125,7 +126,7 @@ def make_windows(window_list):
 def _window_slice(X, window):
     """Columns of X selected by one window row; padded (-1) columns are zero,
     so they add nothing to a squared distance (ref kernels.c:3054-3060)."""
-    window = window.to(X.device)
+    window = host_read(window, lambda w: w.to(X.device))
     cols = X[..., torch.clamp(window, min=0)]
     return cols * (window >= 0).to(X.dtype)
 

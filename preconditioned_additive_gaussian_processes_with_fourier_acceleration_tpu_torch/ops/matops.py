@@ -7,6 +7,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.timers import host_read
+
 
 def stable_chol(K, extra_shift: float = 0.0):
     """Cholesky with the reference's stabilization shift and escalation.
@@ -22,11 +24,11 @@ def stable_chol(K, extra_shift: float = 0.0):
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
     L, info = torch.linalg.cholesky_ex(K + base * eye)
     nu, tries = base, 1.0
-    while int(info) != 0 and tries < 4:
+    while host_read(info, int) != 0 and tries < 4:
         nu = base * 10.0 ** (2.0 * tries)
         L, info = torch.linalg.cholesky_ex(K + nu * eye)
         tries += 1.0
-    if int(info) != 0:
+    if host_read(info, int) != 0:
         L = torch.full_like(K, float("nan"))
     return L, nu
 

@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils.timers import count, host_read, span
 from .reductions import psum
 
 
@@ -101,8 +102,9 @@ def lanczos_batch(
     # if it was active at every earlier step
     for k in range(maxits):
         active = ~stop
-        if not bool(active.any()):
+        if not host_read(active.any(), bool):
             break
+        count("lanczos_steps")
         w = matvec(V[:, k])
         if full_reorth:
             wmask = ((rows > k - wsize) & (rows <= k)).to(dtype) if wsize is not None else 1.0
@@ -211,39 +213,41 @@ def slq_logdet(matvec: Callable, dmatvec: Callable, probes: torch.Tensor, *,
     corrected by logdet(M)/n and tr(M^{-1} dM_i)/n (ref lanczos.c:456-466).
     group: the points axis's process group; probes are then this rank's
     columns, and precond's logdet and trace come out the same on every rank.
+    Traced as an `slq` span; its Lanczos steps add to `lanczos_steps`.
     """
-    nvecs, n = probes.shape
-    if group is not None:
-        n = group.n_global(n)
-    psolve = precond.solve if precond is not None else None
-    res = lanczos_batch(matvec, probes, precond=psolve, maxits=maxits, tol=0.0, group=group)
+    with span("slq"):
+        nvecs, n = probes.shape
+        if group is not None:
+            n = group.n_global(n)
+        psolve = precond.solve if precond is not None else None
+        res = lanczos_batch(matvec, probes, precond=psolve, maxits=maxits, tol=0.0, group=group)
 
-    # NaN trim per probe: keep the leading finite block of the tridiagonal
-    # (ref lanczos.c:526-548); trimmed diagonal entries pad with 1
-    idx = torch.arange(maxits, device=probes.device)
-    big = torch.full_like(res.alpha, maxits, dtype=torch.int64)
-    keep = torch.min(torch.where(~torch.isfinite(res.alpha), idx.expand_as(big), big), dim=1).values
-    alpha = torch.where(idx[None, :] < keep[:, None], res.alpha, 1.0)
-    beta = res.beta
-    if maxits > 1:
-        eidx = torch.arange(maxits - 1, device=probes.device)
-        bigb = torch.full_like(res.beta, maxits, dtype=torch.int64)
-        keepb = torch.min(torch.where(~torch.isfinite(res.beta), (eidx + 1).expand_as(bigb), bigb), dim=1).values
-        keep = torch.minimum(keep, keepb)
+        # NaN trim per probe: keep the leading finite block of the tridiagonal
+        # (ref lanczos.c:526-548); trimmed diagonal entries pad with 1
+        idx = torch.arange(maxits, device=probes.device)
+        big = torch.full_like(res.alpha, maxits, dtype=torch.int64)
+        keep = torch.min(torch.where(~torch.isfinite(res.alpha), idx.expand_as(big), big), dim=1).values
         alpha = torch.where(idx[None, :] < keep[:, None], res.alpha, 1.0)
-        beta = torch.where(eidx[None, :] < keep[:, None] - 1, res.beta, 0.0)
-    theta, vecs = torch.linalg.eigh(_tridiag(alpha, beta))
-    vals = torch.sum(vecs[:, 0, :] ** 2 * torch.log(torch.abs(theta)), dim=1)
+        beta = res.beta
+        if maxits > 1:
+            eidx = torch.arange(maxits - 1, device=probes.device)
+            bigb = torch.full_like(res.beta, maxits, dtype=torch.int64)
+            keepb = torch.min(torch.where(~torch.isfinite(res.beta), (eidx + 1).expand_as(bigb), bigb), dim=1).values
+            keep = torch.minimum(keep, keepb)
+            alpha = torch.where(idx[None, :] < keep[:, None], res.alpha, 1.0)
+            beta = torch.where(eidx[None, :] < keep[:, None] - 1, res.beta, 0.0)
+        theta, vecs = torch.linalg.eigh(_tridiag(alpha, beta))
+        vals = torch.sum(vecs[:, 0, :] ** 2 * torch.log(torch.abs(theta)), dim=1)
 
-    dAz = dmatvec(probes)                                   # (nv, p, n)
-    x = torch.where(torch.isfinite(res.x), res.x, 0.0)
-    dvals = torch.einsum("vpn,vn->vp", dAz, x)
-    if precond is not None:
-        dvals = dvals - torch.einsum("vpn,vn->vp", precond.dvp(probes), probes)
-    dvals = psum(dvals, group)
-    logdet = torch.mean(vals)
-    dlogdet = torch.mean(dvals, dim=0) / n
-    if precond is not None:
-        logdet = logdet + precond.logdet() / n
-        dlogdet = dlogdet + precond.trace() / n
-    return SlqResult(logdet=logdet, dlogdet=dlogdet)
+        dAz = dmatvec(probes)                                   # (nv, p, n)
+        x = torch.where(torch.isfinite(res.x), res.x, 0.0)
+        dvals = torch.einsum("vpn,vn->vp", dAz, x)
+        if precond is not None:
+            dvals = dvals - torch.einsum("vpn,vn->vp", precond.dvp(probes), probes)
+        dvals = psum(dvals, group)
+        logdet = torch.mean(vals)
+        dlogdet = torch.mean(dvals, dim=0) / n
+        if precond is not None:
+            logdet = logdet + precond.logdet() / n
+            dlogdet = dlogdet + precond.trace() / n
+        return SlqResult(logdet=logdet, dlogdet=dlogdet)

@@ -1,10 +1,10 @@
 """Port parity: utils/ (timers, debug dumps, config, datasets) and the small
 ops helpers (distance, base_kernel, ell_diag) against the JAX package.
 
-The counterparts of tests/test_utils.py::test_stage_timers,
-::test_timed_block and ::test_debug_dumps; the dumps must be byte-equal to
-the JAX package's on the same arrays, and generate_grid2d equal to JAX's
-element for element.  distance, base_kernel and ell_diag: float64, 1e-12
+The counterparts of tests/test_utils.py::test_stage_timers and
+::test_debug_dumps (the port has no timed_block_until_ready); the dumps
+must be byte-equal to the JAX package's on the same arrays, and
+generate_grid2d equal to JAX's element for element.  distance, base_kernel and ell_diag: float64, 1e-12
 relative against the JAX functions on the same numpy inputs; so are the
 dense triangular solves when they take a block's columns in slices
 (ops/matops.TRI_COLS).
@@ -30,7 +30,7 @@ from nfft4gp_torch.ops.kernels import base_kernel
 from nfft4gp_torch.ops.matops import ell_diag
 from nfft4gp_torch.utils import debug, generate_grid2d, generate_uniform
 from nfft4gp_torch.utils.config import default_complex_dtype, x64_enabled
-from nfft4gp_torch.utils.timers import StageTimers, timed_block_until_ready, trace
+from nfft4gp_torch.utils.timers import StageTimers, trace
 
 RTOL = 1e-12
 
@@ -46,13 +46,6 @@ def test_stage_timers():
     assert "setup" in t.summary()
     t.reset()
     assert not t.totals and not t.counts
-
-
-def test_timed_block():
-    out, dt = timed_block_until_ready(lambda v: v * 2, torch.ones(5))
-    assert dt >= 0 and float(out[0]) == 2.0
-    outs, _ = timed_block_until_ready(lambda v: (v, [v * 3]), torch.ones(2))
-    assert float(outs[1][0][0]) == 3.0
 
 
 def test_trace_cpu_writes_a_chrome_trace(tmp_path):

@@ -173,9 +173,16 @@ Phases, one line each (any failure raises and exits non-zero):
      the four windows of one or two features (limits as in 8; the grid is
      continuous in the points, so both sides build the same matrix to
      rounding);
- 13. predict: [main]'s fitted problem at n = 2e5, the mean at 2000 test
-     points and the std at 16 (one std_chunk); [stream-m12]'s problem, the
-     mean at 2000 points (n > 20000: the fastsum branch and its warning);
+ 13. predict (its operators on the regenerating kernels, all N modes):
+     the regenerating pair against its plain versions at prediction's
+     layout (WINDOWS: 5 pairs, no singles; 2P = 34, doubling; nv = 1,
+     nsets = 1 and 16; limits as in 4); [main]'s fitted problem at
+     n = 2e5, the mean at 2000 test points and the std at 16 (one
+     std_chunk), each call's NDFT launches counted from 0 and printed
+     (the regenerating adjoint and forward alike and > 0, no other NDFT
+     kernel); [stream-m12]'s problem, the
+     mean at 2000 points (n > 20000: the fastsum branch and its warning;
+     its launches counted alike, the 3-feature window on the table path);
      and at n = 2e4 with (f, l, mu) = (1, 0.5, 0.1), the fastsum predictor
      against the dense one, relative L2 gap of the mean <= 5e-3 and of the
      std <= 5e-4 (tests/test_torch_predict.py measured 3.7e-4 / 1.8e-5 at
@@ -666,28 +673,30 @@ def check_f32_kernels(X):
     return cases
 
 
-def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20)):
+def check_regen_kernels(X, nvs=(1, 10), nsets_list=(1, 2, 10, 20), windows=WINDOWS_FUSED, gens=None, label=None):
     """The regenerating kernels against their plain versions on the d <= 2
-    windows of WINDOWS_FUSED, untrimmed (2P = 34), both phase sources, both
-    on the tensor cores (3xTF32); a second launch must be bitwise equal."""
+    windows of `windows` (WINDOWS_FUSED by default), untrimmed (2P = 34),
+    each phase source of `gens` (both by default), both on the tensor cores
+    (3xTF32); a second launch must be bitwise equal.  label: the printed
+    phase tag."""
     from nfft4gp_torch.ops import fastsum as fs
     from nfft4gp_torch.ops import packed_ndft as pk
 
-    plan = _plan(X, WINDOWS_FUSED)
+    plan = _plan(X, windows)
     lay = fs._packed_layout(plan)
     P = fs._nmodes(FASTSUM_N)
     xT, pairs, singles = lay.xT, lay.pairs, lay.singles
     cases = []
-    for gen in pk.PHASE_GENS:
+    for gen in gens or pk.PHASE_GENS:
         kw = dict(P=P, pairs=pairs, singles=singles, phase_gen=gen)
         cases += check_pair(
-            f"{gen} windows={WINDOWS_FUSED}", ("packed_adjoint_regen", "packed_forward_regen"),
+            f"{gen} windows={windows}", ("packed_adjoint_regen", "packed_forward_regen"),
             lambda a: pk.packed_adjoint_regen(xT, a, **kw),
             lambda a: pk.packed_adjoint_regen_plain(xT, a, P, pairs, singles, gen),
             lambda G2, G1: pk.packed_forward_regen(xT, G2, G1, **kw),
             lambda G2s, G1s: pk.packed_forward_regen_plain(xT, G2s, G1s, P, pairs, singles, gen),
             lay, P, X, nvs, nsets_list, True, pk.phase_slab(xT, P, gen), xT.numel() * xT.element_size(),
-            units=("tf32x3", "tf32x3"), repeat=True)
+            units=("tf32x3", "tf32x3"), repeat=True, label=label)
     return cases
 
 
@@ -1398,21 +1407,41 @@ def _finite(*ts):
     return all(bool(torch.isfinite(t).all()) for t in ts)
 
 
+def _predict_launches(call):
+    """(call's result, seconds, NDFT launches) with the launch counts set to
+    0 just before the call; prediction's operators must have launched the
+    regenerating pair alone, one adjoint and one forward an apply."""
+    from nfft4gp_torch.ops import packed_ndft as pk
+
+    pk.reset_launch_counts()
+    out, secs = _timed(call)
+    counts = _launches()
+    regen = ("packed_adjoint_regen", "packed_forward_regen")
+    if not (counts[regen[0]] == counts[regen[1]] > 0
+            and all(v == 0 for k, v in counts.items() if k not in regen and k != "by_shape")):
+        raise AssertionError(f"predict: the operators did not run on the regenerating pair alone: {counts}")
+    return out, secs, counts
+
+
 def check_predict(prob, sprob, X, y):
     """[predict] (phase 13)."""
     from nfft4gp_torch.models.problem import GPProblem
     from nfft4gp_torch.models.transforms import transform_inverse
 
+    # the regenerating pair at prediction's layout: WINDOWS (5 pairs, no
+    # singles), 2P = 34, nv = 1 (a solve's apply), nsets 1 and 16 (the
+    # std's chunk of joint columns)
+    check_regen_kernels(X, nvs=(1,), nsets_list=(1, 16), windows=WINDOWS, gens=("doubling",), label="predict")
     Xt, _ = make_data(2000, seed=7)
-    mean, s_mean = _timed(lambda: prob.predict(X, y, Xt))
-    (m16, std), s_std = _timed(lambda: prob.predict(X, y, Xt[:16], with_std=True))
+    mean, s_mean, c_mean = _predict_launches(lambda: prob.predict(X, y, Xt))
+    (m16, std), s_std, c_std = _predict_launches(lambda: prob.predict(X, y, Xt[:16], with_std=True))
     print(f"[predict] main (gaussian, fastsum) n={X.shape[0]} mean at {Xt.shape[0]} points: {s_mean:.2f} s, "
-          f"mean[:4]={mean[:4].tolist()}; mean and std at 16 points: {s_std:.2f} s, std[:4]={std[:4].tolist()}",
-          flush=True)
-    smean, s_smean = _timed(lambda: sprob.predict(X[:N_STREAM_M12], y[:N_STREAM_M12], Xt))
+          f"mean[:4]={mean[:4].tolist()}, launches {c_mean}; mean and std at 16 points: {s_std:.2f} s, "
+          f"std[:4]={std[:4].tolist()}, launches {c_std}", flush=True)
+    smean, s_smean, c_smean = _predict_launches(lambda: sprob.predict(X[:N_STREAM_M12], y[:N_STREAM_M12], Xt))
     print(f"[predict] stream-m12 (matern12, n={N_STREAM_M12}, auto rule at n > 20000: fastsum) mean at "
           f"{Xt.shape[0]} points: "
-          f"{s_smean:.2f} s, mean[:4]={smean[:4].tolist()}", flush=True)
+          f"{s_smean:.2f} s, mean[:4]={smean[:4].tolist()}, launches {c_smean}", flush=True)
     if not (_finite(mean, m16, std, smean) and bool((std > 0).all())):
         raise AssertionError("predict: a mean or std is not finite, or a std is not positive")
 

@@ -183,13 +183,31 @@ def gp_predict(raw_params, X, y, X_test, cfg: GPConfig, *, windows=None,
         return GPPredictResult(mean=mean, std=std, solve_relres=sol.relres, solve_iters=sol.niter)
 
 
+def _additive_op(plan, fused: bool):
+    """The matvec of an additive plan on (n,) or a batch of rows (nv, n):
+    on the phase-regenerating kernels (fused; the plan laid out for them
+    once, all N modes kept) or on the table engine."""
+    if fused:
+        fp = fs.fused_plan(plan)
+        return lambda v: fs.additive_fastsum_matvec_fused(fp, v)
+    return lambda v: fs.additive_fastsum_matvec(plan, v)
+
+
 def gp_predict_fastsum(raw_params, X, y, X_test, cfg: GPConfig, *, windows=None,
                        fastsum_N: int = 32, precond_setup: Optional[Callable] = None,
                        with_std: bool = False, maxits: Optional[int] = None, oversample: int = 2,
-                       nearfield_lfil: int = 0, std_chunk: int = 16) -> GPPredictResult:
+                       nearfield_lfil: int = 0, std_chunk: int = 16,
+                       fused: Optional[bool] = None) -> GPPredictResult:
     """Fourier-accelerated GP prediction on a joint [train; test] plan (ref
-    Nfft4GPAdditiveNFFTGpPredict, nfft_interface.c:873-1061), on the table
-    engine with tables in the data dtype, as in the JAX package.
+    Nfft4GPAdditiveNFFTGpPredict, nfft_interface.c:873-1061).
+
+    With additive windows the two plans' matvecs run on the phase-
+    regenerating kernels (ops/fastsum.py's fused engine, 2P = N + 2: the
+    Nyquist mode kept, as on the table engine) when `fused`, and on the
+    table engine, tables in the data dtype as in the JAX package,
+    otherwise; fused=None takes the kernels for float32 CUDA tensors, the
+    table engine for the rest.  3-feature windows and windows=None run on
+    the table path.
 
     The mean is the tail of K_joint [K11^{-1} y; 0] (the joint mu x term
     adds nothing there).  The std solves one system per test point on the
@@ -206,10 +224,11 @@ def gp_predict_fastsum(raw_params, X, y, X_test, cfg: GPConfig, *, windows=None,
         opts = dict(oversample=oversample, nearfield_lfil=nearfield_lfil)
         with span("op_build"):
             if windows is not None:
-                plans = [fs.additive_fastsum_coeffs(cfg.kind, params,
-                                                    fs.additive_fastsum_geometry(Z, windows, N=fastsum_N), **opts)
-                         for Z in (X, X_all)]
-                mv_tr, mv_all = (lambda v, p=p: fs.additive_fastsum_matvec(p, v) for p in plans)
+                if fused is None:
+                    fused = X.is_cuda and X.dtype == torch.float32
+                mv_tr, mv_all = (_additive_op(fs.additive_fastsum_coeffs(
+                    cfg.kind, params, fs.additive_fastsum_geometry(Z, windows, N=fastsum_N), **opts), fused)
+                    for Z in (X, X_all))
             else:
                 plans = [fs.fastsum_coeffs(cfg.kind, params, fs.fastsum_geometry(Z, N=fastsum_N), **opts)
                          for Z in (X, X_all)]

@@ -114,7 +114,10 @@ class GPProblem:
     the kernel engines; windows=None runs on the table path.
     fastsum_table_dtype: 'auto' = bfloat16 tables for float32 data, the data
     dtype otherwise; None / 'float32' / a torch dtype name force one.
-    Prediction always uses tables in the data dtype.
+    Prediction never takes the trimmed stream tables: with additive
+    windows it runs the phase-regenerating kernels for float32 CUDA tensors
+    or with fastsum_fused=True (all N modes kept), and the table engine,
+    tables in the data dtype, on the CPU or with fastsum_engine='table'.
     fastsum_nearfield_lfil: the near-field correction's size; None = 16 for
     matern12, else 0.  The stream engine corrects every pair within a
     radius rho, the pitch of a cell grid sized for about lfil neighbours
@@ -251,8 +254,9 @@ class GPProblem:
                 return _ops(lambda V: fs.packed_ndft_matvec_batch(pn, V),
                             lambda V: fs.packed_ndft_grad_matvec_batch(pn, V))
             if self.fastsum_fused:
-                return _ops(lambda V: fs.additive_fastsum_matvec_fused_batch(plan, V),
-                            lambda V: fs.additive_fastsum_grad_matvec_fused_batch(plan, V))
+                fp = fs.fused_plan(plan)
+                return _ops(lambda V: fs.additive_fastsum_matvec_fused_batch(fp, V),
+                            lambda V: fs.additive_fastsum_grad_matvec_fused_batch(fp, V))
             return _ops(lambda V: fs.additive_fastsum_matvec(plan, V),
                         lambda V: fs.additive_fastsum_grad_matvec(plan, V))
 
@@ -424,9 +428,10 @@ class GPProblem:
                           "error; set predict_operator='dense' if the train set fits, or raise "
                           "fastsum_N", flush=True)
         if pred_op == "fastsum":
+            fused = True if self.fastsum_fused else (False if self.fastsum_engine == "table" else None)
             res = gp_predict_fastsum(raw, X, y, X_test, self._cfg(), fastsum_N=self.fastsum_N,
                                      oversample=self.fastsum_oversample,
-                                     nearfield_lfil=self._nf_lfil(), **kw)
+                                     nearfield_lfil=self._nf_lfil(), fused=fused, **kw)
         else:
             res = gp_predict(raw, X, y, X_test, self._cfg(), **kw)
         return (res.mean, res.std) if with_std else res.mean

@@ -619,7 +619,9 @@ def _folded_combine(W, A, d: int):
     """B_t = sum_S (-1)^{|S|/2} sign_t(S) W_S A_{t xor S} over even sets S,
     sign_t(S) = prod_{j in S} (+1 if t_j = sin else -1).
 
-    A may carry leading batch axes: (..., 2P) for d=1, (..., 2P, 2P) for d=2.
+    A may carry leading batch axes: (..., 2P) for d=1, (..., 2P, 2P) for d=2;
+    W (nS, ...) then broadcasts against them past its set axis (a window
+    axis of W's stack matching one of A's, as `_combined` uses it).
     """
     P = W.shape[-1]
     sets = _EVEN_SETS[d]
@@ -887,18 +889,26 @@ def _packed_layout(plan: AdditiveFastsumPlan, nf_stencils=None, nf_require_grad:
         rest=tuple(rest))
 
 
-def _two_pass(lay, P, Xb, families, adjoint, forward):
+def _combined(fams, A, d: int, rows: int):
+    """The (rows, nwin, 2P[, 2P]) combined weights of every window and
+    family, rows in (row, family) order, as the forward wrappers take them
+    stacked: one `_folded_combine` a family over the stacks of all windows
+    (fams: per family the windows' folded weights; A: per window its
+    adjoint output (nv, 2P[, 2P])), so the host issues the same few
+    products whatever the window count."""
+    A = torch.stack(A, dim=1)
+    B = torch.stack([_folded_combine(torch.stack(W, dim=1), A, d) for W in fams], dim=1)
+    return B.reshape(rows, *B.shape[2:])
+
+
+def _two_pass(lay, Xb, families, adjoint, forward):
     """One adjoint pass for the rows of Xb (nv, n), then ONE forward pass over
     nv * len(families) weight sets in (row, family) order.  Returns
     (nv, len(families), n) sums over the layout's d <= 2 windows."""
     nv, nf = Xb.shape[0], len(families)
     A2, A1 = adjoint(Xb.contiguous())
-    fam2 = [lay.w2 if f == "w" else lay.dw2 for f in families]
-    fam1 = [lay.w1 if f == "w" else lay.dw1 for f in families]
-    G2 = [torch.stack([_folded_combine(W[i], A2[i], 2) for W in fam2], dim=1)
-          .reshape(nv * nf, 2 * P, 2 * P) for i in range(len(lay.pairs))]
-    G1 = [torch.stack([_folded_combine(W[i], A1[i], 1) for W in fam1], dim=1)
-          .reshape(nv * nf, 2 * P) for i in range(len(lay.singles))]
+    G2 = _combined([lay.w2 if f == "w" else lay.dw2 for f in families], A2, 2, nv * nf) if lay.pairs else ()
+    G1 = _combined([lay.w1 if f == "w" else lay.dw1 for f in families], A1, 1, nv * nf) if lay.singles else ()
     ys = forward(G2, G1)
     return torch.stack(ys).reshape(nv, nf, Xb.shape[1])
 
@@ -969,7 +979,7 @@ def packed_ndft_plan(plan: AdditiveFastsumPlan, *, table_dtype=None, nf_stencils
 def _packed_sets(pn: PackedNDFT, Xb, families):
     """Per family the (nv, n) window sums on the table kernels."""
     return _layout_sums(pn, Xb, families, lambda V: _two_pass(
-        pn, pn.P, V, families,
+        pn, V, families,
         lambda A: packed_adjoint(pn.Tp, A, pairs=pn.pairs, singles=pn.singles),
         lambda G2, G1: packed_forward(pn.Tp, G2, G1, pairs=pn.pairs, singles=pn.singles)))
 
@@ -1000,44 +1010,68 @@ def packed_ndft_grad_matvec(pn: PackedNDFT, x):
 
 # --- fused (phase-regenerating) engine ---------------------------------------------
 
-def _fused_sums(plan: AdditiveFastsumPlan, Xb, families, phase_gen):
+class FusedPlan(NamedTuple):
+    """An additive plan laid out once for the phase-regenerating kernels
+    (`fused_plan`), for the many applies of a solve; all N modes kept
+    (P = N/2 + 1, 2P = N + 2)."""
+
+    plan: AdditiveFastsumPlan
+    lay: PackedLayout
+    P: int
+
+
+def fused_plan(plan: AdditiveFastsumPlan) -> FusedPlan:
+    """The plan with its packed layout (the stacked coordinate rows of its
+    d <= 2 windows), which every apply on the fused path reads."""
+    return FusedPlan(plan, _packed_layout(plan), _nmodes(plan.groups[0][2][0].N))
+
+
+def _fused_sums(fp: FusedPlan, Xb, families, phase_gen):
     """Per family the (nv, n) window sums on the regenerating kernels: one
     adjoint and one forward launch for all rows and families."""
-    lay = _packed_layout(plan)
-    P = _nmodes(plan.groups[0][2][0].N)
-    kw = dict(P=P, pairs=lay.pairs, singles=lay.singles, phase_gen=phase_gen)
+    lay = fp.lay
+    kw = dict(P=fp.P, pairs=lay.pairs, singles=lay.singles, phase_gen=phase_gen)
     return _layout_sums(lay, Xb, families, lambda V: _two_pass(
-        lay, P, V, families,
+        lay, V, families,
         lambda A: packed_adjoint_regen(lay.xT, A, **kw),
         lambda G2, G1: packed_forward_regen(lay.xT, G2, G1, **kw)))
 
 
-def additive_fastsum_matvec_fused_batch(plan: AdditiveFastsumPlan, Xb, *,
-                                        phase_gen: str = "doubling"):
+def _as_fused(plan) -> FusedPlan:
+    return plan if isinstance(plan, FusedPlan) else fused_plan(plan)
+
+
+def additive_fastsum_matvec_fused_batch(plan, Xb, *, phase_gen: str = "doubling"):
     """Batched y_r = K x_r for the rows of Xb (nv, n) on the fused path:
     the phases are regenerated in the kernels from the coordinates (no
-    table), and all rows share one kernel pass."""
-    p = plan.params
-    (acc,) = _fused_sums(plan, Xb, ["w"], phase_gen)
-    return p.f * p.f * (acc / plan.n_windows + p.mu * Xb)
+    table), and all rows share one kernel pass.  plan: an
+    AdditiveFastsumPlan, or its `fused_plan` where it is applied many
+    times."""
+    fp = _as_fused(plan)
+    p = fp.plan.params
+    (acc,) = _fused_sums(fp, Xb, ["w"], phase_gen)
+    return p.f * p.f * (acc / fp.plan.n_windows + p.mu * Xb)
 
 
-def additive_fastsum_matvec_fused(plan: AdditiveFastsumPlan, x, *, phase_gen: str = "doubling"):
+def additive_fastsum_matvec_fused(plan, x, *, phase_gen: str = "doubling"):
     """Additive matvec on the phase-regenerating kernels (ref
     additive_fastsum_matvec_fused); 3-D windows on the table path.  Matches
-    additive_fastsum_matvec to float32 roundoff."""
-    return additive_fastsum_matvec_fused_batch(plan, x[None], phase_gen=phase_gen)[0]
+    additive_fastsum_matvec to float32 roundoff.  x: (n,) or a batch of
+    rows (nv, n); plan as in the batched form."""
+    Y = additive_fastsum_matvec_fused_batch(plan, x.reshape(-1, x.shape[-1]), phase_gen=phase_gen)
+    return Y.reshape(x.shape)
 
 
-def additive_fastsum_grad_matvec_fused_batch(plan: AdditiveFastsumPlan, Xb, *,
-                                             phase_gen: str = "doubling"):
+def additive_fastsum_grad_matvec_fused_batch(plan, Xb, *, phase_gen: str = "doubling"):
     """Batched (nv, 3, n) gradient matvecs on the fused path; K and dK/dl
-    of all rows share one kernel pass."""
-    k_acc, l_acc = _fused_sums(plan, Xb, ["w", "dw_l"], phase_gen)
-    return _grad_rows(plan.params, k_acc, l_acc, Xb, plan.n_windows)
+    of all rows share one kernel pass.  plan as in
+    `additive_fastsum_matvec_fused_batch`."""
+    fp = _as_fused(plan)
+    k_acc, l_acc = _fused_sums(fp, Xb, ["w", "dw_l"], phase_gen)
+    return _grad_rows(fp.plan.params, k_acc, l_acc, Xb, fp.plan.n_windows)
 
 
-def additive_fastsum_grad_matvec_fused(plan: AdditiveFastsumPlan, x, *,
+def additive_fastsum_grad_matvec_fused(plan, x, *,
                                        phase_gen: str = "doubling"):
     """(3, n) gradient matvec on the fused path (ref
     additive_fastsum_grad_matvec_fused)."""

@@ -309,10 +309,14 @@ def _adjoint_outputs(A2, A1, batched, npairs, nsingles):
 
 
 def _weight_stacks(G2_sets, G1_sets, W2, pairs, singles):
-    """Per-window (nsets, ...) stacks -> G2 (nsets, npairs, W2, W2) and
-    G1 (nsets, nsingles, W2), either None when it has no windows."""
-    G2 = torch.stack(list(G2_sets), dim=1) if pairs else None
-    G1 = torch.stack(list(G1_sets), dim=1) if singles else None
+    """Per-window (nsets, ...) stacks, or those already stacked, -> G2
+    (nsets, npairs, W2, W2) and G1 (nsets, nsingles, W2), either None when
+    it has no windows."""
+    def stacked(g):
+        return g if isinstance(g, torch.Tensor) else torch.stack(list(g), dim=1)
+
+    G2 = stacked(G2_sets) if pairs else None
+    G1 = stacked(G1_sets) if singles else None
     nsets = (G2 if G2 is not None else G1).shape[0]
     if G2 is not None and tuple(G2.shape) != (nsets, len(pairs), W2, W2):
         raise ValueError(f"G2 stack {tuple(G2.shape)} does not match 2P = {W2}")
@@ -364,8 +368,10 @@ def packed_forward(Tp, G2_sets, G1_sets=(), *, pairs: tuple, singles: tuple = ()
 
     Replaces the TPU kernel `_forward_kernel` (ops/pallas_ndft.py, table
     modes).  G2_sets: per 2-D window a (nsets, 2P, 2P) stack of combined
-    block tensors (fastsum._folded_combine output); G1_sets: per 1-D window
-    a (nsets, 2P) stack.  Returns the list of nsets outputs y (n,).
+    block tensors (fastsum._folded_combine output), or all of them as one
+    (nsets, npairs, 2P, 2P) tensor; G1_sets: per 1-D window a (nsets, 2P)
+    stack, or one (nsets, nsingles, 2P) tensor.  Returns the list of nsets
+    outputs y (n,).
     """
     _check_table(Tp, pairs, singles)
     W2 = Tp.shape[1]
@@ -427,7 +433,8 @@ def packed_forward_regen(xT, G2_sets, G1_sets=(), *, P: int, pairs: tuple, singl
 
     Replaces the TPU kernel `_forward_kernel` (ops/pallas_ndft.py) in its
     "doubling" / "direct" modes.  xT: (Dtot, n); the weight stacks are
-    (nsets, 2P, 2P) / (nsets, 2P) with 2P = 2 * P.  Returns nsets outputs.
+    (nsets, 2P, 2P) / (nsets, 2P) with 2P = 2 * P, per window or stacked
+    over the windows as in `packed_forward`.  Returns nsets outputs.
     On CUDA tensors at 2P in REGEN_KERNEL_WIDTHS, per pass of up to 32 sets,
     one weight split and one `forward_regen_tc_kernel` launch
     (csrc/packed_ndft_regen.cu): the 2-D windows on the tensor cores

@@ -339,7 +339,7 @@ def sharded_stream_ops(mesh: PointsMesh, plan: fs.AdditiveFastsumPlan, *, table_
 
     def sums(Xb, families):
         accs = list(torch.unbind(fs._two_pass(
-            pn, pn.P, Xb, families,
+            pn, Xb, families,
             lambda A: _modes_psum(mesh, *packed_adjoint(pn.Tp, A, **kw)),
             lambda G2, G1: packed_forward(pn.Tp, G2, G1, **kw)), dim=1))
         if pn.nf:

@@ -58,8 +58,10 @@ def fgmres(
     over the ranks, so the small least-squares problem and the stopping
     decisions agree on every rank.
 
-    Traced as an `fgmres` span with `iters`, `restarts` and `relres` (from
-    the residual norm the loop reads); each blocking call is a host_read:
+    Traced as an `fgmres` span with `iters`, `restarts`, `relres` (from
+    the residual norm the loop reads), `cycle_its` (the iterations of each
+    cycle) and `lucky_t` (per cycle a lucky breakdown ended, its
+    t / (eps ||b||), at most 1); each blocking call is a host_read:
     the host's scalars read from the device, and the history's scalars and
     y written to it."""
     with span("fgmres") as sp:
@@ -76,7 +78,8 @@ def fgmres(
         tolb = tol if atol else tol * normb
         hist = torch.full((maxits + 1,), float("nan"), dtype=dtype, device=dev)
 
-        total_it = cycles = 0
+        total_it = 0
+        cycle_its, lucky_t = [], []
         stop = False
         # each cycle starts from the true residual the previous one ended with
         r = b if x0 is None else b - matvec(x)
@@ -121,6 +124,8 @@ def fgmres(
                 host_read(res / safe_normb, lambda v: hist.__setitem__(total_it + j + 1, v))
                 inner_stop = res <= tolb or lucky or total_it + j + 1 >= maxits
                 j += 1
+            if j > 0 and lucky:
+                lucky_t.append(t / (eps * safe_normb))
 
             # upper-triangular solve R y = g on the j active columns
             y = torch.zeros(kdim, dtype=dtype, device=dev)
@@ -140,14 +145,15 @@ def fgmres(
             else:
                 x = x + Z.T @ y
             total_it += j
-            cycles += 1
+            cycle_its.append(j)
             r = b - matvec(x)
             res_true = norm_fn(r)
             res = host_read(res_true, float)
             stop = res <= tolb or total_it >= maxits
 
         relres = res_true / safe_normb
-        sp.set(iters=total_it, restarts=cycles - 1, relres=res / safe_normb)
+        sp.set(iters=total_it, restarts=len(cycle_its) - 1, relres=res / safe_normb, cycle_its=cycle_its,
+               lucky_t=lucky_t)
         return FgmresResult(
             x=x, relres=relres, niter=total_it, res_history=hist,
             converged=host_read(relres * safe_normb <= tolb, bool),

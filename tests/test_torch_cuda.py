@@ -102,7 +102,9 @@ Tolerances:
   float64, as the fused one;
 - prediction on the card (float32) against CPU float64: mean 1e-4, std 1e-5
   relative L2 (float32 against float64 on the CPU: 1.2e-5 / 1.3e-6 for the
-  fastsum predictor, 6.6e-6 / 2.4e-6 for the dense one).
+  fastsum predictor, 6.6e-6 / 2.4e-6 for the dense one); its regenerating
+  route on the card against the table engine on the card: mean and std
+  1e-4 (two float32 operators through 200-step FGMRES solves).
 
 float64 numpy inputs with the default device run fit and predict on the
 card in float32: finite values, the table kernels launched.
@@ -593,6 +595,54 @@ def test_predict_on_card_matches_cpu(dev, op):
         out.append((mean.cpu().double(), std.cpu().double()))
     assert _rel(out[0][0], out[1][0]) <= 1e-4
     assert _rel(out[0][1], out[1][1]) <= 1e-5
+
+
+@pytest.mark.parametrize("kind, mu", [("gaussian", 0.1), ("matern12", 1.0)])
+def test_predict_regen_route_on_card(dev, monkeypatch, kind, mu):
+    """Prediction of float32 CUDA tensors with additive windows runs its
+    operator on the regenerating kernels (2P = N + 2 = 34, all N modes):
+    each apply one packed_adjoint_regen and one packed_forward_regen
+    launch and no other NDFT kernel, at the benchmark cell's windows and
+    n = 2e4; the mean and std within 1e-4 relative L2 of the table engine
+    on the card (fastsum_engine='table'; both float32, their rounding
+    carried through the 200-step FGMRES solves).  matern12 with its KNN
+    near-field (16 neighbours) at mu = 1, as the card's other matern12
+    comparisons."""
+    from nfft4gp_torch.ops import fastsum as fs
+
+    rng = np.random.default_rng(31)
+    n = 20000
+    X = rng.uniform(size=(n, 10)).astype(np.float32)
+    y = (np.sin(3 * X[:, 0]) + np.cos(2 * X[:, 3]) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    Xt = rng.uniform(size=(2000, 10)).astype(np.float32)
+    landmarks = torch.from_numpy(rng.permutation(n)[:50])
+    t = [torch.from_numpy(a).to(dev) for a in (X, y, Xt)]
+    kw = dict(kernel=kind, windows=[[0, 1], [2, 3], [4, 5], [6, 7], [8, 9]], operator="fastsum",
+              predict_operator="fastsum", rank=50, maxits=10,
+              raw_params_=transform_inverse("softplus", torch.tensor([1.0, 0.5, mu])))
+    applies = [0]
+    fused = fs.additive_fastsum_matvec_fused_batch
+
+    def counted(*a, **k):
+        applies[0] += 1
+        return fused(*a, **k)
+
+    monkeypatch.setattr(fs, "additive_fastsum_matvec_fused_batch", counted)
+    before = {f.__name__: f.launches for f in pk.KERNEL_WRAPPERS}
+    routed = GPProblem(**kw)
+    mean = routed.predict(*t, landmarks=landmarks)
+    torch.cuda.synchronize(dev)
+    launched = {f.__name__: f.launches - before[f.__name__] for f in pk.KERNEL_WRAPPERS}
+    assert applies[0] > 1
+    assert launched == {"packed_adjoint": 0, "packed_forward": 0, "packed_adjoint_regen": applies[0],
+                        "packed_forward_regen": applies[0], "packed_adjoint_wide": 0, "packed_forward_wide": 0}
+    _, std = routed.predict(t[0], t[1], t[2][:8], with_std=True, landmarks=landmarks)
+    table = GPProblem(**kw, fastsum_engine="table")
+    table_mean = table.predict(*t, landmarks=landmarks)
+    _, table_std = table.predict(t[0], t[1], t[2][:8], with_std=True, landmarks=landmarks)
+    assert mean.is_cuda and mean.dtype == torch.float32
+    assert _rel(mean, table_mean) <= 1e-4, _rel(mean, table_mean)
+    assert _rel(std, table_std) <= 1e-4, _rel(std, table_std)
 
 
 # --- the cooperative dense Krylov kernels ------------------------------------------

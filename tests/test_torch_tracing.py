@@ -166,6 +166,38 @@ def test_fgmres_span_counts_restarts():
     assert tr.counters["host_syncs"] == 1 + 4 * 4 + 3 * 14 + 1
 
 
+def _three_eigenvalues():
+    """A diagonal operator with three distinct eigenvalues: its Krylov space
+    of any b has dimension 3, so the third step breaks down."""
+    g = torch.Generator().manual_seed(5)
+    d = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64).repeat_interleave(10)
+    return lambda v: d * v, torch.rand(30, generator=g, dtype=torch.float64)
+
+
+def _spd50():
+    g = torch.Generator().manual_seed(4)
+    A = torch.rand(50, 50, generator=g, dtype=torch.float64)
+    A = A @ A.T + 0.5 * torch.eye(50, dtype=torch.float64)
+    return lambda v: A @ v, torch.rand(50, generator=g, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("case, kdim, maxits, tol, cycle_its, lucky", [
+    (_spd50, 4, 14, 1e-14, [4, 4, 4, 2], 0),        # every cycle fills kdim, the last maxits
+    (_three_eigenvalues, 10, 10, 1e-10, [3], 1),    # a lucky breakdown ends the solve at step 3
+])
+def test_fgmres_span_records_cycles_and_lucky_breakdowns(case, kdim, maxits, tol, cycle_its, lucky):
+    matvec, b = case()
+    with timers.tracing() as tr:
+        res = fgmres(matvec, b, kdim=kdim, maxits=maxits, tol=tol)
+    (sp,) = [s for s in tr.spans if s.name == "fgmres"]
+    assert sp.attrs["cycle_its"] == cycle_its and sum(cycle_its) == res.niter
+    assert sp.attrs["restarts"] == len(cycle_its) - 1 and len(sp.attrs["lucky_t"]) == lucky
+    # each breakdown's t / (eps ||b||): at most 1 by the test that ends the cycle
+    assert all(0.0 <= t <= 1.0 for t in sp.attrs["lucky_t"])
+    if lucky:
+        assert float(res.relres) < 1e-12
+
+
 def test_host_syncs_is_the_count_of_the_code():
     _, tr = _step(trace_on=True)
     by_id = {s.id: s for s in tr.spans}

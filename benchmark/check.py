@@ -24,6 +24,14 @@ the change.
 Prediction: per compared request the largest gap of a posterior mean over
 the reference's largest mean, the worst request counting.
 
+Solve: per compared request the residual of the program's answer x to its
+right-hand side b on the reference's operator (`solve_res`, ||b - A x|| /
+||b||: every point's row and the near-field enter it), the worst request
+counting.  Beside it `exact_res`, the same on the dense kernel K, which the
+readings of benchmark/control.py report and no limit holds: the control
+moves it by a fifth, and K lies farther from A than any sound answer does
+from A's solution (PERF.md).
+
 The limits of a cell are benchmark/limits/<cell>.json; PERF.md gives the
 readings each was set from.
 """
@@ -63,6 +71,12 @@ def predict_numbers(prog_means, ref_means) -> dict:
         r = r.to(torch.float64).cpu()
         worst = max(worst, float(torch.max((p - r).abs()) / torch.max(r.abs())))
     return {"mean_gap": worst}
+
+
+def solve_numbers(on_operator, on_kernel) -> dict:
+    """The worst compared request's residuals on the operator and on the
+    dense kernel."""
+    return {"solve_res": max(on_operator), "exact_res": max(on_kernel)}
 
 
 def verdict(numbers: dict, limits: dict):

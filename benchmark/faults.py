@@ -103,7 +103,67 @@ def altered_mean():
         yield
 
 
+def _pcg_patched(make):
+    """`solvers.pcg.pcg` replaced by make(original) while the block runs."""
+    mod = _mod("solvers.pcg")
+    return _patched(mod, "pcg", make(mod.pcg))
+
+
+@contextmanager
+def half_iterations():
+    """PCG stops after half the iterations it takes to reach tol."""
+    def make(orig):
+        def pcg(matvec, b, x0=None, **kw):
+            full = orig(matvec, b, x0, **kw)
+            return orig(matvec, b, x0, **{**kw, "maxits": max(1, full.niter // 2)})
+        return pcg
+
+    with _pcg_patched(make):
+        yield
+
+
+@contextmanager
+def nearfield_dropped():
+    """The operator is built without its near-field correction (nf lfil 0)."""
+    fs = _mod("ops.fastsum")
+    orig = fs.additive_nearfield_stencil_direct
+    with _patched(fs, "additive_nearfield_stencil_direct",
+                  lambda geom, kind, nearfield_lfil=None, **kw: orig(geom, kind, 0, **kw)):
+        yield
+
+
+@contextmanager
+def half_batch_solve():
+    """The second half of each right-hand side is left unsolved (taken as 0)."""
+    def make(orig):
+        def pcg(matvec, b, x0=None, **kw):
+            kept = b.clone()
+            kept[b.shape[0] // 2:] = 0.0
+            return orig(matvec, kept, x0, **kw)
+        return pcg
+
+    with _pcg_patched(make):
+        yield
+
+
+@contextmanager
+def altered_solution():
+    """One entry of each answer x is altered where PCG produces it."""
+    def make(orig):
+        def pcg(*a, **kw):
+            res = orig(*a, **kw)
+            x = res.x.clone()
+            x[0] += torch.max(torch.abs(x))
+            return res._replace(x=x)
+        return pcg
+
+    with _pcg_patched(make):
+        yield
+
+
 FAULTS = {
     "train": {"state_unchanged": state_unchanged, "half_batch": half_batch_train, "altered_answer": altered_loss},
     "predict": {"half_batch": half_batch_predict, "altered_answer": altered_mean},
+    "solve": {"half_iterations": half_iterations, "nearfield_dropped": nearfield_dropped,
+              "half_batch": half_batch_solve, "altered_answer": altered_solution},
 }

@@ -3,9 +3,11 @@
 Everything a run feeds the program comes from here, from `--seed` alone:
 the points and labels (uniform features in [0, 1]^d, y = sin 3 x0 + cos 2 x3
 + 0.1 noise, the generator of chip_smoke.py's `make_data`), the SLQ
-probes, the Nystrom landmarks and each prediction request's test points.  The same
-seed gives the same inputs, and each part draws from a generator of its
-own, so a cell that uses fewer parts draws the others unchanged.
+probes, the Nystrom landmarks and each prediction request's test points;
+for a solve, the sites (uniform in [0, 1]^d) and each request's right-hand
+side (N(0, 1) entries).  The same seed gives the same inputs, and each
+part draws from a generator of its own, so a cell that uses fewer parts
+draws the others unchanged.
 """
 
 from typing import NamedTuple
@@ -13,7 +15,7 @@ from typing import NamedTuple
 import torch
 
 # sub-streams of one seed
-_DATA, _PROBES, _LANDMARKS, _REQUEST = 1, 2, 3, 4
+_DATA, _PROBES, _LANDMARKS, _REQUEST, _SITES, _RHS = 1, 2, 3, 4, 5, 6
 _MASK63 = (1 << 63) - 1
 
 
@@ -58,3 +60,20 @@ def test_points(config: dict, traffic: dict, seed: int, index: int, device):
     m = int(round(config["n"] * traffic["test_points_per_train_point"]))
     gen = generator(seed, _REQUEST, device, index + 1)
     return torch.rand((m, config["d"]), generator=gen, device=device, dtype=torch.float32)
+
+
+class Sites(NamedTuple):
+    X: torch.Tensor                  # (n, d) float32
+
+
+def solve_inputs(config: dict, seed: int, device) -> Sites:
+    """The sites of a solve deployment: uniform in [0, 1]^d, float32."""
+    gen = generator(seed, _SITES, device)
+    return Sites(X=torch.rand((config["n"], config["d"]), generator=gen, device=device, dtype=torch.float32))
+
+
+def rhs(config: dict, seed: int, index: int, device):
+    """The right-hand side b (n,) of solve request `index`: N(0, 1) entries,
+    float32."""
+    gen = generator(seed, _RHS, device, index + 1)
+    return torch.randn((config["n"],), generator=gen, device=device, dtype=torch.float32)

@@ -5,7 +5,8 @@ BENCHMARK.json, its configuration file, its traffic mix
 (benchmark/traffic/<traffic>.json), its limits (benchmark/limits/<cell>.json)
 and its per-layer metrics' readers (benchmark/metrics/<metric>.py).  The
 traffic's `kind` picks the loop: `train` (Adam steps of GPProblem.make_loss's
-closure) or `predict` (GPProblem.predict requests).
+closure), `predict` (GPProblem.predict requests) or `solve` (PCG solves of
+one deployment's operator, each request a fresh right-hand side).
 """
 
 import gc
@@ -26,6 +27,7 @@ import torch
 from . import check, generator, trace
 from . import spans as spans_mod
 from .reference import gp_reference as ref
+from .reference import solve_reference as sref
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -115,6 +117,7 @@ class Window(NamedTuple):
     stretch: Optional[trace.Stretch]
     stretch_launches: dict
     answers: dict        # what the check compares: the program's side
+    counters: Optional[dict] = None   # the program's own counts over the window
 
 
 class _Traced(NamedTuple):
@@ -301,6 +304,95 @@ def predict_maxits(cell: Cell) -> int:
     return cell.traffic.get("maxits") or 2 * cell.config["problem"]["maxits"] * 10
 
 
+def run_solve(cell: Cell, inp, seconds, traced, dev, t0, seed) -> Window:
+    """Set-up builds the deployment's operator (geometry, radius near-field,
+    clipped coefficients, the packed plan) and its AFN preconditioner (plan
+    and factorization) once; a request solves A x = b for a fresh
+    right-hand side by PCG from x = 0.  What the check reads: the answers
+    of `check_requests` requests of the window, drawn from the seed."""
+    cfg, tr = cell.config, cell.traffic
+    p = cfg["problem"]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    fs, kernels, afn = port("ops.fastsum"), port("ops.kernels"), port("preconds.afn")
+    X, kind = inp.X, p["kernel"]
+    params = kernels.KernelParams.make(p["f"], p["l"], p["mu"], dtype=X.dtype, device=dev)
+    windows = kernels.make_windows(p["windows"])
+    tables = _dtype(p["table_dtype"])
+    geom = fs.additive_fastsum_geometry(X, windows, N=p["fastsum_N"], table_dtype=tables)
+    stencils = fs.additive_nearfield_stencil_direct(geom, kind, p["nf_lfil"])
+    if stencils is None:
+        raise RuntimeError("the radius near-field's cell grid degenerated on these sites")
+    plan = fs.additive_fastsum_coeffs(kind, params, geom, psd_clip=p["psd_clip"], nearfield_lfil=0)
+    pn = fs.packed_ndft_plan(plan, table_dtype=tables, nf_stencils=stencils, nf_require_grad=False)
+    del plan, geom, stencils
+    aplan = afn.afn_plan(kind, params, X, maxrank=p["rank"], lfil=p["lfil"], rank=p["rank"], force_afn=True)
+    pre = afn.afn_setup_from_plan(kind, params, X, aplan, windows=windows)
+    warm = tr["warm_requests"]
+
+    def matvec(v):
+        return fs.packed_ndft_matvec(pn, v)
+
+    def request(i):
+        b = generator.rhs(cfg, seed, i, dev)
+        res = port("solvers.pcg").pcg(matvec, b, precond=pre.solve, tol=p["tol"], maxits=p["maxits"],
+                                      replace_every=p["replace_every"])
+        sync(dev)
+        return res
+
+    def window_request(i):
+        res = request(warm + i)
+        return res.niter, res.converged, res.x, res.relres
+
+    for i in range(warm):
+        request(i)
+    w = _window(window_request, seconds, traced, dev, t0, tr["profile_after"], tr["profile_units"],
+                min_units=tr["check_requests"])
+    units = len(w.outs)
+    failed = sum(not conv for _, conv, _, _ in w.outs)
+    iters = sum(its for its, _, _, _ in w.outs)
+    peak = _peak(dev)
+    picks = sorted(random.Random(seed).sample(range(units), min(tr["check_requests"], units)))
+    answers = {"requests": [warm + i for i in picks], "x": [w.outs[i][2].double().cpu() for i in picks],
+               "relres": [float(w.outs[i][3]) for i in picks]}
+    w.outs.clear()
+    del pn, pre, aplan
+    _free(dev)
+    return Window(units=units, window_s=w.window_s, setup_s=w.setup_s, failed=failed, memory_peak=peak,
+                  spans=w.spans, span_units=w.span_units, launches=w.launches, stretch=w.stretch,
+                  stretch_launches=w.stretch_launches, answers=answers,
+                  counters={"pcg_iters": iters})
+
+
+def solve_operator(cell: Cell, inp, prec: ref.Precision = ref.REFERENCE) -> sref.Operator:
+    """The reference's operator (and dense kernel) of a solve cell's sites."""
+    return sref.Operator(sref.spec_of(cell.config["problem"]), inp.X, prec)
+
+
+def solve_rhs(cell: Cell, inp, seed, requests):
+    """The right-hand sides of the given requests, (len, n)."""
+    return torch.stack([generator.rhs(cell.config, seed, i, inp.X.device) for i in requests])
+
+
+def make_inputs(cell: Cell, seed: int, dev):
+    """The cell's shared inputs from the seed."""
+    if cell.traffic["kind"] == "solve":
+        return generator.solve_inputs(cell.config, seed, dev)
+    return generator.make_inputs(cell.config, seed, dev)
+
+
+def run_program(cell: Cell, inp, seconds, traced, dev, t0, seed) -> Window:
+    """The set-up and the window of the cell's traffic kind."""
+    kind = cell.traffic["kind"]
+    if kind == "train":
+        return run_train(cell, inp, seconds, traced, dev, t0)
+    if kind == "predict":
+        return run_predict(cell, inp, seconds, traced, dev, t0, seed)
+    if kind == "solve":
+        return run_solve(cell, inp, seconds, traced, dev, t0, seed)
+    raise ValueError(f"unknown traffic kind {kind!r}")
+
+
 TRAIN_PARTS = (("setup", ""), ("window", "w_"))     # part of the answers, prefix of its numbers
 
 
@@ -322,6 +414,11 @@ def numbers(cell: Cell, inp, seed, answers: dict, reference=None):
                 nums[prefix + "solve_res"] = ref.solve_residual(reference_problem(cell, inp, "train"),
                                                                 a["start"].x, a["solution"])
         return nums, reference
+    if cell.traffic["kind"] == "solve":
+        op = reference if reference is not None else solve_operator(cell, inp)
+        on_op, on_kernel = sref.residuals(op, solve_rhs(cell, inp, seed, answers["requests"]),
+                                          torch.stack(answers["x"]))
+        return check.solve_numbers(on_op, on_kernel), op
     reference = reference if reference is not None else reference_predict(cell, inp, seed, answers["requests"])
     return check.predict_numbers(answers["means"], reference), reference
 
@@ -334,6 +431,14 @@ def control_answers(cell: Cell, inp, seed, answers: dict, prec: Optional[ref.Pre
     if cell.traffic["kind"] == "train":
         return {part: {"start": answers[part]["start"], "solution": None,
                        **reference_train(cell, inp, answers[part]["start"], prec)} for part, _ in TRAIN_PARTS}
+    if cell.traffic["kind"] == "solve":
+        p = cell.config["problem"]
+        op = solve_operator(cell, inp, prec)
+        maxits = cell.config["control"].get("maxits") or p["maxits"]
+        solves = [sref.cg(op.matvec, b.to(prec.dtype), p["tol"], maxits)
+                  for b in solve_rhs(cell, inp, seed, answers["requests"])]
+        return {"requests": answers["requests"], "x": [x.double().cpu() for x, _ in solves],
+                "steps": [steps for _, steps in solves]}
     return {"requests": answers["requests"],
             "means": reference_predict(cell, inp, seed, answers["requests"], prec)}
 
@@ -350,6 +455,7 @@ class Reading(NamedTuple):
     launches: dict               # wrapper -> {shape: launches} over the window
     stretch: Optional[trace.Stretch]
     stretch_launches: dict
+    counters: Optional[dict] = None   # the program's own counts over the window
 
     def per_unit_ms(self, span):
         s = self.spans.get(span)
@@ -368,21 +474,15 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t0: float) 
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    inp = generator.make_inputs(cell.config, seed, dev)
-    kind = cell.traffic["kind"]
-    if kind == "train":
-        w = run_train(cell, inp, seconds, traced, dev, t0)
-    elif kind == "predict":
-        w = run_predict(cell, inp, seconds, traced, dev, t0, seed)
-    else:
-        raise ValueError(f"unknown traffic kind {kind!r}")
+    inp = make_inputs(cell, seed, dev)
+    w = run_program(cell, inp, seconds, traced, dev, t0, seed)
     nums, _ = numbers(cell, inp, seed, w.answers)
     correct, checks = check.verdict(nums, cell.limits)
     correct = correct and w.failed == 0 and w.units > 0
     metrics = {}
     if traced:
         reading = Reading(cell=cell, units=w.units, spans=w.spans, span_units=w.span_units, launches=w.launches,
-                          stretch=w.stretch, stretch_launches=w.stretch_launches)
+                          stretch=w.stretch, stretch_launches=w.stretch_launches, counters=w.counters)
         for m in cell.per_layer:
             v = read_metric(m["name"], reading)
             if v is not None:

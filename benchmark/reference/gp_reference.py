@@ -75,7 +75,11 @@ def base_kernel(kind: str, r2, l):  # noqa: E741
     if kind == "gaussian":
         k = torch.exp(-r2 / (2.0 * l * l))
         return k, r2 / (l * l * l) * k
-    raise ValueError(f"the reference covers the gaussian kernel, not {kind}")
+    if kind == "matern12":
+        r = torch.sqrt(r2)
+        k = torch.exp(-r / l)
+        return k, r / (l * l) * k
+    raise ValueError(f"the reference covers the gaussian and matern12 kernels, not {kind}")
 
 
 def round_to(x, dtype):

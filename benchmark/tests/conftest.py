@@ -15,9 +15,12 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 # the CPU runs the gaussian training traffic on the stream engine's plain
-# versions, as the card does (GPProblem's "auto" picks it only for CUDA tensors)
-CPU_PROBLEM = {"gauss-add-1e6.train": {"fastsum_engine": "stream"}}
-CPU_N = {"gauss-add-1e6.train": 800, "gauss-add-1e6.predict": 800}
+# versions, as the card does (GPProblem's "auto" picks it only for CUDA tensors);
+# the solve cell at the AFN-PCG bench script's CPU size (N = 64, a
+# 32-neighbour near-field)
+CPU_PROBLEM = {"gauss-add-1e6.train": {"fastsum_engine": "stream"},
+               "m12-afn-pcg-1e5.solve": {"fastsum_N": 64, "nf_lfil": 32}}
+CPU_N = {"gauss-add-1e6.train": 800, "gauss-add-1e6.predict": 800, "m12-afn-pcg-1e5.solve": 2000}
 
 
 def tiny_cell(name, n=None):

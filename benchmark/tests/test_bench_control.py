@@ -11,21 +11,17 @@ import time
 
 import pytest
 
-from benchmark import generator, harness
+from benchmark import harness
 from benchmark.tests.conftest import ROOT
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["gauss-add-1e6.train", "gauss-add-1e6.predict"])
+@pytest.mark.parametrize("name", ["gauss-add-1e6.train", "gauss-add-1e6.predict", "m12-afn-pcg-1e5.solve"])
 def test_control_fails_where_the_program_passes(name, cuda_device):
     cell = harness.load_cell(name, ROOT)
     seed = 90000000001
-    inp = generator.make_inputs(cell.config, seed, cuda_device)
-    t = time.perf_counter()
-    if cell.traffic["kind"] == "train":
-        w = harness.run_train(cell, inp, 0.0, False, cuda_device, t)
-    else:
-        w = harness.run_predict(cell, inp, 0.0, False, cuda_device, t, seed)
+    inp = harness.make_inputs(cell, seed, cuda_device)
+    w = harness.run_program(cell, inp, 0.0, False, cuda_device, time.perf_counter(), seed)
     nums, reference = harness.numbers(cell, inp, seed, w.answers)
     assert harness.check.verdict(nums, cell.limits)[0], nums
     ctl = harness.numbers(cell, inp, seed, harness.control_answers(cell, inp, seed, w.answers), reference)[0]

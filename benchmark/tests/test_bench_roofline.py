@@ -37,6 +37,20 @@ def test_ndft_least_seconds_reads_the_counters():
         roofline.least_seconds(*roofline.launch_work("adjoint", 1000, 3, 1, 34, 1)))
 
 
+def test_wide_pair_at_2p_256_counts_the_plain_contraction():
+    # one pair, n = 1e5, 2P = 256, one right-hand side or weight set: the
+    # plain contraction's 2 n (2P)^2 operations at the bf16 peak (13.2 us),
+    # as every other launch, whichever units the wide kernels use
+    flops = 2.0 * 100_000 * 256 * 256
+    for op in ("adjoint", "forward"):
+        assert roofline.launch_work(op, 100_000, 1, 0, 256, 1)[0] == flops
+    want = flops / 989e12
+    assert want == pytest.approx(1.325e-5, rel=1e-3)
+    assert roofline.least_seconds(*roofline.launch_work("adjoint", 100_000, 1, 0, 256, 1)) == pytest.approx(want)
+    launches = {"packed_adjoint_wide": {"2P=256 nv=1": 15}, "packed_forward_wide": {"2P=256 nsets=1": 15}}
+    assert roofline.ndft_least_seconds(launches, 100_000, [[0, 1]], 256) == pytest.approx(30 * want)
+
+
 def test_kernel_names_select_the_ndft_kernels():
     names = roofline.ndft_kernel_names()
     kernels = {"void adjoint_tc_kernel<32, 5>(Args)": 2e-3, "void forward_regen_tc_kernel<34>(x)": 1e-3,

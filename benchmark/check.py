@@ -19,7 +19,10 @@ within a few thousandths of the others' at the start, so float32 rounding
 flips the sign of its Adam steps on some seeds and its own change is noise
 (PERF.md gives both readings).  Leaves whose reference gradient is under a
 thousandth of the median leaf's move by round-off alone and are left out of
-the change.
+the change.  With AFN, `plan_bad` (limit 0) is 1 where the program's plan is
+not the configuration's AFN plan (benchmark/reference/afn_reference.py
+`plan_faults`), and the reference, which follows that plan's structure,
+is then not run: every other number is missing and fails.
 
 Prediction: per compared request the largest gap of a posterior mean over
 the reference's largest mean, the worst request counting.

@@ -87,7 +87,8 @@ def main(argv=None) -> int:
             emit("program", seed, nums, {"units": w.units, "window_s": w.window_s, "failed": w.failed,
                                          "setup_s": w.setup_s, "reference_s": time.perf_counter() - t,
                                          "claimed": w.answers.get("relres"),
-                                         "counters": w.counters, "detail": _detail(w.answers, reference)})
+                                         "counters": w.counters, "detail": _detail(w.answers, reference),
+                                         "repaired": w.answers.get("repaired")})
         witness = harness.ref.Precision(getattr(torch, args.witness_dtype), False)
         for kind, prec in (("control", None), ("witness", witness)):
             if seed in seeds[kind]:
@@ -95,7 +96,7 @@ def main(argv=None) -> int:
                 emit(kind, seed, harness.numbers(cell, inp, seed, other, reference)[0],
                      {"steps": other["steps"]} if "steps" in other else None)
         if seed in seeds["fault"]:
-            for name, fault in faults.FAULTS[cell.traffic["kind"]].items():
+            for name, fault in faults.for_cell(cell).items():
                 if args.faults and name not in args.faults.split(","):
                     continue
                 with fault():

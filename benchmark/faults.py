@@ -4,14 +4,16 @@ Each fault is a context manager that breaks the timed path underneath the
 harness and restores it on exit: `benchmark/control.py` reads what each
 does to the compared numbers on the card, and
 benchmark/tests/test_bench_faults.py sees `correct` come out false under
-each.  The cells run on one chip, so the exchange between chips is not
-among them.
+each.  `for_cell` gives a cell its traffic kind's faults and those of the
+layers its configuration has (AFN, a near-field).  The cells run on one
+chip, so the exchange between chips is not among them.
 """
 
 from contextlib import contextmanager
 
 import torch
 
+from .harness import nearfield_lfil
 from .spans import PORT
 
 
@@ -161,9 +163,66 @@ def altered_solution():
         yield
 
 
+@contextmanager
+def afn_trace_dropped():
+    """AFN's trace tr(M^-1 dM_j) reads 0."""
+    Afn = _mod("preconds.afn").AfnPrecond
+    with _patched(Afn, "trace", lambda self: torch.zeros(3, dtype=self.L11.dtype, device=self.L11.device)):
+        yield
+
+
+@contextmanager
+def dvp_dropped():
+    """AFN's dvp runs with the Schur FSAI's gradient values zeroed (its trace
+    keeps them)."""
+    Afn = _mod("preconds.afn").AfnPrecond
+    orig = Afn.dvp
+
+    def dvp(self, z):
+        kept = self.gs.dval
+        self.gs.dval = torch.zeros_like(kept)
+        try:
+            return orig(self, z)
+        finally:
+            self.gs.dval = kept
+
+    with _patched(Afn, "dvp", dvp):
+        yield
+
+
+@contextmanager
+def nearfield_grad_dropped():
+    """The radius near-field's dK/dl values are zero (its K values kept)."""
+    fs = _mod("ops.fastsum")
+    orig = fs._nf_direct_values
+
+    def values(*a, **kw):
+        entry = orig(*a, **kw)
+        return entry if entry.A_l is None else entry._replace(A_l=torch.zeros_like(entry.A_l))
+
+    with _patched(fs, "_nf_direct_values", values):
+        yield
+
+
 FAULTS = {
     "train": {"state_unchanged": state_unchanged, "half_batch": half_batch_train, "altered_answer": altered_loss},
     "predict": {"half_batch": half_batch_predict, "altered_answer": altered_mean},
     "solve": {"half_iterations": half_iterations, "nearfield_dropped": nearfield_dropped,
               "half_batch": half_batch_solve, "altered_answer": altered_solution},
 }
+
+AFN_FAULTS = {"afn_trace_dropped": afn_trace_dropped, "dvp_dropped": dvp_dropped}
+NEARFIELD_FAULTS = {"nearfield_dropped": nearfield_dropped, "nearfield_grad_dropped": nearfield_grad_dropped}
+
+
+def for_cell(cell) -> dict:
+    """The faults a cell can have: its traffic kind's, AFN's where a training
+    configuration states AFN, the near-field's where it states one."""
+    out = dict(FAULTS[cell.traffic["kind"]])
+    p = cell.config["problem"]
+    if cell.traffic["kind"] == "train":
+        if p.get("precond") == "afn":
+            out.update(AFN_FAULTS)
+        if nearfield_lfil(p) > 0:
+            out.update(NEARFIELD_FAULTS)
+    return out

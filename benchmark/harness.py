@@ -26,6 +26,7 @@ import torch
 
 from . import check, generator, trace
 from . import spans as spans_mod
+from .reference import afn_reference as aref
 from .reference import gp_reference as ref
 from .reference import solve_reference as sref
 
@@ -173,15 +174,49 @@ def _free(dev):
         torch.cuda.empty_cache()
 
 
-def reference_problem(cell: Cell, inp: generator.Inputs, which: str) -> ref.Problem:
+def nearfield_lfil(problem: dict) -> int:
+    """The near-field's size the configuration states (GPProblem's default
+    where it states none: 16 for matern12, else 0)."""
+    nf = problem.get("fastsum_nearfield_lfil")
+    return (16 if problem["kernel"] == "matern12" else 0) if nf is None else nf
+
+
+def reference_problem(cell: Cell, inp: generator.Inputs, which: str, prec: ref.Precision = ref.REFERENCE,
+                      plan: Optional[aref.Plan] = None) -> ref.Problem:
+    """The reference's problem: the configuration's windows, preconditioner
+    (AFN on `plan`'s structure) and, in training, its near-field, whose
+    pairs are found here once, on the points in `prec`'s dtype."""
     cfg = cell.config
     p = cfg["problem"]
     spec = cfg["reference"][which]
     specs = tuple(ref.WindowSpec(feats=tuple(w), nyquist=spec["nyquist"],
                                  table=_dtype(spec["tables"].get(str(len(w)))))
                   for w in p["windows"])
+    nearfield, nf = None, nearfield_lfil(p)
+    if which == "train" and nf > 0:
+        X = inp.X.to(prec.dtype)
+        with ref.tf32_mode(prec.tf32):
+            nearfield = tuple(sref.NearField(*ref.scaled_points(X[:, list(w)], prec.dtype), nf)
+                              for w in p["windows"])
     return ref.Problem(kind=p["kernel"], X=inp.X, y=inp.y, probes=inp.probes, landmarks=inp.landmarks,
-                       specs=specs, N=p["fastsum_N"], rank=p["rank"], maxits=p["maxits"], tol=p["tol"])
+                       specs=specs, N=p["fastsum_N"], rank=p["rank"], maxits=p["maxits"], tol=p["tol"],
+                       precond=p["precond"], plan=plan, nearfield=nearfield)
+
+
+def plan_structure(plan) -> aref.Plan:
+    """The structure of the port's AFN plan, on the host."""
+    return aref.Plan(perm=plan.perm.cpu(), k=int(plan.k), use_ran=bool(plan.use_ran),
+                     idx=plan.pattern[0].cpu(), mask=plan.pattern[1].cpu())
+
+
+def plan_faults(cell: Cell, answers: dict) -> list:
+    """What is wrong with the AFN plan a training run's answers hold (none
+    without AFN)."""
+    p = cell.config["problem"]
+    if p["precond"] != "afn":
+        return []
+    plan = answers.get("plan")
+    return ["no AFN plan"] if plan is None else aref.plan_faults(plan, cell.config["n"], p["rank"])
 
 
 def _dtype(name):
@@ -212,7 +247,8 @@ def run_train(cell: Cell, inp, seconds, traced, dev, t0) -> Window:
     window steps the same closure on.  What the check reads: the first
     `check_steps` steps of the set-up and the first `check_steps` of the
     window, which run whatever the set-up left behind (a captured graph, a
-    cache) on the timed path."""
+    cache) on the timed path; with AFN, the plan's structure, and the rows
+    of the Schur FSAI that the set-up's factorizations repaired."""
     cfg, tr = cell.config, cell.traffic
     adam = port("models.adam")
     hp = cfg["adam"]
@@ -220,7 +256,9 @@ def run_train(cell: Cell, inp, seconds, traced, dev, t0) -> Window:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     prob = port("models.problem").GPProblem(**cfg["problem"])
-    loss_fn = prob.make_loss(inp.X, inp.y, probes=inp.probes, landmarks=inp.landmarks)
+    # an AFN plan is made at the starting hyperparameters, as GPProblem.fit makes it
+    params0 = tuple(math.log1p(math.exp(v)) for v in cfg["raw_params0"])
+    loss_fn = prob.make_loss(inp.X, inp.y, params0, probes=inp.probes, landmarks=inp.landmarks)
     x0 = torch.tensor(cfg["raw_params0"], dtype=inp.X.dtype, device=dev)
     state = [adam.adam_init(x0)]
     taken, compared = [], {}
@@ -239,13 +277,17 @@ def run_train(cell: Cell, inp, seconds, traced, dev, t0) -> Window:
                 taken.clear()
         return ls[0]
 
+    repaired = []
     with spans_mod.captured(solve):
-        for s in range(tr["setup_steps"]):
-            step(s, "setup")
+        with spans_mod.kept_breakdowns(repaired):
+            for s in range(tr["setup_steps"]):
+                step(s, "setup")
         w = _window(lambda i: step(i, "window"), seconds, traced, dev, t0, tr["profile_after"], tr["profile_units"],
                     min_units=check)
     failed = sum(not math.isfinite(float(v)) for v in w.outs)
     peak = _peak(dev)
+    if prob.afn_plan_ is not None:
+        compared.update(plan=plan_structure(prob.afn_plan_), repaired=[int(b) for b in repaired])
     del loss_fn, prob, state
     _free(dev)
     return Window(units=len(w.outs), window_s=w.window_s, setup_s=w.setup_s, failed=failed, memory_peak=peak,
@@ -253,10 +295,10 @@ def run_train(cell: Cell, inp, seconds, traced, dev, t0) -> Window:
                   stretch_launches=w.stretch_launches, answers=compared)
 
 
-def reference_train(cell: Cell, inp, start: ref.AdamStart, prec: ref.Precision = ref.REFERENCE) -> dict:
+def reference_train(cell: Cell, rp: ref.Problem, start: ref.AdamStart, prec: ref.Precision = ref.REFERENCE) -> dict:
     """The reference's (or, at a lower precision, the control's) steps from
-    an Adam state."""
-    losses, g1, x = ref.adam_steps(reference_problem(cell, inp, "train"), start, cell.traffic["check_steps"], prec)
+    an Adam state, on the reference's problem `rp` (made in `prec`)."""
+    losses, g1, x = ref.adam_steps(rp, start, cell.traffic["check_steps"], prec)
     return {"losses": losses, "grad1": g1.cpu(), "change": (x - start.x.to(x)).cpu()}
 
 
@@ -405,14 +447,21 @@ def numbers(cell: Cell, inp, seed, answers: dict, reference=None):
     if cell.traffic["kind"] == "train":
         reference = dict(reference or {})
         nums = {}
+        if cell.config["problem"]["precond"] == "afn":
+            # a plan that is not the configuration's AFN plan sets every other number missing
+            nums["plan_bad"] = float(bool(plan_faults(cell, answers)))
+            if nums["plan_bad"]:
+                return nums, reference
+        rp = None
         for part, prefix in TRAIN_PARTS:
             a = answers[part]
+            if rp is None and (part not in reference or a.get("solution") is not None):
+                rp = reference_problem(cell, inp, "train", plan=answers.get("plan"))
             if part not in reference:
-                reference[part] = reference_train(cell, inp, a["start"])
+                reference[part] = reference_train(cell, rp, a["start"])
             nums.update(check.train_numbers(a, reference[part], prefix))
             if a.get("solution") is not None:
-                nums[prefix + "solve_res"] = ref.solve_residual(reference_problem(cell, inp, "train"),
-                                                                a["start"].x, a["solution"])
+                nums[prefix + "solve_res"] = ref.solve_residual(rp, a["start"].x, a["solution"])
         return nums, reference
     if cell.traffic["kind"] == "solve":
         op = reference if reference is not None else solve_operator(cell, inp)
@@ -429,8 +478,10 @@ def control_answers(cell: Cell, inp, seed, answers: dict, prec: Optional[ref.Pre
     the same starts as the program's."""
     prec = prec or control_precision(cell.config)
     if cell.traffic["kind"] == "train":
-        return {part: {"start": answers[part]["start"], "solution": None,
-                       **reference_train(cell, inp, answers[part]["start"], prec)} for part, _ in TRAIN_PARTS}
+        rp = reference_problem(cell, inp, "train", prec, answers.get("plan"))
+        out = {part: {"start": answers[part]["start"], "solution": None,
+                      **reference_train(cell, rp, answers[part]["start"], prec)} for part, _ in TRAIN_PARTS}
+        return {**out, "plan": answers.get("plan")} if "plan" in answers else out
     if cell.traffic["kind"] == "solve":
         p = cell.config["problem"]
         op = solve_operator(cell, inp, prec)

@@ -2,9 +2,10 @@
 
 What the benchmark holds the port's outputs against.  Plain torch, on any
 device, in float64 unless a `Precision` says otherwise; it imports nothing of
-the port and takes nothing the port made.  From the shared inputs (points,
-labels, probes, Nystrom landmarks) it works out again the window geometry,
-the Fourier coefficients, the Nystrom preconditioner, the solves, the SLQ
+the port and takes nothing the port made but an AFN plan's structure
+(afn_reference.py).  From the shared inputs (points, labels, probes,
+Nystrom landmarks) it works out again the window geometry, the Fourier
+coefficients, the near-field, the preconditioner, the solves, the SLQ
 estimate, the loss, its gradient, the Adam steps and the posterior mean.
 The Adam steps may start from a given optimizer state (the program's, late
 in a window); the residual of a given solve is read on its own operator.
@@ -19,9 +20,14 @@ Gaussian_Processes_with_Fourier_Acceleration, SRC/):
   on the (2N)^d torus grid, FFT, the central N modes per dimension
   (k = -N/2 .. N/2 - 1; "trimmed": without k = -N/2); k_w(x_i, x_j) =
   sum_k b_k cos(2 pi k.(x_i - x_j)), applied as an NDFT in exponential form;
+- where the configuration states a near-field (Matern-1/2), each window's
+  tapered radius correction on every pair within rho (solve_reference.py's
+  `NearField`, its pairs found once by the harness), valued at l from the
+  coefficients over all N modes, and its d/dl from theirs;
 - the stabilized Nystrom preconditioner M = K1 (K11 + nu I)^-1 K1' + eta I,
   eta = mu f^2, nu = sqrt(k) ulp(||K11||_F) of the configuration's working
   precision (float32); dM_mu = f^2 I, the eta derivative left out of dM_f;
+  or AFN on the plan's structure (afn_reference.py);
 - loss = 0.5 (y'K^-1 y / n + logdet K / n + log 2 pi), K^-1 y by FGMRES
   (Krylov dimension and steps 2 maxits), logdet and tr(K^-1 dK) by
   preconditioned SLQ (maxits Lanczos steps over the probes);
@@ -39,6 +45,8 @@ from contextlib import contextmanager
 from typing import NamedTuple, Optional
 
 import torch
+
+from .afn_reference import Afn
 
 LOG_2PI = math.log(2.0 * math.pi)
 ADAM = dict(alpha=0.01, beta1=0.9, beta2=0.999, eps=1e-8)
@@ -229,9 +237,11 @@ def ndft_forward(E, G):
 # --- the operator ---------------------------------------------------------------------
 
 class Window:
-    """One window's scaled points, phase tables and coefficients."""
+    """One window's scaled points, phase tables and coefficients, and its
+    near-field's values where it has the pairs `nf` (a NearField of its
+    scaled points)."""
 
-    def __init__(self, kind, spec: WindowSpec, X, params, N, prec: Precision, eval_rows=None):
+    def __init__(self, kind, spec: WindowSpec, X, params, N, prec: Precision, eval_rows=None, nf=None):
         self.d = len(spec.feats)
         self.spec = spec
         x, self.scale = scaled_points(X[:, list(spec.feats)], prec.dtype)
@@ -242,6 +252,10 @@ class Window:
         kvec = modes(N, spec.nyquist, prec.dtype, X.device)
         rows = slice(None) if eval_rows is None else eval_rows
         self.E = phase_tables(x[rows], kvec, spec.table)
+        self.nf, self.near = nf, None
+        if nf is not None:
+            full, dfull = coefficients(kind, l, self.scale, N, self.d, nyquist=True)
+            self.near = {"k": nf.values(kind, l, full), "l": nf.values(kind, l, dfull, grad=True)}
 
     def sums(self, V, families):
         """Per family ('k', 'l') the window's kernel sum of the rows of V."""
@@ -249,16 +263,21 @@ class Window:
         outs = []
         for fam in families:
             w = self.b if fam == "k" else self.db
-            outs.append(ndft_forward(self.E, (w * A[0], -w * A[1])))
+            out = ndft_forward(self.E, (w * A[0], -w * A[1]))
+            if self.near is not None:
+                out = out + self.nf.apply(*self.near[fam], V)
+            outs.append(out)
         return outs
 
 
 class AdditiveOperator:
-    """K and its gradient rows on the rows of V (nv, n)."""
+    """K and its gradient rows on the rows of V (nv, n); `nearfield`: each
+    window's NearField, or None."""
 
-    def __init__(self, kind, specs, X, params, N, prec: Precision):
+    def __init__(self, kind, specs, X, params, N, prec: Precision, nearfield=None):
         self.f, self.l, self.mu = params
-        self.windows = [Window(kind, s, X, params, N, prec) for s in specs]
+        nfs = nearfield if nearfield is not None else (None,) * len(specs)
+        self.windows = [Window(kind, s, X, params, N, prec, nf=nf) for s, nf in zip(specs, nfs)]
 
     def _sums(self, V, families):
         acc = [torch.zeros_like(V) for _ in families]
@@ -277,7 +296,30 @@ class AdditiveOperator:
         return torch.stack([2.0 * self.f * (k + self.mu * V), f2 * dl, f2 * V], dim=1)
 
 
-# --- Nystrom ---------------------------------------------------------------------------
+# --- preconditioners -------------------------------------------------------------------
+
+def kernel_with_grad(kind, windows, params):
+    """kernel(A, B=None) -> (K, dK): the additive kernel f^2 (mean_w k_w + mu I)
+    between point sets (..., a, d) and (..., b, d), batched over leading
+    dimensions, exact distances, the noise on the diagonal where B is None;
+    dK (3, ..., a, b) its derivatives in (f, l, mu)."""
+    f, l, mu = params  # noqa: E741
+
+    def kernel(A, B=None):
+        same = B is None
+        B = A if same else B
+        k = dk = 0.0
+        for feats in windows:
+            D2 = sum(torch.square(A[..., :, j, None] - B[..., None, :, j]) for j in feats)
+            kw, dkw = base_kernel(kind, D2, l)
+            k, dk = k + kw, dk + dkw
+        k, dk = k / len(windows), dk / len(windows)
+        eye = torch.eye(k.shape[-1], dtype=k.dtype, device=k.device) if same else torch.zeros_like(k)
+        kmu = k + mu * eye
+        return f * f * kmu, torch.stack([2.0 * f * kmu, f * f * dk, (f * f * eye).expand_as(k)])
+
+    return kernel
+
 
 def additive_kernel(kind, X, Y, windows, l):  # noqa: E741
     """(mean_w k_w, mean_w dk_w/dl) between point sets, exact distances."""
@@ -400,8 +442,9 @@ def fgmres(matvec, b, psolve, kdim: int, maxits: int, tol: float):
             return x, total
 
 
-def slq(matvec, dmatvec, probes, maxits: int, pre: Nystrom):
-    """Preconditioned SLQ: logdet(K)/n and tr(K^-1 dK_j)/n over the probes.
+def slq(matvec, dmatvec, probes, maxits: int, pre):
+    """Preconditioned SLQ: logdet(K)/n and tr(K^-1 dK_j)/n over the probes;
+    `pre` has the preconditioners' solve, logdet, trace and dvp.
 
     Lanczos with full reorthogonalization on each probe; a probe whose
     recursion breaks down (a norm or sqrt(v'w) under eps) stops there, and
@@ -478,6 +521,19 @@ class Problem(NamedTuple):
     rank: int = 50
     maxits: int = 10
     tol: float = 1e-6
+    precond: str = "nystrom"        # "nystrom" (on the landmarks) | "afn" (on the plan)
+    plan: Optional[object] = None   # afn_reference.Plan: AFN's structure
+    nearfield: Optional[tuple] = None   # per window its NearField, in the working dtype; None: no near-field
+
+
+def preconditioner(prob: Problem, X, params):
+    """The configuration's preconditioner at params, on X in the working dtype."""
+    windows = [s.feats for s in prob.specs]
+    if prob.precond == "afn":
+        return Afn(kernel_with_grad(prob.kind, windows, params), X, prob.plan)
+    if prob.precond != "nystrom":
+        raise ValueError(f"the reference covers the nystrom and afn preconditioners, not {prob.precond}")
+    return Nystrom(prob.kind, X, prob.landmarks, windows, params, prob.rank)
 
 
 def _params(raw, prec, device):
@@ -491,8 +547,8 @@ def loss_and_grad(prob: Problem, raw, prec: Precision = REFERENCE):
         X, y = prob.X.to(prec.dtype), prob.y.to(prec.dtype)
         params, dt = _params(raw, prec, X.device)
         n = X.shape[0]
-        op = AdditiveOperator(prob.kind, prob.specs, X, params, prob.N, prec)
-        pre = Nystrom(prob.kind, X, prob.landmarks, [s.feats for s in prob.specs], params, prob.rank)
+        op = AdditiveOperator(prob.kind, prob.specs, X, params, prob.N, prec, prob.nearfield)
+        pre = preconditioner(prob, X, params)
         its = min(n, 2 * prob.maxits)
         iky, _ = fgmres(op.matvec, y, pre.solve, its, its, prob.tol)
         L1 = torch.dot(y, iky) / n
@@ -540,7 +596,7 @@ def solve_residual(prob: Problem, raw, solution, prec: Precision = REFERENCE):
         x = torch.zeros_like(y)
         sol = solution.to(device=y.device, dtype=prec.dtype).reshape(-1)[: y.shape[0]]
         x[: sol.shape[0]] = sol
-        op = AdditiveOperator(prob.kind, prob.specs, X, params, prob.N, prec)
+        op = AdditiveOperator(prob.kind, prob.specs, X, params, prob.N, prec, prob.nearfield)
         return float(torch.linalg.norm(y - op.matvec(x[None])[0]) / torch.linalg.norm(y))
 
 
@@ -552,7 +608,7 @@ def posterior_mean(prob: Problem, raw, tests, maxits: int, prec: Precision = REF
         params, _ = _params(raw, prec, X.device)
         n = X.shape[0]
         op = AdditiveOperator(prob.kind, prob.specs, X, params, prob.N, prec)
-        pre = Nystrom(prob.kind, X, prob.landmarks, [s.feats for s in prob.specs], params, prob.rank)
+        pre = preconditioner(prob, X, params)
         its = min(n, maxits)
         x, _ = fgmres(op.matvec, y, pre.solve, its, its, prob.tol)
         del op, pre

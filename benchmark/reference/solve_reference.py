@@ -123,6 +123,36 @@ def fourier_sum(b, D):
     return out
 
 
+class NearField:
+    """The tapered radius near-field's pairs on one window's scaled points x
+    (scaled by `scale` from the sites): found once, valued at any
+    lengthscale."""
+
+    def __init__(self, x, scale: float, nf_lfil: int):
+        self.scale = scale
+        self.rho = radius(x, nf_lfil)
+        self.rows, self.cols = radius_pairs(x, self.rho)
+        self.D = x[self.rows] - x[self.cols]
+        self.r = torch.sqrt(torch.sum(self.D * self.D, dim=1))
+        self.taper = torch.square(torch.clamp(1.0 - self.r / self.rho, min=0.0))
+
+    def values(self, kind: str, l, b, grad: bool = False):  # noqa: E741
+        """(diag, values) of the correction for coefficients b (N,)*d (float64,
+        all N modes): the exact kernel at l (grad: its d/dl, with db_l for b)
+        minus the Fourier sum, tapered; diag is the pair i = i (r = 0, taper 1)."""
+        dt = self.D.dtype
+        exact = gr.base_kernel(kind, torch.square(self.r / self.scale), l)[1 if grad else 0]
+        vals = (exact - fourier_sum(b.to(dt), self.D)) * self.taper
+        return (0.0 if grad else 1.0) - torch.sum(b).to(dt), vals
+
+    def apply(self, diag, vals, V):
+        """The symmetric correction on the rows of V (nv, n)."""
+        out = diag * V
+        out.index_add_(1, self.rows, vals * V[:, self.cols])
+        out.index_add_(1, self.cols, vals * V[:, self.rows])
+        return out
+
+
 class Window:
     """One window: its far field (trimmed modes) and near-field pairs."""
 
@@ -137,28 +167,17 @@ class Window:
         trim = (slice(1, None),) * self.d
         self.b = b[trim].reshape(-1).to(dt)
         self.E = gr.phase_tables(x, gr.modes(spec.N, False, dt, X.device), None)
-        self.pairs = None
+        self.nf = None
         if spec.nf_lfil > 0:
-            rho = radius(x, spec.nf_lfil)
-            rows, cols = radius_pairs(x, rho)
-            D = x[rows] - x[cols]
-            r = torch.sqrt(torch.sum(D * D, dim=1))
-            exact, _ = gr.base_kernel(spec.kind, torch.square(r / scale), torch.tensor(spec.l, dtype=dt))
-            taper = torch.square(torch.clamp(1.0 - r / rho, min=0.0))
-            vals = (exact - fourier_sum(b.to(dt), D)) * taper
-            self.diag = 1.0 - torch.sum(b).to(dt)          # the pair i = i: exact 1, taper 1
-            self.pairs = (rows, cols, vals)
+            self.nf = NearField(x, scale, spec.nf_lfil)
+            self.diag, self.vals = self.nf.values(spec.kind, torch.tensor(spec.l, dtype=dt), b)
 
     def far(self, V):
         A = gr.ndft_adjoint(self.E, V)
         return gr.ndft_forward(self.E, (self.b * A[0], -self.b * A[1]))
 
     def near(self, V):
-        rows, cols, vals = self.pairs
-        out = self.diag * V
-        out.index_add_(1, rows, vals * V[:, cols])
-        out.index_add_(1, cols, vals * V[:, rows])
-        return out
+        return self.nf.apply(self.diag, self.vals, V)
 
 
 class Operator:
@@ -178,7 +197,7 @@ class Operator:
             acc = torch.zeros_like(V)
             for w in self.windows:
                 acc += w.far(V)
-                if w.pairs is not None:
+                if w.nf is not None:
                     acc += w.near(V)
             return s.f * s.f * (acc / len(self.windows) + s.mu * V)
 

@@ -1,15 +1,17 @@
 """Spans around the calls into the port's layers, recorded from outside it.
 
-`spans.json` names the callables: a module attribute of the port (wrapped in
-place for the traced run and restored after) and, for a callable handed
-to it as an argument, that argument's name.  A span waits for the device
+`spans.json` names the callables: a module attribute of the port, or a
+method of one of its classes ("Class.method"), wrapped in place for the
+traced run and restored after, and, for a callable handed to it as an
+argument, that argument's name.  A span waits for the device
 before and after the call, so its host seconds hold the device work it
 launched; the profiled stretch of a traced run therefore runs without
 them.  A name the port no longer has is skipped: its metric then reads
 nothing.
 
 `spans.json`'s "solve" names the solver whose answers the check reads
-(`captured`).
+(`captured`); `kept_breakdowns` keeps the rows that AFN's factorizations
+repaired.
 """
 
 import functools
@@ -53,6 +55,16 @@ class SpanLog:
         return spanned
 
 
+def _owner(mod, attr: str):
+    """(the object that holds `attr`'s last name, that name): the module, or
+    a class of it for "Class.method"; None where the port lacks it."""
+    *path, name = attr.split(".")
+    owner = mod
+    for part in path:
+        owner = getattr(owner, part, None)
+    return (None, name) if owner is None else (owner, name)
+
+
 def _with_spanned_args(log, fn, args_spans):
     sig = inspect.signature(fn)
 
@@ -74,19 +86,19 @@ def installed(log: SpanLog, spec_file: Path = HERE / "spans.json"):
     undo = []
     try:
         for entry in spec["wrap"]:
-            mod = importlib.import_module(f"{PORT}.{entry['module']}")
-            fn = getattr(mod, entry["attr"], None)
+            owner, name = _owner(importlib.import_module(f"{PORT}.{entry['module']}"), entry["attr"])
+            fn = getattr(owner, name, None)
             if fn is None:
                 continue
             new = _with_spanned_args(log, fn, entry.get("args", {}))
             if entry.get("span"):
                 new = log.wrap(entry["span"], new)
-            setattr(mod, entry["attr"], new)
-            undo.append((mod, entry["attr"], fn))
+            setattr(owner, name, new)
+            undo.append((owner, name, fn))
         yield log
     finally:
-        for mod, attr, fn in reversed(undo):
-            setattr(mod, attr, fn)
+        for owner, name, fn in reversed(undo):
+            setattr(owner, name, fn)
 
 
 @contextmanager
@@ -114,3 +126,28 @@ def captured(holder: list, spec_file: Path = HERE / "spans.json"):
         yield holder
     finally:
         setattr(mod, spec["attr"], fn)
+
+
+@contextmanager
+def kept_breakdowns(holder: list):
+    """While the block runs, the count of Schur rows each AFN factorization
+    of the loss closure repaired (a 0-d tensor, not read here) is appended
+    to `holder`; a port without the factorization keeps nothing."""
+    mod = importlib.import_module(f"{PORT}.models.problem")
+    fn = getattr(mod, "afn_setup_from_plan", None)
+    if fn is None:
+        yield holder
+        return
+
+    @functools.wraps(fn)
+    def keep(*args, **kwargs):
+        pre = fn(*args, **kwargs)
+        if hasattr(pre, "gs"):
+            holder.append(pre.breakdown)
+        return pre
+
+    mod.afn_setup_from_plan = keep
+    try:
+        yield holder
+    finally:
+        mod.afn_setup_from_plan = fn

@@ -2,8 +2,9 @@
 
 Each test drives the rest of a run (inputs, set-up, window, check) with the
 look for a card skipped and the timed path broken underneath
-(benchmark/faults.py), and sees `correct` come out false; unbroken, it
-comes out true.
+(benchmark/faults.py, the faults each cell can have), and sees `correct`
+come out false with a compared number past its limit; unbroken, it comes
+out true.
 """
 
 import json
@@ -14,23 +15,24 @@ import time
 import pytest
 
 from benchmark import faults, harness
-from benchmark.tests.conftest import ROOT, tiny_cell
+from benchmark.tests.conftest import AFN_CELL, ROOT, afn_cell, tiny_cell
 
-CASES = [(cell, fault) for cell, kind in (("gauss-add-1e6.train", "train"), ("gauss-add-1e6.predict", "predict"))
-         for fault in [None] + sorted(faults.FAULTS[kind])]
+CELLS = {"gauss-add-1e6.train": harness.load_cell("gauss-add-1e6.train", ROOT),
+         "gauss-add-1e6.predict": harness.load_cell("gauss-add-1e6.predict", ROOT), AFN_CELL: afn_cell()}
+CASES = [(cell, fault) for cell, c in CELLS.items() for fault in [None] + sorted(faults.for_cell(c))]
 
 
 @pytest.mark.parametrize("cell,fault", CASES)
 def test_correct_reads_the_fault(cell, fault):
     c = tiny_cell(cell)
-    kind = c.traffic["kind"]
     if fault is None:
         out = harness.run(c, 987654321012, 0.0, False, "cpu", time.perf_counter())
         assert out["correct"], out["checks"]
         return
-    with faults.FAULTS[kind][fault]():
+    with faults.for_cell(c)[fault]():
         out = harness.run(c, 987654321012, 0.0, False, "cpu", time.perf_counter())
     assert not out["correct"], out["checks"]
+    assert any(not c["value"] <= c["limit"] for c in out["checks"].values()), out["checks"]
 
 
 def test_a_run_loads_no_jax():

@@ -47,7 +47,7 @@ def test_operator_matches_the_port_in_float64():
     op = sref.Operator(sref.Spec("matern12", ((0, 1),), 1.0, 0.1, 0.01, 64, 32, True), X)
     assert _rel(op.matvec(V), fs.packed_ndft_matvec_batch(pn, V)) < 1e-10
     # the same pairs as the port's radius stencil, each once a direction
-    assert 2 * op.windows[0].pairs[0].numel() + 2000 == stencils[0][0].pos.numel()
+    assert 2 * op.windows[0].nf.rows.numel() + 2000 == stencils[0][0].pos.numel()
 
 
 def test_dense_kernel_matches_the_port():

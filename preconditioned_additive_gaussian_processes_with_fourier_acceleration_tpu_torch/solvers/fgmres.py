@@ -12,7 +12,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..utils.timers import host_read, span
+from ..utils.timers import count, host_read, span
 from .reductions import _two_sum, comp_gemv, make_reducers
 
 
@@ -24,10 +24,16 @@ class FgmresResult(NamedTuple):
     converged: bool
 
 
+def _basis(rows: int, n: int, dtype, device) -> torch.Tensor:
+    """Storage for `rows` basis vectors of length n, uninitialised: the
+    solver reads only the rows it has written."""
+    return torch.empty((rows, n), dtype=dtype, device=device)
+
+
 def _cgs2(w, V, compensated: bool = False, norm_fn=torch.linalg.norm, group=None):
-    """Two-pass classical Gram-Schmidt of w against the rows of V (rows past
-    the current step are zero).  Returns (w_orth, h, ||w_orth||).  group:
-    the projections' local partials are summed over its ranks."""
+    """Two-pass classical Gram-Schmidt of w against the rows of V.  Returns
+    (w_orth, h, ||w_orth||).  group: the projections' local partials are
+    summed over its ranks."""
     local = comp_gemv if compensated else (lambda V_, w_: V_ @ w_)
     proj = local if group is None else (lambda V_, w_: group.psum(local(V_, w_)))
     h1 = proj(V, w)
@@ -58,12 +64,17 @@ def fgmres(
     over the ranks, so the small least-squares problem and the stopping
     decisions agree on every rank.
 
+    V and Z are allocated once per call and reused by every cycle; step j
+    reads and writes only their live rows, V[:j + 1] and Z[:j], so a
+    cycle of L steps projects against L (L + 1) / 2 rows, not L (kdim + 1).
+
     Traced as an `fgmres` span with `iters`, `restarts`, `relres` (from
     the residual norm the loop reads), `cycle_its` (the iterations of each
     cycle) and `lucky_t` (per cycle a lucky breakdown ended, its
-    t / (eps ||b||), at most 1); each blocking call is a host_read:
-    the host's scalars read from the device, and the history's scalars and
-    y written to it."""
+    t / (eps ||b||), at most 1); the counter `cgs2_rows` adds the basis
+    rows each step's CGS2 projects against; each blocking call is a
+    host_read: the host's scalars read from the device, and the history's
+    scalars and y written to it."""
     with span("fgmres") as sp:
         n = b.shape[0]
         dtype, dev = b.dtype, b.device
@@ -83,11 +94,11 @@ def fgmres(
         stop = False
         # each cycle starts from the true residual the previous one ended with
         r = b if x0 is None else b - matvec(x)
+        V = _basis(kdim + 1, n, dtype, dev)
+        Z = _basis(kdim, n, dtype, dev)
         while not stop:
             beta = host_read(norm_fn(r), float)
             host_read(beta / safe_normb, lambda v: hist.__setitem__(total_it, v))
-            V = torch.zeros((kdim + 1, n), dtype=dtype, device=dev)
-            Z = torch.zeros((kdim, n), dtype=dtype, device=dev)
             V[0] = r / (1.0 if beta == 0 else beta)
             # the small least-squares problem lives on the host: kdim scalars
             H = [[0.0] * kdim for _ in range(kdim + 1)]
@@ -100,10 +111,11 @@ def fgmres(
             while j < kdim and not inner_stop:
                 zj = psolve(V[j])
                 Z[j] = zj
-                w, h_t, t_t = _cgs2(matvec(zj), V, compensated, norm_fn, group)
+                count("cgs2_rows", j + 1)
+                w, h_t, t_t = _cgs2(matvec(zj), V[: j + 1], compensated, norm_fn, group)
                 h = host_read(h_t, torch.Tensor.tolist)
                 t = host_read(t_t, float)
-                h[j + 1] = t
+                h.append(t)
                 lucky = t <= eps * safe_normb
                 V[j + 1] = w / (1.0 if t == 0 else t)
                 for i in range(j):   # apply the previous rotations to column h
@@ -115,7 +127,7 @@ def fgmres(
                 s = 0.0 if denom == 0 else h[j + 1] / denom
                 cs[j], sn[j] = c, s
                 h[j], h[j + 1] = denom, 0.0
-                for i in range(kdim + 1):
+                for i in range(j + 2):
                     H[i][j] = h[i]
                 gj = g[j]
                 g[j] = c * gj
@@ -128,22 +140,21 @@ def fgmres(
                 lucky_t.append(t / (eps * safe_normb))
 
             # upper-triangular solve R y = g on the j active columns
-            y = torch.zeros(kdim, dtype=dtype, device=dev)
             if j > 0:
                 R = torch.tensor([row[:j] for row in H[:j]], dtype=dtype)
                 ge = torch.tensor(g[:j], dtype=dtype)
-                y[:j] = host_read(torch.linalg.solve_triangular(R, ge[:, None], upper=True)[:, 0],
-                                  lambda t: t.to(dev))
-            if compensated:
-                # TwoSum scan over the kdim axis: the 1/eta-amplified basis terms
-                # cancel catastrophically in a plain sum
-                hi, lo = x, torch.zeros_like(x)
-                for yz in y[:, None] * Z:
-                    hi, e = _two_sum(hi, yz)
-                    lo = lo + e
-                x = hi + lo
-            else:
-                x = x + Z.T @ y
+                y = host_read(torch.linalg.solve_triangular(R, ge[:, None], upper=True)[:, 0],
+                              lambda t: t.to(dev))
+                if compensated:
+                    # TwoSum scan over the cycle's steps: the 1/eta-amplified basis
+                    # terms cancel catastrophically in a plain sum
+                    hi, lo = x, torch.zeros_like(x)
+                    for yz in y[:, None] * Z[:j]:
+                        hi, e = _two_sum(hi, yz)
+                        lo = lo + e
+                    x = hi + lo
+                else:
+                    x = x + Z[:j].T @ y
             total_it += j
             cycle_its.append(j)
             r = b - matvec(x)

@@ -30,9 +30,11 @@ from nfft4gp_torch.ops.kernels import KernelParams as TParams
 from nfft4gp_torch.ops.kernels import additive_kernel_matrix_with_grad as t_add_kg
 from nfft4gp_torch.ops.kernels import make_windows as t_windows
 from nfft4gp_torch.preconds.nystrom import nystrom_setup as t_nys
+from nfft4gp_torch.solvers import fgmres as t_fgmres_mod
 from nfft4gp_torch.solvers.fgmres import fgmres as t_fgmres
 from nfft4gp_torch.solvers.lanczos import lanczos as t_lanczos
 from nfft4gp_torch.solvers.lanczos import slq_logdet as t_slq
+from nfft4gp_torch.utils import timers as t_timers
 
 KRYLOV_RTOL = 1e-9
 ELEM = dict(rtol=1e-12, atol=1e-14)
@@ -67,12 +69,10 @@ def problem():
     return dict(X=X, b=b, probes=probes, tK=tK, tdK=tdK, jK=jK, jdK=jdK, tpre=tpre, jpre=jpre)
 
 
-@pytest.mark.parametrize("use_precond", [False, True])
-@pytest.mark.parametrize("compensated", [False, True])
-def test_fgmres(problem, use_precond, compensated):
-    p = problem
-    kw = dict(kdim=8, maxits=30, tol=1e-7, compensated=compensated)
-    # unpreconditioned GMRES(8) stagnates on K (cond ~ 3e3) and then
+def _fgmres_parity(p, use_precond, **kw):
+    """The port's and the JAX package's fgmres on K (shifted without a
+    preconditioner) and b agree; returns the port's result."""
+    # unpreconditioned GMRES stagnates on K (cond ~ 3e3) and then
     # amplifies rounding chaotically; the shifted K converges and stays
     # comparable
     shift = 0.0 if use_precond else 1.0
@@ -87,6 +87,26 @@ def test_fgmres(problem, use_precond, compensated):
     # later restart cycles start from true residuals that differ at ~1e-9 |b|
     np.testing.assert_allclose(_np(t.res_history), _np(j.res_history), rtol=1e-6, atol=1e-7,
                                equal_nan=True)
+    return t
+
+
+@pytest.mark.parametrize("use_precond", [False, True])
+@pytest.mark.parametrize("compensated", [False, True])
+def test_fgmres(problem, use_precond, compensated):
+    _fgmres_parity(problem, use_precond, kdim=8, maxits=30, tol=1e-7, compensated=compensated)
+
+
+@pytest.mark.parametrize("use_precond", [False, True])
+@pytest.mark.parametrize("compensated", [False, True])
+def test_fgmres_reads_only_the_live_basis_rows(problem, monkeypatch, use_precond, compensated):
+    """With V and Z handed out full of NaN, restarted FGMRES still agrees
+    with the JAX package: no step reads a row it has not written."""
+    monkeypatch.setattr(t_fgmres_mod, "_basis", lambda rows, n, dtype, device: torch.full(
+        (rows, n), float("nan"), dtype=dtype, device=device))
+    with t_timers.tracing() as tr:
+        _fgmres_parity(problem, use_precond, kdim=4, maxits=30, tol=1e-7, compensated=compensated)
+    (sp,) = [s for s in tr.spans if s.name == "fgmres"]
+    assert sp.attrs["restarts"] >= 2
 
 
 @pytest.mark.parametrize("reorth", [dict(), dict(wsize=3), dict(full_reorth=False)],

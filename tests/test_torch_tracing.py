@@ -192,6 +192,8 @@ def test_fgmres_span_records_cycles_and_lucky_breakdowns(case, kdim, maxits, tol
     (sp,) = [s for s in tr.spans if s.name == "fgmres"]
     assert sp.attrs["cycle_its"] == cycle_its and sum(cycle_its) == res.niter
     assert sp.attrs["restarts"] == len(cycle_its) - 1 and len(sp.attrs["lucky_t"]) == lucky
+    # a cycle's step j projects against the j + 1 basis rows written so far
+    assert tr.counters["cgs2_rows"] == sum(L * (L + 1) // 2 for L in sp.attrs["cycle_its"])
     # each breakdown's t / (eps ||b||): at most 1 by the test that ends the cycle
     assert all(0.0 <= t <= 1.0 for t in sp.attrs["lucky_t"])
     if lucky:
